@@ -1,0 +1,5 @@
+from .engine import (METHODS, AdmmState, ProjectionProgram, adjust_rho,
+                     admm_init, admm_penalty, admm_update, build_program)
+
+__all__ = ["METHODS", "AdmmState", "ProjectionProgram", "adjust_rho",
+           "admm_init", "admm_penalty", "admm_update", "build_program"]

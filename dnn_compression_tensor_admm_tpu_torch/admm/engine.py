@@ -1,0 +1,172 @@
+"""ADMM engine: state, bucketed Z-projection, dual ascent, penalty.
+
+* state: per-layer dual U (zeros) and auxiliary Z (= W); training starts
+  with `admm_update(update_u=False)`, which sets Z to the projection of W.
+* each epoch: Z <- proj(W + U); U += W - Z.
+* each step: loss += 0.5 * rho * sum_l ||W_l - Z_l + U_l||^2.
+
+The plan's layers are bucketed by (kind, spec, shape); each bucket is
+stacked into one [L, ...] tensor and projected at once. With
+method='kernel' a Tucker-2 bucket goes through the CUDA factor kernel
+(`ops/cuda/tucker_kernel.py`); a bucket its shared-memory gate refuses,
+and every bucket with another method, goes layer by layer through
+`ops/tucker.py`. U and Z are stored in each parameter's own layout
+(OIHW for convs).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from ..configs.hp import RankPlan, TKSpec
+from ..ops.cuda.tucker_kernel import kernel_supported, tucker2_project_batched
+from ..ops.precision import full_f32
+from ..ops.tucker import tucker2_project
+
+METHODS = ("kernel", "subspace", "svd")
+
+
+@dataclasses.dataclass
+class AdmmState:
+    """Flat name -> tensor maps for the duals U and the targets Z."""
+    u: Dict[str, torch.Tensor]
+    z: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Group:
+    """One bucket: all layers sharing a projection signature."""
+    kind: str
+    names: Tuple[str, ...]
+    spec: object
+    param_shape: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectionProgram:
+    """Static description of the Z-step for one (model, plan) pair."""
+    groups: Tuple[_Group, ...]
+    names: Tuple[str, ...]
+
+
+def _classify(spec, w: torch.Tensor) -> str:
+    if isinstance(spec, TKSpec) and w.dim() == 4:
+        return "tk_conv"
+    raise NotImplementedError(f"{type(spec).__name__} on a {w.dim()}-d weight "
+                              "is not ported yet")
+
+
+def build_program(params: Mapping[str, torch.Tensor],
+                  plan: RankPlan) -> ProjectionProgram:
+    """Bucket the plan's layers; a parameter takes part iff its name is a
+    key of the plan."""
+    buckets: Dict[tuple, list] = {}
+    for name, w in params.items():
+        spec = plan.spec(name)
+        if spec is None:
+            continue
+        key = (_classify(spec, w), spec, tuple(w.shape))
+        buckets.setdefault(key, []).append(name)
+    matched = {n for names in buckets.values() for n in names}
+    missing = set(plan.names()) - matched
+    if missing:
+        raise ValueError(f"plan names not found in params: {sorted(missing)}")
+    groups = tuple(
+        _Group(kind=k[0], spec=k[1], param_shape=k[2], names=tuple(v))
+        for k, v in sorted(buckets.items(), key=lambda kv: kv[1][0]))
+    return ProjectionProgram(groups=groups,
+                             names=tuple(n for g in groups for n in g.names))
+
+
+def admm_init(params: Mapping[str, torch.Tensor],
+              program: ProjectionProgram) -> AdmmState:
+    """U = 0, Z = W."""
+    u, z = {}, {}
+    for name in program.names:
+        w = params[name].detach()
+        u[name] = torch.zeros_like(w)
+        z[name] = w.clone()
+    return AdmmState(u=u, z=z)
+
+
+def _project_one(g: _Group, w: torch.Tensor, *, method: str,
+                 n_iter: int) -> torch.Tensor:
+    """Project one OIHW weight onto the group's Tucker-2 ranks."""
+    sp = g.spec.clamped(w.shape)
+    return tucker2_project(w, sp.out_rank, sp.in_rank, n_iter=n_iter,
+                           method=method)
+
+
+def _project_group_kernel(g: _Group, ts: torch.Tensor,
+                          n_iter: int) -> Optional[torch.Tensor]:
+    """Kernel Z-step for one bucket ts [L, O, I, kh, kw]; None where the
+    kernel's gate refuses the bucket."""
+    l, o, i, kh, kw = ts.shape
+    sp = g.spec.clamped((o, i, kh, kw))
+    x = ts.permute(0, 3, 4, 1, 2).reshape(l, kh * kw, o, i).contiguous()
+    if not kernel_supported(x.shape, sp.out_rank, sp.in_rank):
+        return None
+    z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
+                                sweeps=max(1, n_iter // 3))
+    return z.reshape(l, kh, kw, o, i).permute(0, 3, 4, 1, 2)
+
+
+def _finite_or_prev(z: torch.Tensor, z_prev: torch.Tensor) -> torch.Tensor:
+    """Per layer, replace a non-finite projection by the previous Z (skip
+    this update): late in training the solvers' Gram steps can go
+    singular, and one poisoned layer would NaN the penalty."""
+    ok = torch.isfinite(z.reshape(z.shape[0], -1)).all(dim=1)
+    return torch.where(ok.reshape((-1,) + (1,) * (z.dim() - 1)), z, z_prev)
+
+
+@torch.no_grad()
+@full_f32()
+def admm_update(params: Mapping[str, torch.Tensor], state: AdmmState,
+                program: ProjectionProgram, *, update_u: bool = True,
+                method: str = "svd", n_iter: int = 10
+                ) -> Tuple[AdmmState, Dict[str, torch.Tensor]]:
+    """One Z/U step: Z <- proj(W + U); optionally U += W - Z.
+
+    Returns (new_state, {name: ||W - Z||}) with 0-d tensors."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
+    new_u, new_z = dict(state.u), dict(state.z)
+    residuals: Dict[str, torch.Tensor] = {}
+    for g in program.groups:
+        ws = torch.stack([params[n].detach().float() for n in g.names])
+        us = torch.stack([state.u[n] for n in g.names])
+        zs_prev = torch.stack([state.z[n] for n in g.names])
+        x = ws + us
+        zs = _project_group_kernel(g, x, n_iter) if method == "kernel" else None
+        if zs is None:
+            eff = "subspace" if method == "kernel" else method
+            zs = torch.stack([_project_one(g, t, method=eff, n_iter=n_iter)
+                              for t in x])
+        zs = _finite_or_prev(zs, zs_prev)
+        diffs = ws - zs
+        norms = torch.linalg.vector_norm(diffs.reshape(len(g.names), -1), dim=1)
+        for j, n in enumerate(g.names):
+            new_z[n] = zs[j]
+            if update_u:
+                new_u[n] = state.u[n] + diffs[j]
+            residuals[n] = norms[j]
+    return AdmmState(u=new_u, z=new_z), residuals
+
+
+def admm_penalty(params: Mapping[str, torch.Tensor], state: AdmmState,
+                 program: ProjectionProgram, rho: float) -> torch.Tensor:
+    """0.5 * rho * sum_l ||W_l - Z_l + U_l||^2, differentiable in W."""
+    total = 0.0
+    for name in program.names:
+        d = params[name] - state.z[name] + state.u[name]
+        total = total + torch.sum(d.float() ** 2)
+    return 0.5 * rho * total
+
+
+def adjust_rho(epoch: int, epochs: int, init_rho: float,
+               factor: float = 5.0) -> float:
+    """Late-training rho boost (off by default in the reference)."""
+    return factor * init_rho if epoch > int(0.85 * epochs) else init_rho

@@ -1,0 +1,137 @@
+"""Command line: the JAX package's `cli/main.py` surface for the port's
+slice (ResNet32, Tucker-2, synthetic CIFAR geometry).
+
+Pipeline modes:
+  (default)     train (dense baseline, or ADMM with --admm)
+  --decompose   factorize a dense checkpoint (--model-path) and fine-tune
+  --eval        evaluate a checkpoint (or the freshly decomposed model)
+  --runtime     latency benchmark
+
+Run as `python -m dnn_compression_tensor_admm_tpu_torch ...`; it runs on
+the card unless given `--device cpu`. Checkpoints are torch state dicts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Tensor-decomposition ADMM compression (PyTorch/CUDA)")
+    p.add_argument("--model", default="resnet32", type=str)
+    p.add_argument("--dataset", default="synthetic-cifar10", type=str,
+                   help="synthetic-cifar10 | synthetic-hard-cifar10")
+    p.add_argument("--batch-size", default=256, type=int)
+    p.add_argument("--epochs", default=200, type=int)
+    p.add_argument("--steps-per-epoch", default=None, type=int)
+    p.add_argument("--synthetic-size", default=None, type=int)
+    p.add_argument("--lr", default=0.1, type=float)
+    p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--weight-decay", default=1e-4, type=float)
+    p.add_argument("--min-lr", default=1e-5, type=float)
+    p.add_argument("--smoothing", default=0.0, type=float)
+    p.add_argument("--admm", action="store_true")
+    p.add_argument("--rho", default=0.001, type=float)
+    p.add_argument("--ratio", default="2", type=str)
+    p.add_argument("--admm-method", default="kernel",
+                   choices=["kernel", "subspace", "svd"],
+                   help="Z-step solver: 'kernel' is the CUDA Tucker-2 factor "
+                        "kernel (plain torch on the CPU)")
+    p.add_argument("--decompose", action="store_true")
+    p.add_argument("--model-path", default=None, type=str)
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--runtime", action="store_true")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
+    p.add_argument("--output-dir", default="saved_models", type=str)
+    p.add_argument("--save-model", action="store_true")
+    p.add_argument("--save-log", action="store_true")
+    p.add_argument("--device", default="cuda", type=str,
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import torch
+
+    from ..configs.resolver import get_rank_plan
+    from ..data.datasets import dataset_info, load_dataset
+    from ..models import (compression_ratio, create_model, decompose_params,
+                          parse_compressed_name)
+    from ..train import TrainConfig, eval_runtime, evaluate_model, train_model
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    compressed = parse_compressed_name(args.model)
+    if args.admm and compressed is not None:
+        raise SystemExit("ERROR: --admm requires an uncompressed model name")
+    info = dataset_info(args.dataset)
+    compute_dtype = None if args.fp32 else "bfloat16"
+    kw = {"ratio": args.ratio} if compressed else {}
+
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    init_state = None
+    if args.decompose:
+        if compressed is None:
+            raise SystemExit("ERROR: --decompose needs a compressed model name")
+        if not args.model_path:
+            raise SystemExit("ERROR: --decompose needs --model-path (dense ckpt)")
+        base, fmt, _ = compressed
+        dense = create_model(base, num_classes=info.num_classes)
+        dense.load_state_dict(load(args.model_path))
+        plan = get_rank_plan(args.model, fmt, args.ratio)
+        init_state = decompose_params(dense.to(device).state_dict(), plan)
+        model = create_model(args.model, num_classes=info.num_classes, **kw)
+        model.load_state_dict(init_state)
+        print(f"decomposed {args.model_path}: compression "
+              f"{compression_ratio(dense, model):.2f}x")
+
+    if args.eval or args.runtime:
+        model = create_model(args.model, num_classes=info.num_classes, **kw)
+        if init_state is None:
+            if not args.model_path:
+                raise SystemExit("ERROR: --eval/--runtime need --model-path")
+            init_state = load(args.model_path)
+        model.load_state_dict(init_state)
+        model.to(device)
+        if args.runtime:
+            r = eval_runtime(model, info, batch_size=args.batch_size,
+                             compute_dtype=compute_dtype)
+        else:
+            x, y, _ = load_dataset(args.dataset, False, args.synthetic_size)
+            r = evaluate_model(model, x, y, info, compute_dtype=compute_dtype)
+        print(json.dumps(r))
+        return r
+
+    cfg = TrainConfig(
+        model=args.model, dataset=args.dataset, batch_size=args.batch_size,
+        epochs=args.epochs, steps_per_epoch=args.steps_per_epoch, lr=args.lr,
+        momentum=args.momentum, weight_decay=args.weight_decay,
+        min_lr=args.min_lr, smoothing=args.smoothing, admm=args.admm,
+        rho=args.rho, ratio=args.ratio, admm_method=args.admm_method,
+        seed=args.seed, compute_dtype=compute_dtype,
+        synthetic_size=args.synthetic_size, device=str(device))
+    ts = time.strftime("%m%d-%H%M%S")
+    tag = f"{args.model}_{args.dataset}" + ("_admm_tk" if args.admm else "")
+    if args.save_log:
+        os.makedirs(args.output_dir, exist_ok=True)
+        cfg.log_path = os.path.join(args.output_dir, f"{tag}_{ts}.log")
+    model, history = train_model(cfg, init_state_dict=init_state)
+    if args.save_model:
+        os.makedirs(args.output_dir, exist_ok=True)
+        path = os.path.join(args.output_dir, f"{tag}_{ts}_model.pt")
+        torch.save(model.state_dict(), path)
+        print(f"saved model to {path}")
+    return model, history
+
+
+if __name__ == "__main__":
+    main()

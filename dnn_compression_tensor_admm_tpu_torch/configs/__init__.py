@@ -1,0 +1,5 @@
+from .hp import RankPlan, SVDSpec, TKSpec
+from .resolver import get_rank_plan, register_plan, strip_format_prefix
+
+__all__ = ["RankPlan", "SVDSpec", "TKSpec", "get_rank_plan", "register_plan",
+           "strip_format_prefix"]

@@ -1,0 +1,3 @@
+from .tables import build_tk_plan, reference_tables, table_entry
+
+__all__ = ["build_tk_plan", "reference_tables", "table_entry"]

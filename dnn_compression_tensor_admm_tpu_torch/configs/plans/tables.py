@@ -1,0 +1,43 @@
+"""Build RankPlans from the reference rank tables.
+
+`reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries of
+the JAX package's `configs/plans/reference_hp.json`. TK entries are
+``[out_rank, in_rank]``; a rank list of length 1 means plain SVD.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+
+from ..hp import RankPlan, SVDSpec, TKSpec
+
+_JSON = os.path.join(os.path.dirname(__file__), "reference_hp.json")
+
+
+@functools.cache
+def reference_tables() -> dict:
+    with open(_JSON) as f:
+        return json.load(f)
+
+
+def table_entry(fmt: str, model: str, ratio: str,
+                tt_type: str = "general") -> dict:
+    t = reference_tables()
+    try:
+        return t[fmt][model][f"{ratio}|{tt_type}"]
+    except KeyError:
+        avail = sorted(t.get(fmt, {}).get(model, {}))
+        raise KeyError(f"no reference table for {fmt}/{model}/{ratio}/"
+                       f"{tt_type}; have {avail}") from None
+
+
+def build_tk_plan(model: str, ratio: str) -> RankPlan:
+    layers = {}
+    for name, r in table_entry("tk", model, ratio)["ranks"].items():
+        if isinstance(r, int) or len(r) == 1:
+            layers[name] = SVDSpec(r if isinstance(r, int) else r[0])
+        else:
+            layers[name] = TKSpec(int(r[0]), int(r[1]))
+    return RankPlan("tk", layers)

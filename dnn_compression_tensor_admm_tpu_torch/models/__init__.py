@@ -1,0 +1,7 @@
+from .registry import create_model, list_models, parse_compressed_name, register_model
+from . import resnet_cifar  # noqa: F401  (registers builders and plans)
+from .decompose import compression_ratio, count_params, decompose_params
+
+__all__ = ["compression_ratio", "count_params", "create_model",
+           "decompose_params", "list_models", "parse_compressed_name",
+           "register_model"]

@@ -1,0 +1,49 @@
+"""Decompose: dense state dict -> factorized state dict.
+
+Every plan-targeted kernel is factorized and everything else (BN
+statistics, the head) is copied through, so the fine-tune phase is
+`model.load_state_dict(decompose_params(dense_state_dict, plan))`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..configs.hp import RankPlan, TKSpec
+from ..layers import TKConv2d
+from ..ops.precision import full_f32
+
+
+@full_f32()
+def decompose_params(state_dict: Dict[str, torch.Tensor], plan: RankPlan, *,
+                     method: str = "svd", n_iter: int = 10
+                     ) -> Dict[str, torch.Tensor]:
+    """Factorize every plan layer of a dense model's state dict."""
+    out = dict(state_dict)
+    for name in plan.names():
+        if name not in out:
+            raise KeyError(f"plan layer {name!r} not present in dense params")
+        spec = plan.spec(name)
+        w = out.pop(name)
+        if not (isinstance(spec, TKSpec) and w.dim() == 4):
+            raise NotImplementedError(
+                f"{type(spec).__name__} on a {w.dim()}-d weight is not "
+                f"ported yet ({name})")
+        prefix = name[:-len("weight")]
+        with torch.no_grad():
+            factors = TKConv2d.factorize_dense(w.float(), spec, n_iter=n_iter,
+                                               method=method)
+        out.update({prefix + k: v for k, v in factors.items()})
+    return out
+
+
+def count_params(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def compression_ratio(dense: nn.Module, compressed: nn.Module) -> float:
+    """Dense/compressed parameter-count ratio."""
+    return count_params(dense) / count_params(compressed)

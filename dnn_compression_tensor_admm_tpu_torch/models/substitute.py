@@ -1,0 +1,41 @@
+"""Layer substitution: a dense conv, or the factorized layer a RankPlan
+prescribes for its canonical parameter name."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs.hp import RankPlan, TKSpec
+from ..layers import TKConv2d
+
+
+def kaiming_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+    """He-normal on fan-in, the JAX package's kernel init."""
+    nn.init.kaiming_normal_(w, mode="fan_in", nonlinearity="relu",
+                            generator=generator)
+
+
+def make_conv(in_ch: int, out_ch: int, kernel_size: int, *, stride=1,
+              padding=0, plan: Optional[RankPlan], mode: str, key: str,
+              bias: bool = False,
+              generator: Optional[torch.Generator] = None) -> nn.Module:
+    """`key` is the dense parameter name ('layer1.0.conv1.weight'); a layer
+    is factorized iff the key is in the plan."""
+    spec = plan.spec(key) if plan is not None else None
+    if spec is None:
+        conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
+        kaiming_(conv.weight, generator)
+        if bias:
+            nn.init.zeros_(conv.bias)
+        return conv
+    if isinstance(spec, TKSpec):
+        tk_mode = "reconstruct" if mode == "reconstruct" else "chain"
+        return TKConv2d(in_ch, out_ch, kernel_size, spec, stride=stride,
+                        padding=padding, bias=bias, mode=tk_mode,
+                        generator=generator)
+    raise NotImplementedError(
+        f"{type(spec).__name__} layers are not ported yet ({key})")

@@ -1,0 +1,215 @@
+"""Batched Tucker-2 factor solve: the ADMM Z-step's kernel.
+
+Counterpart of the JAX package's Pallas kernel
+(`ops/pallas/tucker_kernel.py::tucker2_factors_batched`). For each layer
+of an x[L, K, O, I] stack it computes the mode-0/mode-1 Grams, a HOSVD
+start by orthogonal iteration (INIT_ITERS steps) and `sweeps` warm-started
+HOOI sweeps (SWEEP_ITERS steps each), orthonormalising by Newton-Schulz
+(NS_ITERS steps); the CUDA source `csrc/tucker2_factors.cu` says how.
+
+`tucker2_factors_batched` launches the CUDA kernel for a CUDA tensor and
+runs `tucker2_factors_plain`, the same iteration in batched torch
+matmuls, for a CPU tensor. `tucker2_project_batched` rebuilds
+Z_k = U0 (U0^T X_k U1) U1^T from the factors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ..precision import full_f32
+from . import build
+
+# Dynamic shared memory one block may use on Hopper (H100/H200: 227 KB).
+MAX_SMEM_BYTES = 232_448
+
+# The reference kernel's iteration counts; the CUDA source fixes the same
+# values as kInitIters, kSweepIters and kNsIters.
+INIT_ITERS = 8
+SWEEP_ITERS = 3
+NS_ITERS = 12
+
+
+def smem_bytes(o: int, i: int, r0: int, r1: int) -> int:
+    """Shared-memory plan of one block, as `make_plan` in the CUDA source."""
+    n, r = max(o, i), max(r0, r1)
+    floats = n * n + o * r0 + i * r1 + n * r + max(o * r1, r0 * i) + 5 * r * r
+    return 4 * floats
+
+
+def kernel_supported(shape, r0: int, r1: int) -> bool:
+    """True if an [L, K, O, I] bucket fits the kernel's shared-memory plan
+    (the role of the JAX package's `pallas_tk_supported`)."""
+    if len(shape) != 4:
+        return False
+    _, _, o, i = shape
+    r0, r1 = min(r0, o), min(r1, i)
+    return r0 >= 1 and r1 >= 1 and smem_bytes(o, i, r0, r1) <= MAX_SMEM_BYTES
+
+
+def factor_flops(shape, r0: int, r1: int, *, sweeps: int = 2) -> int:
+    """Floating-point operations of one solve (2 per multiply-add)."""
+    l, k, o, i = shape
+    r0, r1 = min(r0, o), min(r1, i)
+
+    def orth(n, r, iters):
+        per = 2 * n * n * r + 2 * n * r * r + NS_ITERS * 3 * 2 * r ** 3 \
+            + 2 * n * r * r
+        return iters * per
+
+    total = 0
+    if r0 < o:
+        total += 2 * k * o * o * i + orth(o, r0, INIT_ITERS)
+        total += sweeps * (k * (2 * o * i * r1 + 2 * o * o * r1)
+                           + orth(o, r0, SWEEP_ITERS))
+    if r1 < i:
+        total += 2 * k * i * i * o + orth(i, r1, INIT_ITERS)
+        total += sweeps * (k * (2 * r0 * o * i + 2 * i * i * r0)
+                           + orth(i, r1, SWEEP_ITERS))
+    return l * total
+
+
+# ---------------------------------------------------------------------------
+# plain version: the same iteration in batched torch matmuls
+
+
+def _eye(l: int, n: int, r: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(n, r, dtype=like.dtype, device=like.device).expand(
+        l, n, r).contiguous()
+
+
+def _ns_inv_sqrt(s: torch.Tensor) -> torch.Tensor:
+    r = s.shape[-1]
+    eye = torch.eye(r, dtype=s.dtype, device=s.device)
+    c = torch.diagonal(s, dim1=-2, dim2=-1).sum(-1)[:, None, None] + 1e-30
+    y = s / c + 1e-6 * eye
+    z = eye.expand_as(s)
+    for _ in range(NS_ITERS):
+        w = 0.5 * (3.0 * eye - z @ y)
+        y = y @ w
+        z = w @ z
+    return z * torch.rsqrt(c)
+
+
+def _orth_iter(g, q, iters: int):
+    for _ in range(iters):
+        y = g @ q
+        s = y.transpose(-1, -2) @ y
+        q = y @ _ns_inv_sqrt(s)
+    return q
+
+
+def _gram0(ms):  # sum_k M_k M_k^T, summed in k order like the reference
+    acc = None
+    for m in ms:
+        p = m @ m.transpose(-1, -2)
+        acc = p if acc is None else acc + p
+    return acc
+
+
+def _gram1(ms):  # sum_k M_k^T M_k
+    acc = None
+    for m in ms:
+        p = m.transpose(-1, -2) @ m
+        acc = p if acc is None else acc + p
+    return acc
+
+
+@full_f32()
+def tucker2_factors_plain(x: torch.Tensor, r0: int, r1: int, *,
+                          sweeps: int = 2):
+    """The kernel's iteration in torch: x [L, K, O, I] -> (U0, U1), in
+    full float32 whatever the process's TF32 setting."""
+    l, k, o, i = x.shape
+    r0, r1 = min(r0, o), min(r1, i)
+    x = x.float()
+    xs = [x[:, kk] for kk in range(k)]
+    u0 = _eye(l, o, r0, x)
+    u1 = _eye(l, i, r1, x)
+    if r0 < o:
+        u0 = _orth_iter(_gram0(xs), u0, INIT_ITERS)
+    if r1 < i:
+        u1 = _orth_iter(_gram1(xs), u1, INIT_ITERS)
+    for _ in range(sweeps):
+        if r0 < o:
+            u0 = _orth_iter(_gram0([xk @ u1 for xk in xs]), u0, SWEEP_ITERS)
+        if r1 < i:
+            u0t = u0.transpose(-1, -2)
+            u1 = _orth_iter(_gram1([u0t @ xk for xk in xs]), u1, SWEEP_ITERS)
+    return u0.contiguous(), u1.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("tucker2_factors")
+    fn = lib.tucker2_factors_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.tucker2_factors_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.tucker2_factors_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def tucker2_factors_batched(x: torch.Tensor, r0: int, r1: int, *,
+                            sweeps: int = 2
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Tucker-2 factor solve: x [L, K, O, I] float32, contiguous ->
+    (U0 [L, O, r0], U1 [L, I, r1]) with r0, r1 clamped to O, I.
+
+    A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
+    through the plain version. `tucker2_factors_batched.launches` counts
+    kernel launches."""
+    if x.dim() != 4:
+        raise ValueError(f"expected x [L, K, O, I], got shape {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    l, k, o, i = x.shape
+    r0, r1 = min(r0, o), min(r1, i)
+    if r0 < 1 or r1 < 1:
+        raise ValueError(f"ranks must be >= 1, got ({r0}, {r1})")
+    if x.device.type == "cpu":
+        return tucker2_factors_plain(x, r0, r1, sweeps=sweeps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not kernel_supported(x.shape, r0, r1):
+        raise ValueError(f"bucket {tuple(x.shape)} at ranks ({r0}, {r1}) "
+                         "exceeds the kernel's shared-memory plan")
+    lib = _library()
+    u0 = torch.empty((l, o, r0), dtype=torch.float32, device=x.device)
+    u1 = torch.empty((l, i, r1), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tucker2_factors_launch(
+            x.data_ptr(), u0.data_ptr(), u1.data_ptr(), l, k, o, i, r0, r1,
+            sweeps, stream)
+    if err != 0:
+        raise RuntimeError(f"tucker2_factors kernel launch failed: CUDA error {err}")
+    tucker2_factors_batched.launches += 1
+    return u0, u1
+
+
+tucker2_factors_batched.launches = 0
+
+
+@full_f32()
+def tucker2_reconstruct(x: torch.Tensor, u0: torch.Tensor,
+                        u1: torch.Tensor) -> torch.Tensor:
+    """Z_k = U0 (U0^T X_k U1) U1^T for x [L, K, O, I], in float32."""
+    xf = x.float()
+    core = torch.einsum("lkoi,lor,lis->lkrs", xf, u0, u1)
+    return torch.einsum("lkrs,lor,lis->lkoi", core, u0, u1).to(x.dtype)
+
+
+def tucker2_project_batched(x: torch.Tensor, r0: int, r1: int, *,
+                            sweeps: int = 2) -> torch.Tensor:
+    """Batched Tucker-2 projection: x [L, K, O, I] -> Z of the same shape."""
+    u0, u1 = tucker2_factors_batched(x, r0, r1, sweeps=sweeps)
+    return tucker2_reconstruct(x, u0, u1)

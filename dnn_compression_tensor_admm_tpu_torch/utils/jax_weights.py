@@ -1,0 +1,97 @@
+"""Weights across packages: JAX (flax) variables <-> the port's state dict.
+
+The JAX variables are given as nested dicts of numpy arrays
+({'params': ..., 'batch_stats': ...}). Layouts:
+
+* conv ``kernel`` HWIO <-> ``weight`` OIHW; Dense ``kernel`` [in, out]
+  <-> Linear ``weight`` [out, in];
+* BN ``scale``/``bias`` <-> ``weight``/``bias`` and ``mean``/``var`` <->
+  ``running_mean``/``running_var`` (``num_batches_tracked`` is added as 0
+  and dropped on the way back);
+* TK ``core_kernel`` HWIO <-> OIHW; ``first_factor`` and ``last_factor``
+  keep their layout.
+
+Flax module names may hold a dot ('layer1.0'); on the way back a purely
+numeric name part is joined to the part before it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..layers.common import canonical_param_name, hwio_to_oihw, oihw_to_hwio
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_STATS_BACK = {v: k for k, v in _STATS.items()}
+
+
+def _walk(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, path + (str(k),))
+        else:
+            yield path + (str(k),), np.asarray(v)
+
+
+def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """JAX variables -> the port's state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, a in _walk(variables.get("params", {})):
+        leaf = path[-1]
+        if leaf == "kernel" and a.ndim == 2:
+            a = a.T
+        elif leaf in ("kernel", "core_kernel") and a.ndim == 4:
+            a = hwio_to_oihw(a)
+        out[canonical_param_name(path)] = torch.from_numpy(np.array(a))
+    for path, a in _walk(variables.get("batch_stats", {})):
+        prefix = ".".join(path[:-1])
+        out[f"{prefix}.{_STATS[path[-1]]}"] = torch.from_numpy(np.array(a))
+        out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def _jax_path(name: str):
+    parts = []
+    for p in name.split("."):
+        if p.isdigit() and parts:
+            parts[-1] = f"{parts[-1]}.{p}"
+        else:
+            parts.append(p)
+    return parts
+
+
+def _put(tree, path, value):
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]):
+    """The port's state dict -> JAX variables (nested numpy dicts)."""
+    params: dict = {}
+    stats: dict = {}
+    for name, t in state_dict.items():
+        path = _jax_path(name)
+        leaf = path[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        a = np.array(t.detach().cpu().numpy())  # a copy, never a view
+        if leaf in _STATS_BACK:
+            _put(stats, path[:-1] + [_STATS_BACK[leaf]], a)
+            continue
+        if leaf == "weight":
+            if a.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+                a = a.T if a.ndim == 2 else oihw_to_hwio(a)
+        elif leaf == "core_kernel":
+            a = oihw_to_hwio(a)
+        _put(params, path[:-1] + [leaf], np.ascontiguousarray(a))
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
