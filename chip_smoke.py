@@ -6,17 +6,23 @@ It imports the port, torch, numpy and the standard library only, and
 prints one JSON line per phase:
 
 1. device  — the card's name, count and power limit;
-2. build   — compiles every CUDA kernel of the main path from `csrc/`;
-3. kernel  — each kernel at the main path's shapes (inputs from --seed)
+2. build   — compiles both CUDA kernels from `csrc/` (two nvcc processes
+   at once) and checks each compiled shared-memory plan against the
+   Python gate at every main-path shape;
+3. kernel  — each kernel at its main path's shapes (inputs from --seed)
    against its plain PyTorch version on the card, with its time, the
-   plain version's, a library yardstick's and the card's bound;
-4. main    — ResNet32 Tucker-2 @3x at full width and batch 256: ADMM
-   (first projection + 2 epochs x 20 steps), decompose, fine-tune 20
-   steps, eval and runtime, counting the kernels' launches.
+   plain version's, a library yardstick's and the card's bound: the
+   Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x, the
+   subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step;
+4. main    — ResNet32 Tucker-2 @3x, then ResNet32 Tensor-Train @3x, each
+   at full width and batch 256: ADMM (first projection + 2 epochs x 20
+   steps), decompose, fine-tune 20 steps, eval and runtime, counting
+   both kernels' launches.
 
-Then the kernel summary, the card's `nvidia-smi` name and power limit,
-and last the line {"ok": true, "device": {...}}. Any failure exits
-non-zero before that line; without CUDA it exits 1 and prints nothing.
+Then the script's wall time, the kernel summary, the card's
+`nvidia-smi` name and power limit, and last the line
+{"ok": true, "device": {...}}. Any failure exits non-zero before that
+line; without CUDA it exits 1 and prints nothing.
 """
 
 import faulthandler
@@ -26,6 +32,7 @@ import sys
 faulthandler.dump_traceback_later(900, exit=True)
 
 import argparse  # noqa: E402
+import concurrent.futures  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -41,6 +48,7 @@ from dnn_compression_tensor_admm_tpu_torch.data.datasets import load_dataset  # 
 from dnn_compression_tensor_admm_tpu_torch.models import (  # noqa: E402
     compression_ratio, create_model, decompose_params)
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.precision import full_f32  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.train import (  # noqa: E402
@@ -57,6 +65,14 @@ Z_REL_TOL = 1e-4
 # ||U U^T - U' U'^T||_F: rounding differences after ~1000 dependent products.
 SUBSPACE_TOL = 1e-3
 SWEEPS = max(1, 6 // 3)  # admm_hooi_iters=6, as the main path runs it
+# The subspace kernel against its plain version: ||Q Q^T - P P^T||_F below
+# 1e-3 (the same float32 iteration, 8 x 12 dependent Newton-Schulz steps,
+# summed in another order), and Q Q^T t against P P^T t within 1e-4
+# relative (what the TT sweep carries on; a few 1e-7 on the CPU against
+# the Pallas kernel).
+TT_PROJ_TOL = 1e-3
+TT_REL_TOL = 1e-4
+TT_ITERS = max(8, 6)  # iters = max(8, admm_hooi_iters), as the Z-step runs it
 
 
 def emit(obj) -> None:
@@ -81,17 +97,29 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main_path_buckets():
-    """(shape [L, K, O, I], r0, r1) of every Z-step bucket of the main path."""
+def _program(fmt: str):
     model = create_model("resnet32")
-    program = build_program(dict(model.named_parameters()),
-                            get_rank_plan("resnet32", "tk", "3"))
+    return build_program(dict(model.named_parameters()),
+                         get_rank_plan("resnet32", fmt, "3"))
+
+
+def main_path_buckets():
+    """(shape [L, K, O, I], r0, r1) of every Z-step bucket of the TK path."""
     out = []
-    for g in program.groups:
+    for g in _program("tk").groups:
         o, i, kh, kw = g.param_shape
         sp = g.spec.clamped(g.param_shape)
         out.append(((len(g.names), kh * kw, o, i), sp.out_rank, sp.in_rank))
     return out
+
+
+def tt_launches():
+    """(shape [L, rows, cols], r) of every subspace launch of a TT Z-step,
+    bucket by bucket in sweep order; full-rank steps do not launch."""
+    return [((len(g.names), rows, cols), r) for g in _program("tt").groups
+            for rows, cols, r in sk.sweep_steps(g.spec.tt_shapes,
+                                                g.spec.tt_ranks)
+            if r != rows]
 
 
 def phase_kernel(seed: int, buckets):
@@ -148,10 +176,65 @@ def phase_kernel(seed: int, buckets):
     return rows
 
 
+def phase_kernel_tt(seed: int, launches):
+    rng = np.random.RandomState(seed)
+    rows_out = []
+    for shape, r in launches:
+        l, rows, cols = shape
+        t_np = rng.standard_normal(shape).astype(np.float32)
+        t = torch.from_numpy(t_np / np.float32(np.sqrt(cols))).cuda()
+        q = sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS)
+        torch.cuda.synchronize()
+        p = sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS)
+        with full_f32():
+            proj = torch.linalg.matrix_norm(q @ q.mT - p @ p.mT).max().item()
+            zq, zp = q @ (q.mT @ t), p @ (p.mT @ t)
+        rel = (torch.linalg.vector_norm(zq - zp)
+               / torch.linalg.vector_norm(zp)).item()
+        max_abs = (q - p).abs().max().item()
+        if not (proj < TT_PROJ_TOL and rel < TT_REL_TOL):
+            raise AssertionError(f"subspace kernel disagrees with plain at "
+                                 f"{shape} r={r}: proj={proj} rel={rel}")
+        kernel_ms = cuda_ms(
+            lambda: sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS), 50)
+        plain_ms = cuda_ms(
+            lambda: sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS), 5, 1)
+        library_ms = cuda_ms(
+            lambda: torch.linalg.svd(t, full_matrices=False), 5, 1)
+        flops = sk.subspace_flops(shape, r, iters=TT_ITERS)
+        nbytes = 4 * (l * rows * cols + l * rows * r)
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        row = {"phase": "kernel", "name": "dominant_left_subspace_batched",
+               "shape_L_rows_cols": list(shape), "rank": r,
+               "projector_err": proj, "projector_tol": TT_PROJ_TOL,
+               "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
+               "max_abs_err": max_abs, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms_batched_svd": library_ms,
+               "flops": flops, "bytes": nbytes,
+               "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
+               "bytes_us": 1e6 * t_bytes,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        emit(row)
+        rows_out.append(row)
+    # the whole batched TT-SVD sweep (kernel, residuals, reconstruction) of
+    # one Z-step, bucket by bucket on random weights
+    xs = []
+    for g in _program("tt").groups:
+        numel = int(np.prod(g.param_shape))
+        x = rng.standard_normal((len(g.names), numel)).astype(np.float32)
+        xs.append((torch.from_numpy(x).cuda(), g.spec))
+    sweep_ms = cuda_ms(lambda: [
+        sk.tt_project_batched(x, sp.tt_shapes, sp.tt_ranks, iters=TT_ITERS)
+        for x, sp in xs], 10)
+    emit({"phase": "kernel", "name": "tt_project_batched",
+          "buckets": len(xs), "ms_per_z_step": sweep_ms})
+    return rows_out
+
+
 def check_full_rank_layer(dense, compressed) -> float:
-    """A full-rank Tucker-2 layer (layer1.0.conv1, 16/16) must reproduce the
-    dense conv on a small input in full float32 (cuDNN's TF32 alone would
-    put the two 3e-4 apart)."""
+    """A full-rank layer (layer1.0.conv1: Tucker-2 16/16, or TT ranks
+    [1, 16, 16, 1]) must reproduce the dense conv on a small input in full
+    float32 (cuDNN's TF32 alone would put the two 3e-4 apart)."""
     x = torch.randn(2, 16, 8, 8, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(0))
     with torch.no_grad(), full_f32():
@@ -160,15 +243,15 @@ def check_full_rank_layer(dense, compressed) -> float:
     rel = (torch.linalg.vector_norm(out - ref)
            / torch.linalg.vector_norm(ref)).item()
     if not rel < 1e-4:
-        raise AssertionError(f"full-rank TK layer differs from dense: {rel}")
+        raise AssertionError(f"full-rank layer differs from dense: {rel}")
     return rel
 
 
-def check_projection_quality(model):
+def check_projection_quality(model, fmt: str):
     """On the trained weights, the kernel route's Z must fit W as well as
     the 'subspace' route's (the JAX package's criterion, within 0.02)."""
     params = dict(model.named_parameters())
-    program = build_program(params, get_rank_plan("resnet32", "tk", "3"))
+    program = build_program(params, get_rank_plan("resnet32", fmt, "3"))
     state = admm_init(params, program)
     errs = {}
     for method in ("kernel", "subspace"):
@@ -183,38 +266,56 @@ def check_projection_quality(model):
     return errs
 
 
-def phase_main(seed: int, card: str, num_buckets: int, workdir: str):
+# per format: the compressed model, its ratio (the JAX package's, to 2
+# decimals), the kernel the Z-step must launch and the one it must not
+PATHS = {
+    "tk": {"model": "tkc_resnet32", "ratio": 2.83,
+           "kernel": tk.tucker2_factors_batched,
+           "other": sk.dominant_left_subspace_batched},
+    "tt": {"model": "ttm_resnet32", "ratio": 2.78,
+           "kernel": sk.dominant_left_subspace_batched,
+           "other": tk.tucker2_factors_batched},
+}
+
+
+def phase_main(seed: int, card: str, fmt: str, launches_per_z_step: int,
+               workdir: str):
+    path = PATHS[fmt]
     common = dict(dataset="synthetic-cifar10", batch_size=256,
                   steps_per_epoch=20, lr=0.1, smoothing=0.1,
                   compute_dtype="bfloat16", seed=seed, device="cuda",
                   print_fn=log)  # per-epoch rows go to stderr
     admm_cfg = TrainConfig(model="resnet32", epochs=2, admm=True, rho=1e-3,
-                           ratio="3", admm_method="kernel",
+                           fmt=fmt, ratio="3", admm_method="kernel",
                            admm_hooi_iters=6,
-                           log_path=f"{workdir}/admm.log", **common)
+                           log_path=f"{workdir}/admm_{fmt}.log", **common)
     tk.tucker2_factors_batched.launches = 0
+    sk.dominant_left_subspace_batched.launches = 0
     t0 = time.perf_counter()
     dense, hist = train_model(admm_cfg)
     torch.cuda.synchronize()
     admm_s = time.perf_counter() - t0
-    launches = tk.tucker2_factors_batched.launches
+    launches = path["kernel"].launches
+    other = path["other"].launches
     z_steps = 1 + admm_cfg.epochs
-    if launches != z_steps * num_buckets:
-        raise AssertionError(f"kernel launched {launches} times, expected "
-                             f"{z_steps} Z-steps x {num_buckets} buckets")
+    if launches != z_steps * launches_per_z_step or other != 0:
+        raise AssertionError(
+            f"{fmt}: kernel launched {launches} times (expected {z_steps} "
+            f"Z-steps x {launches_per_z_step}), the other kernel {other}")
 
-    plan = get_rank_plan("tkc_resnet32", "tk", "3")
+    plan = get_rank_plan(path["model"], fmt, "3")
     t0 = time.perf_counter()
     sd = decompose_params(dense.state_dict(), plan)
     torch.cuda.synchronize()
     decompose_s = time.perf_counter() - t0
-    compressed = create_model("tkc_resnet32", ratio="3")
+    compressed = create_model(path["model"], ratio="3")
     compressed.load_state_dict(sd)
     ratio = compression_ratio(dense, compressed)
-    if round(ratio, 2) != 2.83:
-        raise AssertionError(f"compression ratio {ratio}, expected 2.83")
+    if round(ratio, 2) != path["ratio"]:
+        raise AssertionError(f"compression ratio {ratio}, expected "
+                             f"{path['ratio']}")
 
-    ft_cfg = TrainConfig(model="tkc_resnet32", epochs=1, ratio="3", **common)
+    ft_cfg = TrainConfig(model=path["model"], epochs=1, ratio="3", **common)
     ft, ft_hist = train_model(ft_cfg, init_state_dict=sd)
     x_va, y_va, info = load_dataset("synthetic-cifar10", False)
     ev = evaluate_model(ft, x_va, y_va, info, compute_dtype="bfloat16")
@@ -229,13 +330,14 @@ def phase_main(seed: int, card: str, num_buckets: int, workdir: str):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss in {losses}")
     full_rank_rel = check_full_rank_layer(dense, compressed.cuda())
-    proj = check_projection_quality(dense)
+    proj = check_projection_quality(dense, fmt)
     last = hist[-1]
     steps = admm_cfg.steps_per_epoch
-    emit({"phase": "main", "card": card, "model": "resnet32 tk@3x",
+    emit({"phase": "main", "card": card, "model": f"resnet32 {fmt}@3x",
           "batch": 256, "admm_epochs": admm_cfg.epochs,
           "steps_per_epoch": steps, "z_steps": z_steps,
-          "kernel_launches": launches, "buckets_routed": num_buckets,
+          "kernel_launches": launches, "other_kernel_launches": other,
+          "launches_per_z_step": launches_per_z_step,
           "admm_it_per_s": steps / last["epoch_time_s"],
           "admm_x_step_it_per_s": steps / last["x_step_s"],
           "z_step_ms": 1000 * last["z_step_s"],
@@ -252,6 +354,20 @@ def phase_main(seed: int, card: str, num_buckets: int, workdir: str):
     return launches
 
 
+def kernel_summary(name, source, replaces, launches, rows, library_key):
+    """One entry of the kernels line: per Z-step sums over `rows`."""
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["kernel_ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_us"] for r in rows) / 1000,
+        "bound_by": ("operations" if sum(r["ops_us"] for r in rows)
+                     >= sum(r["bytes_us"] for r in rows) else "bytes"),
+        "library_ms": sum(r[library_key] for r in rows)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -259,6 +375,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this check needs the card")
         return 1
+    t_start = time.perf_counter()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -269,39 +386,52 @@ def main() -> int:
     emit({"phase": "device", "name": kind, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    info = build.build("tucker2_factors")
-    lib = tk._library()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # nvcc x 2 at once
+        infos = dict(zip(("tucker2_factors", "subspace"),
+                         pool.map(build.build, ("tucker2_factors", "subspace"))))
+    build_wall_s = time.perf_counter() - t0
+    tk_lib, sk_lib = tk._library(), sk._library()
     buckets = main_path_buckets()
     for shape, r0, r1 in buckets:
-        planned = lib.tucker2_factors_smem_bytes(shape[2], shape[3], r0, r1)
+        planned = tk_lib.tucker2_factors_smem_bytes(shape[2], shape[3], r0, r1)
         if planned != tk.smem_bytes(shape[2], shape[3], r0, r1):
             raise AssertionError(f"shared-memory plans differ at {shape}")
         if not tk.kernel_supported(shape, r0, r1):
             raise AssertionError(f"main-path bucket {shape} fails the gate")
-    emit({"phase": "build", "kernel": "tucker2_factors",
-          "build_seconds": info["seconds"],
-          "compiler_output": info["compiler_output"].splitlines(),
-          "buckets": [[list(s), r0, r1, tk.smem_bytes(s[2], s[3], r0, r1)]
-                      for s, r0, r1 in buckets]})
+    launches_tt = tt_launches()
+    for (l, rows, cols), r in launches_tt:
+        if sk_lib.subspace_smem_bytes(rows, cols, r) != sk.smem_bytes(rows, cols, r):
+            raise AssertionError(f"shared-memory plans differ at {[l, rows, cols]}")
+        if not sk.subspace_supported((l, rows, cols), r):
+            raise AssertionError(f"TT launch {[l, rows, cols]} fails the gate")
+    emit({"phase": "build", "wall_s": build_wall_s,
+          "kernels": {name: {"build_seconds": i["seconds"],
+                             "compiler_output": i["compiler_output"].splitlines()}
+                      for name, i in infos.items()},
+          "tk_buckets": [[list(s), r0, r1, tk.smem_bytes(s[2], s[3], r0, r1)]
+                         for s, r0, r1 in buckets],
+          "tt_launches": [[list(s), r, sk.smem_bytes(s[1], s[2], r)]
+                          for s, r in launches_tt]})
 
-    rows = phase_kernel(args.seed, buckets)
+    rows_tk = phase_kernel(args.seed, buckets)
+    rows_tt = phase_kernel_tt(args.seed, launches_tt)
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_main(args.seed, smi, len(buckets), workdir)
+        launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
+                                      workdir)
+        launches_tt_main = phase_main(args.seed, smi, "tt", len(launches_tt),
+                                      workdir)
 
-    emit({"kernels": [{
-        "name": "tucker2_factors_batched", "route": "cuda",
-        "source": "dnn_compression_tensor_admm_tpu_torch/csrc/tucker2_factors.cu",
-        "replaces": "dnn_compression_tensor_admm_tpu/ops/pallas/tucker_kernel.py:142",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # per Z-step: the sum over the main path's buckets
-        "ms": sum(r["kernel_ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_us"] for r in rows) / 1000,
-        "bound_by": ("operations" if sum(r["ops_us"] for r in rows)
-                     >= sum(r["bytes_us"] for r in rows) else "bytes"),
-        "library_ms": sum(r["library_ms_hosvd_only_svd_of_both_unfoldings"]
-                          for r in rows)}]})
+    emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
+    src = "dnn_compression_tensor_admm_tpu_torch/csrc/"
+    ref = "dnn_compression_tensor_admm_tpu/ops/pallas/"
+    emit({"kernels": [
+        kernel_summary("tucker2_factors_batched", src + "tucker2_factors.cu",
+                       ref + "tucker_kernel.py:142", launches_tk_main, rows_tk,
+                       "library_ms_hosvd_only_svd_of_both_unfoldings"),
+        kernel_summary("dominant_left_subspace_batched", src + "subspace.cu",
+                       ref + "subspace_kernel.py:85", launches_tt_main, rows_tt,
+                       "library_ms_batched_svd")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

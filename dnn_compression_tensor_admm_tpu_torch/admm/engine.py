@@ -8,10 +8,12 @@
 The plan's layers are bucketed by (kind, spec, shape); each bucket is
 stacked into one [L, ...] tensor and projected at once. With
 method='kernel' a Tucker-2 bucket goes through the CUDA factor kernel
-(`ops/cuda/tucker_kernel.py`); a bucket its shared-memory gate refuses,
-and every bucket with another method, goes layer by layer through
-`ops/tucker.py`. U and Z are stored in each parameter's own layout
-(OIHW for convs).
+(`ops/cuda/tucker_kernel.py`) and a TT bucket through the batched TT-SVD
+sweep on the CUDA subspace kernel (`ops/cuda/subspace_kernel.py`); a
+bucket a kernel's shared-memory gate refuses, and every bucket with
+another method, goes layer by layer through `ops/tucker.py` or
+`ops/ttd.py`. U and Z are stored in each parameter's own layout (OIHW
+for convs); a TT projection works on the [O, kh*kw, I] view.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..configs.hp import RankPlan, TKSpec
+from ..configs.hp import RankPlan, TKSpec, TTConvSpec
+from ..ops.cuda.subspace_kernel import tt_project_batched, tt_supported
 from ..ops.cuda.tucker_kernel import kernel_supported, tucker2_project_batched
 from ..ops.precision import full_f32
+from ..ops.ttd import tt_project
 from ..ops.tucker import tucker2_project
 
 METHODS = ("kernel", "subspace", "svd")
@@ -53,6 +57,8 @@ class ProjectionProgram:
 
 
 def _classify(spec, w: torch.Tensor) -> str:
+    if isinstance(spec, TTConvSpec) and w.dim() == 4:
+        return "tt_conv"
     if isinstance(spec, TKSpec) and w.dim() == 4:
         return "tk_conv"
     raise NotImplementedError(f"{type(spec).__name__} on a {w.dim()}-d weight "
@@ -94,7 +100,12 @@ def admm_init(params: Mapping[str, torch.Tensor],
 
 def _project_one(g: _Group, w: torch.Tensor, *, method: str,
                  n_iter: int) -> torch.Tensor:
-    """Project one OIHW weight onto the group's Tucker-2 ranks."""
+    """Project one OIHW weight onto the group's Tucker-2 or TT ranks."""
+    if g.kind == "tt_conv":
+        o, i, kh, kw = w.shape
+        t = w.permute(0, 2, 3, 1).reshape(o, kh * kw, i)
+        z = tt_project(t, g.spec.tt_shapes, g.spec.tt_ranks, method=method)
+        return z.reshape(o, kh, kw, i).permute(0, 3, 1, 2)
     sp = g.spec.clamped(w.shape)
     return tucker2_project(w, sp.out_rank, sp.in_rank, n_iter=n_iter,
                            method=method)
@@ -105,6 +116,13 @@ def _project_group_kernel(g: _Group, ts: torch.Tensor,
     """Kernel Z-step for one bucket ts [L, O, I, kh, kw]; None where the
     kernel's gate refuses the bucket."""
     l, o, i, kh, kw = ts.shape
+    if g.kind == "tt_conv":
+        x = ts.permute(0, 1, 3, 4, 2).reshape(l, -1)  # [L, O, kh*kw, I]
+        shapes, ranks = g.spec.tt_shapes, g.spec.tt_ranks
+        if not tt_supported(l, x.shape[1], shapes, ranks):
+            return None
+        z = tt_project_batched(x, shapes, ranks, iters=max(8, n_iter))
+        return z.reshape(l, o, kh, kw, i).permute(0, 1, 4, 2, 3)
     sp = g.spec.clamped((o, i, kh, kw))
     x = ts.permute(0, 3, 4, 1, 2).reshape(l, kh * kw, o, i).contiguous()
     if not kernel_supported(x.shape, sp.out_rank, sp.in_rank):

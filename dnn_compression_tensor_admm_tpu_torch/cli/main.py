@@ -1,5 +1,5 @@
 """Command line: the JAX package's `cli/main.py` surface for the port's
-slice (ResNet32, Tucker-2, synthetic CIFAR geometry).
+slices (ResNet32, Tucker-2 and Tensor-Train, synthetic CIFAR geometry).
 
 Pipeline modes:
   (default)     train (dense baseline, or ADMM with --admm)
@@ -36,11 +36,16 @@ def parse_args(argv=None):
     p.add_argument("--smoothing", default=0.0, type=float)
     p.add_argument("--admm", action="store_true")
     p.add_argument("--rho", default=0.001, type=float)
+    p.add_argument("--format", dest="fmt", default="tk", choices=["tk", "tt"],
+                   help="rank format of the ADMM plan")
     p.add_argument("--ratio", default="2", type=str)
+    p.add_argument("--tt-type", default="general",
+                   choices=["general", "special"])
     p.add_argument("--admm-method", default="kernel",
                    choices=["kernel", "subspace", "svd"],
                    help="Z-step solver: 'kernel' is the CUDA Tucker-2 factor "
-                        "kernel (plain torch on the CPU)")
+                        "kernel for tk and the CUDA subspace kernel's TT-SVD "
+                        "sweep for tt (plain torch on the CPU)")
     p.add_argument("--decompose", action="store_true")
     p.add_argument("--model-path", default=None, type=str)
     p.add_argument("--eval", action="store_true")
@@ -73,7 +78,7 @@ def main(argv=None):
         raise SystemExit("ERROR: --admm requires an uncompressed model name")
     info = dataset_info(args.dataset)
     compute_dtype = None if args.fp32 else "bfloat16"
-    kw = {"ratio": args.ratio} if compressed else {}
+    kw = {"ratio": args.ratio, "tt_type": args.tt_type} if compressed else {}
 
     def load(path):
         return torch.load(path, map_location="cpu", weights_only=True)
@@ -87,7 +92,7 @@ def main(argv=None):
         base, fmt, _ = compressed
         dense = create_model(base, num_classes=info.num_classes)
         dense.load_state_dict(load(args.model_path))
-        plan = get_rank_plan(args.model, fmt, args.ratio)
+        plan = get_rank_plan(args.model, fmt, args.ratio, args.tt_type)
         init_state = decompose_params(dense.to(device).state_dict(), plan)
         model = create_model(args.model, num_classes=info.num_classes, **kw)
         model.load_state_dict(init_state)
@@ -116,11 +121,14 @@ def main(argv=None):
         epochs=args.epochs, steps_per_epoch=args.steps_per_epoch, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
         min_lr=args.min_lr, smoothing=args.smoothing, admm=args.admm,
-        rho=args.rho, ratio=args.ratio, admm_method=args.admm_method,
+        rho=args.rho, fmt=args.fmt, ratio=args.ratio, tt_type=args.tt_type,
+        admm_method=args.admm_method,
         seed=args.seed, compute_dtype=compute_dtype,
         synthetic_size=args.synthetic_size, device=str(device))
     ts = time.strftime("%m%d-%H%M%S")
-    tag = f"{args.model}_{args.dataset}" + ("_admm_tk" if args.admm else "")
+    tag = f"{args.model}_{args.dataset}"
+    if args.admm:
+        tag += f"_admm_{args.fmt}"
     if args.save_log:
         os.makedirs(args.output_dir, exist_ok=True)
         cfg.log_path = os.path.join(args.output_dir, f"{tag}_{ts}.log")

@@ -1,11 +1,65 @@
 """Typed per-layer rank specifications (counterpart of the JAX package's
-`configs/hp.py`; the TT specs wait for the TT slice)."""
+`configs/hp.py`; `TTLinearSpec` waits for the ViT slice)."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
+
+from ..ops.ttd import clamp_tt_ranks
+
+
+@dataclasses.dataclass(frozen=True)
+class TTConvSpec:
+    """TT factorization of a conv kernel [O, I, kh, kw], tensorized as
+    ``[out_shapes..., kh*kw, in_shapes...]`` with prod(out_shapes) == O and
+    prod(in_shapes) == I. Ranks are clamped when the spec is created."""
+    tt_shapes: Tuple[int, ...]
+    tt_ranks: Tuple[int, ...]
+    out_order: int  # number of leading shapes that multiply to out_channels
+
+    @property
+    def out_shapes(self) -> Tuple[int, ...]:
+        return self.tt_shapes[:self.out_order]
+
+    @property
+    def filter_dim(self) -> int:
+        return self.tt_shapes[self.out_order]
+
+    @property
+    def in_shapes(self) -> Tuple[int, ...]:
+        return self.tt_shapes[self.out_order + 1:]
+
+    @property
+    def out_ranks(self) -> Tuple[int, ...]:
+        return self.tt_ranks[:self.out_order + 1]
+
+    @property
+    def in_ranks(self) -> Tuple[int, ...]:
+        return self.tt_ranks[self.out_order + 1:]
+
+    @property
+    def out_channels(self) -> int:
+        return math.prod(self.out_shapes)
+
+    @property
+    def in_channels(self) -> int:
+        return math.prod(self.in_shapes) if self.in_shapes else 1
+
+    @staticmethod
+    def create(tt_shapes, tt_ranks, out_channels: int) -> "TTConvSpec":
+        """Split at the first prefix of the shapes whose product is
+        `out_channels`, and clamp the ranks."""
+        shapes = tuple(tt_shapes)
+        channels = 1
+        for i, s in enumerate(shapes):
+            channels *= s
+            if channels == out_channels:
+                ranks = tuple(clamp_tt_ranks(shapes, tt_ranks))
+                return TTConvSpec(shapes, ranks, i + 1)
+        raise ValueError(f"tt_shapes {shapes} have no prefix with product "
+                         f"{out_channels}")
 
 
 @dataclasses.dataclass(frozen=True)

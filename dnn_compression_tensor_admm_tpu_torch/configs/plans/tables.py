@@ -1,8 +1,10 @@
 """Build RankPlans from the reference rank tables.
 
-`reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries of
-the JAX package's `configs/plans/reference_hp.json`. TK entries are
-``[out_rank, in_rank]``; a rank list of length 1 means plain SVD.
+`reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries and
+the ResNet32 Tensor-Train 3x entry of the JAX package's
+`configs/plans/reference_hp.json`. TK entries are ``[out_rank, in_rank]``,
+TT entries a TT rank list beside their ``tt_shapes``; a rank list of
+length 1 means plain SVD.
 """
 
 from __future__ import annotations
@@ -10,8 +12,9 @@ from __future__ import annotations
 import functools
 import json
 import os
+from typing import Callable
 
-from ..hp import RankPlan, SVDSpec, TKSpec
+from ..hp import RankPlan, SVDSpec, TKSpec, TTConvSpec
 
 _JSON = os.path.join(os.path.dirname(__file__), "reference_hp.json")
 
@@ -41,3 +44,18 @@ def build_tk_plan(model: str, ratio: str) -> RankPlan:
         else:
             layers[name] = TKSpec(int(r[0]), int(r[1]))
     return RankPlan("tk", layers)
+
+
+def build_tt_conv_plan(model: str, ratio: str, tt_type: str,
+                       out_channels_fn: Callable[[str], int]) -> RankPlan:
+    """TT plan of a conv network; `out_channels_fn(name)` gives a layer's
+    output channels, which fix where its shapes split."""
+    e = table_entry("tt", model, ratio, tt_type)
+    layers = {}
+    for name, r in e["ranks"].items():
+        if isinstance(r, int) or len(r) == 1:
+            layers[name] = SVDSpec(r if isinstance(r, int) else r[0])
+        else:
+            layers[name] = TTConvSpec.create(tuple(e["tt_shapes"][name]),
+                                             tuple(r), out_channels_fn(name))
+    return RankPlan("tt", layers)

@@ -38,12 +38,13 @@
 
 #include <cuda_runtime.h>
 
+#include "orth_iter.cuh"  // matmul, set_eye, orth_iter; kNsIters = 12
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kInitIters = 8;   // HOSVD start: orthogonal-iteration steps
 constexpr int kSweepIters = 3;  // orthogonal-iteration steps per HOOI sweep
-constexpr int kNsIters = 12;    // Newton-Schulz steps per orthonormalisation
 
 struct Plan {
   int g, u0, u1, y, m, ns;  // float offsets into dynamic shared memory
@@ -65,97 +66,6 @@ __host__ __device__ inline Plan make_plan(int o, int i, int r0, int r1) {
   p.ns = p.m + imax(o * r1, r0 * i);  // 5 Newton-Schulz matrices [r, r]
   p.total = p.ns + 5 * r * r;
   return p;
-}
-
-// c[m, n] (row stride ldc) = or += a[m, k] b[k, n]; a and b are addressed by
-// (row stride, column stride) so transposes cost nothing. c must not alias a
-// or b. Ends with a barrier: every thread of the block must call it.
-__device__ void matmul(float* __restrict__ c, int ldc, const float* a, int a_rs,
-                       int a_cs, const float* b, int b_rs, int b_cs, int m,
-                       int n, int k, bool accumulate) {
-  for (int idx = threadIdx.x; idx < m * n; idx += blockDim.x) {
-    const int row = idx / n;
-    const int col = idx - row * n;
-    const float* ap = a + row * a_rs;
-    const float* bp = b + col * b_cs;
-    float acc = 0.f;
-    for (int p = 0; p < k; ++p) acc = fmaf(ap[p * a_cs], bp[p * b_rs], acc);
-    float* cp = c + row * ldc + col;
-    *cp = accumulate ? *cp + acc : acc;
-  }
-  __syncthreads();
-}
-
-__device__ void set_eye(float* q, int n, int r) {
-  for (int idx = threadIdx.x; idx < n * r; idx += blockDim.x)
-    q[idx] = (idx / r == idx % r) ? 1.f : 0.f;
-  __syncthreads();
-}
-
-// Q[n, r] <- orth(G Q), kIters times; Q is updated in place.
-template <int kIters>
-__device__ void orth_iter(const float* g, float* q, int n, int r, float* y,
-                          float* ns) {
-  const int rr = r * r;
-  float* s = ns;  // S = Y^T Y, later reused as W
-  float* ny = ns + rr;
-  float* nz = ns + 2 * rr;
-  float* ny2 = ns + 3 * rr;
-  float* nz2 = ns + 4 * rr;
-  for (int it = 0; it < kIters; ++it) {
-    matmul(y, r, g, n, 1, q, r, 1, n, r, n, false);   // Y = G Q
-    matmul(s, r, y, 1, r, y, r, 1, r, r, n, false);   // S = Y^T Y
-    float c = 1e-30f;
-    for (int d = 0; d < r; ++d) c += s[d * r + d];
-    float* yy = ny;
-    float* zz = nz;
-    float* yy2 = ny2;
-    float* zz2 = nz2;
-    for (int idx = threadIdx.x; idx < rr; idx += blockDim.x) {
-      const bool diag = idx / r == idx % r;
-      yy[idx] = s[idx] / c + (diag ? 1e-6f : 0.f);  // T = S/c + ridge
-      zz[idx] = diag ? 1.f : 0.f;
-    }
-    __syncthreads();
-    float* w = s;
-    for (int t = 0; t < kNsIters; ++t) {
-      // W = 0.5 (3 I - Z Y)
-      for (int idx = threadIdx.x; idx < rr; idx += blockDim.x) {
-        const int row = idx / r;
-        const int col = idx - row * r;
-        float acc = 0.f;
-        for (int p = 0; p < r; ++p) acc = fmaf(zz[row * r + p], yy[p * r + col], acc);
-        w[idx] = 0.5f * ((row == col ? 3.f : 0.f) - acc);
-      }
-      __syncthreads();
-      // Y' = Y W and Z' = W Z, from the same W
-      for (int idx = threadIdx.x; idx < rr; idx += blockDim.x) {
-        const int row = idx / r;
-        const int col = idx - row * r;
-        float acc_y = 0.f;
-        float acc_z = 0.f;
-        for (int p = 0; p < r; ++p) {
-          acc_y = fmaf(yy[row * r + p], w[p * r + col], acc_y);
-          acc_z = fmaf(w[row * r + p], zz[p * r + col], acc_z);
-        }
-        yy2[idx] = acc_y;
-        zz2[idx] = acc_z;
-      }
-      __syncthreads();
-      float* tmp = yy; yy = yy2; yy2 = tmp;
-      tmp = zz; zz = zz2; zz2 = tmp;
-    }
-    // Q = Y (Z c^{-1/2})
-    const float scale = rsqrtf(c);
-    for (int idx = threadIdx.x; idx < n * r; idx += blockDim.x) {
-      const int row = idx / r;
-      const int col = idx - row * r;
-      float acc = 0.f;
-      for (int p = 0; p < r; ++p) acc = fmaf(y[row * r + p], zz[p * r + col] * scale, acc);
-      q[idx] = acc;
-    }
-    __syncthreads();
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -182,14 +92,14 @@ tucker2_factors_kernel(const float* __restrict__ x, float* __restrict__ u0_out,
       const float* xk = xl + kk * o * i;
       matmul(g, o, xk, i, 1, xk, 1, i, o, o, i, kk > 0);
     }
-    orth_iter<kInitIters>(g, u0, o, r0, y, ns);
+    orth_iter(g, u0, o, r0, kInitIters, y, ns);
   }
   if (solve1) {
     for (int kk = 0; kk < k; ++kk) {  // G1 = sum_k X_k^T X_k
       const float* xk = xl + kk * o * i;
       matmul(g, i, xk, 1, i, xk, i, 1, i, i, o, kk > 0);
     }
-    orth_iter<kInitIters>(g, u1, i, r1, y, ns);
+    orth_iter(g, u1, i, r1, kInitIters, y, ns);
   }
 
   // HOOI sweeps, warm-started from the current factors
@@ -200,7 +110,7 @@ tucker2_factors_kernel(const float* __restrict__ x, float* __restrict__ u0_out,
         matmul(m, r1, xk, i, 1, u1, r1, 1, o, r1, i, false);
         matmul(g, o, m, r1, 1, m, 1, r1, o, o, r1, kk > 0);
       }
-      orth_iter<kSweepIters>(g, u0, o, r0, y, ns);
+      orth_iter(g, u0, o, r0, kSweepIters, y, ns);
     }
     if (solve1) {
       for (int kk = 0; kk < k; ++kk) {  // G1' = sum_k (U0^T X_k)^T (U0^T X_k)
@@ -208,7 +118,7 @@ tucker2_factors_kernel(const float* __restrict__ x, float* __restrict__ u0_out,
         matmul(m, i, u0, 1, r0, xk, i, 1, r0, i, o, false);
         matmul(g, i, m, 1, i, m, i, 1, i, i, r0, kk > 0);
       }
-      orth_iter<kSweepIters>(g, u1, i, r1, y, ns);
+      orth_iter(g, u1, i, r1, kSweepIters, y, ns);
     }
   }
 

@@ -12,8 +12,8 @@ from typing import Dict
 import torch
 from torch import nn
 
-from ..configs.hp import RankPlan, TKSpec
-from ..layers import TKConv2d
+from ..configs.hp import RankPlan, TKSpec, TTConvSpec
+from ..layers import TKConv2d, TTConv2d
 from ..ops.precision import full_f32
 
 
@@ -28,14 +28,18 @@ def decompose_params(state_dict: Dict[str, torch.Tensor], plan: RankPlan, *,
             raise KeyError(f"plan layer {name!r} not present in dense params")
         spec = plan.spec(name)
         w = out.pop(name)
-        if not (isinstance(spec, TKSpec) and w.dim() == 4):
-            raise NotImplementedError(
-                f"{type(spec).__name__} on a {w.dim()}-d weight is not "
-                f"ported yet ({name})")
         prefix = name[:-len("weight")]
         with torch.no_grad():
-            factors = TKConv2d.factorize_dense(w.float(), spec, n_iter=n_iter,
-                                               method=method)
+            if isinstance(spec, TTConvSpec) and w.dim() == 4:
+                factors = TTConv2d.factorize_dense(w.float(), spec,
+                                                   method=method)
+            elif isinstance(spec, TKSpec) and w.dim() == 4:
+                factors = TKConv2d.factorize_dense(w.float(), spec,
+                                                   n_iter=n_iter, method=method)
+            else:
+                raise NotImplementedError(
+                    f"{type(spec).__name__} on a {w.dim()}-d weight is not "
+                    f"ported yet ({name})")
         out.update({prefix + k: v for k, v in factors.items()})
     return out
 

@@ -1,4 +1,5 @@
-"""CIFAR ResNet-32 (option-A shortcut), dense and Tucker-2 compressed.
+"""CIFAR ResNet-32 (option-A shortcut), dense, Tucker-2 and Tensor-Train
+compressed.
 
 3x3 stem to 16 channels, three stages of BasicBlocks at 16/32/64 with
 stride-2 transitions, option-A shortcut (stride-2 subsample + zero-pad
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.hp import RankPlan
-from ..configs.plans import build_tk_plan
+from ..configs.plans import build_tk_plan, build_tt_conv_plan
 from ..configs.resolver import get_rank_plan, register_plan
 from .registry import register_model
 from .substitute import kaiming_, make_conv
@@ -83,9 +84,21 @@ class ResNetCifar(nn.Module):
             return self.linear(y.to(self.linear.weight.dtype))
 
 
+_STAGE_PLANES = {"layer1": 16, "layer2": 32, "layer3": 64}
+
+
+def _cifar_out_channels(name: str) -> int:
+    return _STAGE_PLANES[name.split(".")[0]]
+
+
+# every ratio the reference names; the table lookup raises a KeyError
+# that lists what the JSON copy holds
 for _ratio in ("1.5", "2", "3", "5"):
     register_plan("resnet32", "tk", _ratio)(
         lambda r=_ratio: build_tk_plan("resnet32", r))
+    register_plan("resnet32", "tt", _ratio)(
+        lambda r=_ratio: build_tt_conv_plan("resnet32", r, "general",
+                                            _cifar_out_channels))
 
 
 @register_model

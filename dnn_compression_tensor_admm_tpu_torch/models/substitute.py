@@ -8,8 +8,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..configs.hp import RankPlan, TKSpec
-from ..layers import TKConv2d
+from ..configs.hp import RankPlan, TKSpec, TTConvSpec
+from ..layers import TKConv2d, TTConv2d
 
 
 def kaiming_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -32,6 +32,11 @@ def make_conv(in_ch: int, out_ch: int, kernel_size: int, *, stride=1,
         if bias:
             nn.init.zeros_(conv.bias)
         return conv
+    if isinstance(spec, TTConvSpec):
+        tt_mode = "reconstruct" if mode == "reconstruct" else "factorized"
+        return TTConv2d(in_ch, out_ch, kernel_size, spec, stride=stride,
+                        padding=padding, bias=bias, mode=tt_mode,
+                        generator=generator)
     if isinstance(spec, TKSpec):
         tk_mode = "reconstruct" if mode == "reconstruct" else "chain"
         return TKConv2d(in_ch, out_ch, kernel_size, spec, stride=stride,

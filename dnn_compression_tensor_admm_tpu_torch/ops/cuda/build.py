@@ -2,9 +2,10 @@
 
 Each source under the package's `csrc/` is compiled by `nvcc` into a
 shared library with a plain C interface and loaded with `ctypes`. The
-library is named after a hash of its source and flags, so a stale build
-is never loaded; it lives under `build/torch_kernels/` at the root of
-the checkout. Nothing is built at import: the first launch builds.
+library is named after a hash of its source, every shared header
+(`csrc/*.cuh`) and the flags, so a stale build is never loaded; it
+lives under `build/torch_kernels/` at the root of the checkout. Nothing
+is built at import: the first launch builds.
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for src in [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

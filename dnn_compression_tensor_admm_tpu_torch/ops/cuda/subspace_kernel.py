@@ -1,0 +1,183 @@
+"""Batched dominant left subspace: the TT Z-step's kernel.
+
+Counterpart of the JAX package's Pallas kernel
+(`ops/pallas/subspace_kernel.py::dominant_left_subspace_batched`). For
+each layer of a t[L, rows, cols] stack it finds the top-r left singular
+subspace by orthogonal iteration on the Gram of the smaller side, with
+Newton-Schulz orthonormalisation, lifting a right subspace to the left
+one in the tall case; the CUDA source `csrc/subspace.cu` says how.
+
+`dominant_left_subspace_batched` launches the CUDA kernel for a CUDA
+tensor and runs `dominant_left_subspace_plain`, the same iteration in
+batched torch matmuls, for a CPU tensor. `tt_project_batched` is the
+batched TT-SVD sweep built on it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence
+
+import torch
+
+from ..precision import full_f32
+from ..ttd import clamp_tt_ranks
+from . import build
+from .tucker_kernel import (MAX_SMEM_BYTES, _eye, _ns_inv_sqrt, _orth_iter,
+                            ns_flops, orth_flops)
+
+
+def smem_bytes(rows: int, cols: int, r: int) -> int:
+    """Shared-memory plan of one block, as `make_plan` in the CUDA source:
+    the Gram of the smaller side, the iterate, Y (rows x r, which the tall
+    lift needs) and five Newton-Schulz matrices."""
+    m = min(rows, cols)
+    return 4 * (m * m + m * r + rows * r + 5 * r * r)
+
+
+def subspace_supported(shape, r: int) -> bool:
+    """True if a [L, rows, cols] stack at rank r fits the kernel's
+    shared-memory plan (the role of the JAX package's
+    `pallas_subspace_supported`)."""
+    if len(shape) != 3:
+        return False
+    _, rows, cols = shape
+    r = min(r, rows, cols)
+    return r >= 1 and smem_bytes(rows, cols, r) <= MAX_SMEM_BYTES
+
+
+def sweep_steps(tt_shapes: Sequence[int], tt_ranks: Sequence[int]):
+    """(rows, cols, r) of each step of the TT-SVD sweep, ranks clamped."""
+    shapes = list(tt_shapes)
+    ranks = clamp_tt_ranks(shapes, tt_ranks)
+    return [(ranks[i] * shapes[i], math.prod(shapes[i + 1:]) * ranks[-1],
+             ranks[i + 1]) for i in range(len(shapes) - 1)]
+
+
+def tt_supported(l: int, numel: int, tt_shapes: Sequence[int],
+                 tt_ranks: Sequence[int]) -> bool:
+    """True if every sweep step that launches fits the kernel (the role of
+    the JAX package's `tt_supported_pallas`)."""
+    if math.prod(tt_shapes) != numel:
+        return False
+    return all(r == rows or subspace_supported((l, rows, cols), r)
+               for rows, cols, r in sweep_steps(tt_shapes, tt_ranks))
+
+
+def subspace_flops(shape, r: int, *, iters: int) -> int:
+    """Floating-point operations of one launch (2 per multiply-add); 0 for
+    a full-rank request, which does not launch."""
+    l, rows, cols = shape
+    r = min(r, rows, cols)
+    if r == rows:
+        return 0
+    if rows <= cols:
+        return l * (2 * rows * rows * cols + orth_flops(rows, r, iters))
+    lift = 2 * rows * cols * r + 2 * rows * r * r + ns_flops(r) \
+        + 2 * rows * r * r
+    return l * (2 * cols * cols * rows + orth_flops(cols, r, iters) + lift)
+
+
+# ---------------------------------------------------------------------------
+# plain version: the same iteration in batched torch matmuls
+
+
+@full_f32()
+def dominant_left_subspace_plain(t: torch.Tensor, r: int, *,
+                                 iters: int) -> torch.Tensor:
+    """The kernel's iteration in torch: t [L, rows, cols] -> q [L, rows, r],
+    in full float32 whatever the process's TF32 setting."""
+    l, rows, cols = t.shape
+    r = min(r, rows, cols)
+    if r == rows:
+        return _eye(l, rows, rows, t)
+    t = t.float()
+    if rows <= cols:
+        return _orth_iter(t @ t.mT, _eye(l, rows, r, t), iters).contiguous()
+    v = _orth_iter(t.mT @ t, _eye(l, cols, r, t), iters)
+    y = t @ v
+    return (y @ _ns_inv_sqrt(y.mT @ y)).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("subspace")
+    fn = lib.subspace_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.subspace_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.subspace_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def dominant_left_subspace_batched(t: torch.Tensor, r: int, *,
+                                   iters: int = 8) -> torch.Tensor:
+    """Batched top-r left singular subspace: t [L, rows, cols] float32,
+    contiguous -> q [L, rows, r] with r clamped to min(rows, cols).
+
+    A full-rank request (r == rows) returns the broadcast identity and
+    launches nothing. Otherwise a CUDA tensor goes through the CUDA kernel
+    (or raises) and a CPU tensor through the plain version.
+    `dominant_left_subspace_batched.launches` counts kernel launches."""
+    if t.dim() != 3:
+        raise ValueError(f"expected t [L, rows, cols], got shape {tuple(t.shape)}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError("t must be contiguous")
+    l, rows, cols = t.shape
+    r = min(r, rows, cols)
+    if r < 1:
+        raise ValueError(f"rank must be >= 1, got {r}")
+    if r == rows or t.device.type == "cpu":
+        return dominant_left_subspace_plain(t, r, iters=iters)
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    if not subspace_supported(t.shape, r):
+        raise ValueError(f"stack {tuple(t.shape)} at rank {r} exceeds the "
+                         "kernel's shared-memory plan")
+    lib = _library()
+    q = torch.empty((l, rows, r), dtype=torch.float32, device=t.device)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = lib.subspace_launch(t.data_ptr(), q.data_ptr(), l, rows, cols,
+                                  r, iters, stream)
+    if err != 0:
+        raise RuntimeError(f"subspace kernel launch failed: CUDA error {err}")
+    dominant_left_subspace_batched.launches += 1
+    return q
+
+
+dominant_left_subspace_batched.launches = 0
+
+
+@full_f32()
+def tt_project_batched(x: torch.Tensor, tt_shapes: Sequence[int],
+                       tt_ranks: Sequence[int], *,
+                       iters: int = 8) -> torch.Tensor:
+    """Batched TT projection: x [L, numel] -> Z [L, numel].
+
+    The TT-SVD sweep over all layers at once: each step finds every
+    layer's dominant left subspace with the kernel and carries the
+    residual u^T t on; the residual and the reconstruction are batched
+    torch products in full float32."""
+    l = x.shape[0]
+    shapes = list(tt_shapes)
+    ranks = clamp_tt_ranks(shapes, tt_ranks)
+    d = len(shapes)
+    t = x
+    cores = []
+    for i in range(d - 1):
+        t = t.reshape(l, ranks[i] * shapes[i], -1).contiguous()
+        u = dominant_left_subspace_batched(t, ranks[i + 1], iters=iters)
+        cores.append(u)                                # [L, r_i n_i, r_{i+1}]
+        t = torch.einsum("lrc,lrk->lkc", t, u)         # residual
+    cores.append(t)                                    # [L, r_{d-1}, n r_d]
+    rec = cores[0]
+    for i in range(1, d):
+        rec = rec.reshape(l, -1, ranks[i]) @ cores[i].reshape(l, ranks[i], -1)
+    return rec.reshape(l, -1)

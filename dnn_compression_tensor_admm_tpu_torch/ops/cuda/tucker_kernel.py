@@ -50,25 +50,32 @@ def kernel_supported(shape, r0: int, r1: int) -> bool:
     return r0 >= 1 and r1 >= 1 and smem_bytes(o, i, r0, r1) <= MAX_SMEM_BYTES
 
 
+def ns_flops(r: int) -> int:
+    """Operations of one Newton-Schulz inverse square root of an r x r
+    matrix (2 per multiply-add)."""
+    return NS_ITERS * 3 * 2 * r ** 3
+
+
+def orth_flops(n: int, r: int, iters: int) -> int:
+    """Operations of `iters` orthogonal-iteration steps on an n x n Gram:
+    Y = G Q, S = Y^T Y, the inverse square root, Q = Y S^{-1/2}."""
+    return iters * (2 * n * n * r + 2 * n * r * r + ns_flops(r)
+                    + 2 * n * r * r)
+
+
 def factor_flops(shape, r0: int, r1: int, *, sweeps: int = 2) -> int:
     """Floating-point operations of one solve (2 per multiply-add)."""
     l, k, o, i = shape
     r0, r1 = min(r0, o), min(r1, i)
-
-    def orth(n, r, iters):
-        per = 2 * n * n * r + 2 * n * r * r + NS_ITERS * 3 * 2 * r ** 3 \
-            + 2 * n * r * r
-        return iters * per
-
     total = 0
     if r0 < o:
-        total += 2 * k * o * o * i + orth(o, r0, INIT_ITERS)
+        total += 2 * k * o * o * i + orth_flops(o, r0, INIT_ITERS)
         total += sweeps * (k * (2 * o * i * r1 + 2 * o * o * r1)
-                           + orth(o, r0, SWEEP_ITERS))
+                           + orth_flops(o, r0, SWEEP_ITERS))
     if r1 < i:
-        total += 2 * k * i * i * o + orth(i, r1, INIT_ITERS)
+        total += 2 * k * i * i * o + orth_flops(i, r1, INIT_ITERS)
         total += sweeps * (k * (2 * r0 * o * i + 2 * i * i * r0)
-                           + orth(i, r1, SWEEP_ITERS))
+                           + orth_flops(i, r1, SWEEP_ITERS))
     return l * total
 
 

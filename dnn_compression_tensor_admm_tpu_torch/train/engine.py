@@ -46,9 +46,11 @@ class TrainConfig:
     # ADMM
     admm: bool = False
     rho: float = 0.001
+    fmt: str = "tk"  # rank format of the ADMM plan: tk | tt
     ratio: str = "3"
-    admm_method: str = "kernel"  # CUDA factor kernel; gate-refused buckets
-                                 # take the 'subspace' route
+    tt_type: str = "general"
+    admm_method: str = "kernel"  # CUDA kernels (Tucker-2 factor, TT subspace);
+                                 # gate-refused buckets take 'subspace'
     admm_hooi_iters: int = 6
     # misc
     seed: int = 0
@@ -136,7 +138,8 @@ def train_model(cfg: TrainConfig, *,
         cfg.synthetic_size // 4 if cfg.synthetic_size else None)
     if len(x_tr) < cfg.batch_size:
         raise ValueError(f"{len(x_tr)} training images < batch {cfg.batch_size}")
-    kw = {"ratio": cfg.ratio} if parse_compressed_name(cfg.model) else {}
+    kw = ({"ratio": cfg.ratio, "tt_type": cfg.tt_type}
+          if parse_compressed_name(cfg.model) else {})
     model = create_model(cfg.model, num_classes=info.num_classes,
                          generator=torch.Generator().manual_seed(cfg.seed), **kw)
     if init_state_dict is not None:
@@ -152,7 +155,7 @@ def train_model(cfg: TrainConfig, *,
 
     program = admm = None
     if cfg.admm:
-        plan = get_rank_plan(cfg.model, "tk", cfg.ratio)
+        plan = get_rank_plan(cfg.model, cfg.fmt, cfg.ratio, cfg.tt_type)
         program = build_program(params, plan)
         admm = admm_init(params, program)
         admm, _ = admm_update(params, admm, program, update_u=False,

@@ -55,6 +55,30 @@ def test_cli_admm_decompose_eval_on_cpu(tmp_path, capsys):
         cli_main(["--model", "tkc_resnet32", "--admm", *common])
 
 
+def test_cli_tt_admm_decompose_eval_on_cpu(tmp_path, capsys):
+    common = ["--device", "cpu", "--dataset", "synthetic-cifar10",
+              "--synthetic-size", "128", "--batch-size", "32", "--ratio", "3",
+              "--fp32"]
+    cli_main(["--model", "resnet32", "--admm", "--format", "tt", "--epochs",
+              "1", "--steps-per-epoch", "2", "--save-model", "--save-log",
+              "--output-dir", str(tmp_path / "admm"), *common])
+    (dense,) = (tmp_path / "admm").glob("*_admm_tt_*_model.pt")
+    (log,) = (tmp_path / "admm").glob("*.log")
+    (row,) = [json.loads(r) for r in log.read_text().splitlines()]
+    assert np.isfinite(row["train_loss"]) and len(row["admm_residuals"]) == 30
+    # layer1 is full rank in TT (ranks [1, 16, 16, 1]): Z = W, residual ~0
+    assert row["admm_residuals"]["layer1.0.conv1.weight"] < 1e-4
+    assert row["admm_residuals"]["layer3.4.conv2.weight"] > 1e-2
+    cli_main(["--model", "ttm_resnet32", "--decompose", "--model-path",
+              str(dense), "--epochs", "1", "--steps-per-epoch", "1",
+              "--save-model", "--output-dir", str(tmp_path / "ft"), *common])
+    assert "compression 2.78x" in capsys.readouterr().out
+    (ft,) = (tmp_path / "ft").glob("*_model.pt")
+    r = cli_main(["--model", "ttm_resnet32", "--eval", "--model-path", str(ft),
+                  *common])
+    assert set(r) == {"acc1", "acc5", "loss"} and np.isfinite(r["loss"])
+
+
 _NO_JAX = ("import sys\n"
            "for m in ('jax', 'jaxlib', 'flax', 'optax',\n"
            "          'dnn_compression_tensor_admm_tpu'):\n"

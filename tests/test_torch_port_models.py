@@ -54,7 +54,8 @@ def _batch(n=4, seed=1):
     return np.random.RandomState(seed).standard_normal((n, 32, 32, 3)).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["resnet32", "tkc_resnet32", "tkr_resnet32"])
+@pytest.mark.parametrize("name", ["resnet32", "tkc_resnet32", "tkr_resnet32",
+                                  "ttm_resnet32", "ttr_resnet32"])
 @pytest.mark.parametrize("train", [False, True])
 def test_logits_match_jax(name, train):
     jm, v = _jax_variables(name)
@@ -93,7 +94,7 @@ def test_bn_running_stats_after_one_train_forward():
                            np.asarray(bs["var"]), rtol=1e-7, atol=0)
 
 
-@pytest.mark.parametrize("name", ["resnet32", "tkc_resnet32"])
+@pytest.mark.parametrize("name", ["resnet32", "tkc_resnet32", "ttm_resnet32"])
 def test_converter_matches_variables_to_torch_and_round_trips(name):
     _, v = _jax_variables(name)
     sd = jax_to_state_dict(v)
