@@ -13,13 +13,18 @@ prints one JSON line per phase:
    against its plain PyTorch version on the card, with its time, the
    plain version's, a library yardstick's and the card's bound: the
    Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x, the
-   subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step;
+   subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step, each
+   also at iters=0 (`gram_ms`: the Gram, the identity start and the lift),
+   and at two shapes near a block's shared-memory limit, which take the
+   kernel's unpadded plan; kernel times are device times (launches
+   captured in a CUDA graph and replayed);
 4. main    — ResNet32 Tucker-2 @3x, then ResNet32 Tensor-Train @3x, each
    at full width and batch 256: ADMM (first projection + 2 epochs x 20
    steps), decompose, fine-tune 20 steps, eval and runtime, counting
    both kernels' launches.
 
-Then the script's wall time, the kernel summary, the card's
+Then the script's wall time, the first CUDA versions' times as PERF.md
+records them (on a line of their own), the kernel summary, the card's
 `nvidia-smi` name and power limit, and last the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line; without CUDA it exits 1 and prints nothing.
@@ -28,8 +33,9 @@ line; without CUDA it exits 1 and prints nothing.
 import faulthandler
 import sys
 
-# a hang becomes a traceback and a non-zero exit
-faulthandler.dump_traceback_later(900, exit=True)
+if __name__ == "__main__":
+    # a hang becomes a traceback and a non-zero exit
+    faulthandler.dump_traceback_later(900, exit=True)
 
 import argparse  # noqa: E402
 import concurrent.futures  # noqa: E402
@@ -73,6 +79,10 @@ SWEEPS = max(1, 6 // 3)  # admm_hooi_iters=6, as the main path runs it
 TT_PROJ_TOL = 1e-3
 TT_REL_TOL = 1e-4
 TT_ITERS = max(8, 6)  # iters = max(8, admm_hooi_iters), as the Z-step runs it
+# Launches near a block's 227 KB that take the subspace kernel's unpadded
+# plan (scalar products, the lift from L2), wide and tall; not on the main
+# path, so outside its per-Z-step sums.
+NEAR_CAP_LAUNCHES = [((2, 193, 197), 33), ((2, 197, 193), 33)]
 
 
 def emit(obj) -> None:
@@ -95,6 +105,21 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int = 25, replays: int = 4) -> float:
+    """Device milliseconds per call of `fn`, a call that only launches
+    kernels: `launches` calls captured in one CUDA graph, timed over
+    `replays` replays, so the host's rate of issuing launches does not
+    enter (a launch of the subspace kernel at iters=0 is 10 to 70 us of
+    work)."""
+    fn()  # builds, loads and sets the kernel's attributes outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, replays, warmup=1) / launches
 
 
 def _program(fmt: str):
@@ -152,8 +177,8 @@ def phase_kernel(seed: int, buckets):
             torch.linalg.svd(unf0, full_matrices=False)
             torch.linalg.svd(unf1, full_matrices=False)
 
-        kernel_ms = cuda_ms(
-            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS), 50)
+        kernel_ms = graph_ms(
+            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS))
         plain_ms = cuda_ms(
             lambda: tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS), 5, 1)
         library_ms = cuda_ms(library, 5, 1)
@@ -176,6 +201,23 @@ def phase_kernel(seed: int, buckets):
     return rows
 
 
+def check_subspace(t, r):
+    """The kernel at t against its plain version: (max abs difference,
+    projector error, QQ^T t relative error); raises past the tolerances."""
+    q = sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS)
+    torch.cuda.synchronize()
+    p = sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS)
+    with full_f32():
+        proj = torch.linalg.matrix_norm(q @ q.mT - p @ p.mT).max().item()
+        zq, zp = q @ (q.mT @ t), p @ (p.mT @ t)
+    rel = (torch.linalg.vector_norm(zq - zp)
+           / torch.linalg.vector_norm(zp)).item()
+    if not (proj < TT_PROJ_TOL and rel < TT_REL_TOL):
+        raise AssertionError(f"subspace kernel disagrees with plain at "
+                             f"{tuple(t.shape)} r={r}: proj={proj} rel={rel}")
+    return (q - p).abs().max().item(), proj, rel
+
+
 def phase_kernel_tt(seed: int, launches):
     rng = np.random.RandomState(seed)
     rows_out = []
@@ -183,20 +225,13 @@ def phase_kernel_tt(seed: int, launches):
         l, rows, cols = shape
         t_np = rng.standard_normal(shape).astype(np.float32)
         t = torch.from_numpy(t_np / np.float32(np.sqrt(cols))).cuda()
-        q = sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS)
-        torch.cuda.synchronize()
-        p = sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS)
-        with full_f32():
-            proj = torch.linalg.matrix_norm(q @ q.mT - p @ p.mT).max().item()
-            zq, zp = q @ (q.mT @ t), p @ (p.mT @ t)
-        rel = (torch.linalg.vector_norm(zq - zp)
-               / torch.linalg.vector_norm(zp)).item()
-        max_abs = (q - p).abs().max().item()
-        if not (proj < TT_PROJ_TOL and rel < TT_REL_TOL):
-            raise AssertionError(f"subspace kernel disagrees with plain at "
-                                 f"{shape} r={r}: proj={proj} rel={rel}")
-        kernel_ms = cuda_ms(
-            lambda: sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS), 50)
+        max_abs, proj, rel = check_subspace(t, r)
+        kernel_ms = graph_ms(
+            lambda: sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS))
+        # the same launch without the iteration: the Gram, the identity
+        # start and, in the tall case, the lift
+        gram_ms = graph_ms(
+            lambda: sk.dominant_left_subspace_batched(t, r, iters=0))
         plain_ms = cuda_ms(
             lambda: sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS), 5, 1)
         library_ms = cuda_ms(
@@ -209,13 +244,29 @@ def phase_kernel_tt(seed: int, launches):
                "projector_err": proj, "projector_tol": TT_PROJ_TOL,
                "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "library_ms_batched_svd": library_ms,
+               "gram_ms": gram_ms, "plain_ms": plain_ms,
+               "library_ms_batched_svd": library_ms,
                "flops": flops, "bytes": nbytes,
                "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
                "bytes_us": 1e6 * t_bytes,
+               "bound_share": 1e3 * max(t_ops, t_bytes) / kernel_ms,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         emit(row)
         rows_out.append(row)
+    for shape, r in NEAR_CAP_LAUNCHES:
+        l, rows, cols = shape
+        if sk.padded_plan(rows, cols, r) or not sk.subspace_supported(shape, r):
+            raise AssertionError(f"{shape} r={r} does not take the unpadded plan")
+        t_np = rng.standard_normal(shape).astype(np.float32)
+        t = torch.from_numpy(t_np / np.float32(np.sqrt(cols))).cuda()
+        max_abs, proj, rel = check_subspace(t, r)
+        emit({"phase": "kernel", "name": "dominant_left_subspace_batched",
+              "plan": "unpadded", "shape_L_rows_cols": list(shape), "rank": r,
+              "projector_err": proj, "projector_tol": TT_PROJ_TOL,
+              "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
+              "max_abs_err": max_abs,
+              "kernel_ms": graph_ms(lambda: sk.dominant_left_subspace_batched(
+                  t, r, iters=TT_ITERS))})
     # the whole batched TT-SVD sweep (kernel, residuals, reconstruction) of
     # one Z-step, bucket by bucket on random weights
     xs = []
@@ -354,6 +405,13 @@ def phase_main(seed: int, card: str, fmt: str, launches_per_z_step: int,
     return launches
 
 
+# ms per Z-step of the first CUDA version of each kernel, as PERF.md
+# records them (NVIDIA H100 80GB HBM3, 700 W): printed on a line of their
+# own, labelled as recorded, apart from this run's measurements
+RECORDED_FIRST_VERSION_MS = {"tucker2_factors_batched": 7.85,
+                             "dominant_left_subspace_batched": 15.13}
+
+
 def kernel_summary(name, source, replaces, launches, rows, library_key):
     """One entry of the kernels line: per Z-step sums over `rows`."""
     return {
@@ -365,7 +423,9 @@ def kernel_summary(name, source, replaces, launches, rows, library_key):
         "bound_ms": sum(r["bound_us"] for r in rows) / 1000,
         "bound_by": ("operations" if sum(r["ops_us"] for r in rows)
                      >= sum(r["bytes_us"] for r in rows) else "bytes"),
-        "library_ms": sum(r[library_key] for r in rows)}
+        "library_ms": sum(r[library_key] for r in rows),
+        "bound_share": (sum(r["bound_us"] for r in rows) / 1000
+                        / sum(r["kernel_ms"] for r in rows))}
 
 
 def main() -> int:
@@ -423,15 +483,20 @@ def main() -> int:
                                       workdir)
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
+    emit({"phase": "recorded", "source": "PERF.md, not this run",
+          "first_version_ms_per_z_step": RECORDED_FIRST_VERSION_MS})
     src = "dnn_compression_tensor_admm_tpu_torch/csrc/"
     ref = "dnn_compression_tensor_admm_tpu/ops/pallas/"
+    subspace = kernel_summary(
+        "dominant_left_subspace_batched", src + "subspace.cu",
+        ref + "subspace_kernel.py:85", launches_tt_main, rows_tt,
+        "library_ms_batched_svd")
+    subspace["gram_ms"] = sum(r["gram_ms"] for r in rows_tt)
     emit({"kernels": [
         kernel_summary("tucker2_factors_batched", src + "tucker2_factors.cu",
                        ref + "tucker_kernel.py:142", launches_tk_main, rows_tk,
                        "library_ms_hosvd_only_svd_of_both_unfoldings"),
-        kernel_summary("dominant_left_subspace_batched", src + "subspace.cu",
-                       ref + "subspace_kernel.py:85", launches_tt_main, rows_tt,
-                       "library_ms_batched_svd")]})
+        subspace]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -13,50 +13,330 @@
 //                  y = t v,    q = y ns_inv_sqrt(y^T y)
 // with orth_iter and ns_inv_sqrt (12 Newton-Schulz steps on S/tr(S) +
 // 1e-6 I) from orth_iter.cuh, the Tucker-2 kernel's own copy. `iters` is
-// an argument (max(8, admm_hooi_iters) on the Z-step). The caller returns
+// an argument (max(8, admm_hooi_iters) on the Z-step; 0 leaves the Gram,
+// the identity start and, in the tall case, the lift). The caller returns
 // the identity for a full-rank request (r == rows) and never launches.
 //
 // Bound on the H100 (SXM, 700 W): the 24 launches of one ResNet32-TT@3x
 // Z-step need about 0.49 GFLOP of float32 (`subspace_flops` in
 // ops/cuda/subspace_kernel.py) and move about 3.3 MB, so the card could
-// take about 7 us at its 67 TFLOP/s non-tensor float32 rate: the work is
+// take about 7.4 us at its 67 TFLOP/s non-tensor float32 rate: the work is
 // bound by operations, not bytes.
 //
-// Why this kernel sits far from that bound: as in the Tucker-2 kernel, each
-// layer is a chain of small dependent products (8 orthogonal-iteration
-// steps, each with a 12-step Newton-Schulz loop on r x r matrices, r <= 40)
-// separated by block-wide barriers, and a launch gives only 1 to 10 blocks
-// for 132 SMs. The design is the simple one: one 256-thread block per layer
-// (grid = L); t stays in device memory (a launch reads at most 1.3 MB, which
-// L2 holds) and is read by the Gram and, in the tall case, the lift; the
-// Gram, the iterate, Y and the five Newton-Schulz matrices live in dynamic
-// shared memory (at most 70,904 bytes on this path, so the launcher opts in
-// above 48 KB); the tall case writes q = Y S^{-1/2} straight to device
-// memory.
+// The design: one 256-thread block per layer (grid = L), plain float32 FMA
+// (no TF32: full-rank-in-columns steps such as [10, 144, 16] -> 16 must come
+// out exact, and Newton-Schulz needs full float32). Staging and tiling do
+// not change the order in which any output is summed. For the H100:
+// 1. The Gram. Read straight from device memory, t t^T puts a whole row
+//    between neighbouring threads. So t streams through shared memory
+//    along its long side (columns of a wide slice, rows of a tall one) in
+//    chunks, copied with cp.async and double-buffered, so the next chunk's
+//    copy overlaps this chunk's FMAs. A chunk is held with the summed index
+//    major (chunk[p][i]): t's own rows when tall; when wide, a transpose in
+//    which each warp copies 8 columns x 4 rows (32-byte pieces of device
+//    memory) onto distinct banks. A 16 x 16 thread grid holds the Gram (or
+//    one 64 x 64 block of a larger one) as register micro-tiles (4 x 4 read
+//    as float4 in the padded plan) and writes it to shared memory once. The
+//    chunks live where the iterate, Y and the Newton-Schulz matrices go
+//    later, so the plan grows only where a block has room.
+// 2. The tall lift Y = t V. Read from L2 for every output, t costs more
+//    than the product; from cols = 64 up it streams again in row chunks
+//    through the Gram's region, free once the iteration ends. Narrower
+//    slices keep reading L2, as chunks of fewer than 32 rows cost more in
+//    barriers than they save. Y^T Y is one shared-memory product of at
+//    most 360 x 40 x 40.
+// 3. The small products are register-tiled (orth_iter.cuh) and, in the
+//    padded plan, read float4 operands; the Newton-Schulz loop keeps two
+//    barriers per step.
+// 4. The grid gives 1 to 10 blocks to 132 SMs. Once staged, the Gram is a
+//    small share of a wide launch (PERF.md, `gram_ms`), so no thread-block
+//    cluster splits it. What remains, and why the kernel sits far above its
+//    bound, is the iteration: per layer 8 steps of about 28 dependent small
+//    products (r <= 40) separated by barriers, which one block runs in
+//    order; each phase of a few thousand FMAs is bound by the latency of
+//    its loads, FMA chain and barrier, not by the card's rate.
+//
+// Shared memory: the unpadded plan holds the Gram, the iterate, Y
+// (rows x r) and five r x r Newton-Schulz matrices. The padded plan rounds
+// each size up to 4; either grows to the Gram plus two chunks of kStageLen
+// where that is larger, but never past the 232,448 bytes a block may have.
+// The padded plan is used wherever it fits; the gate accepts exactly the
+// shapes whose unpadded plan fits, as the first version's did. The Python
+// gate (ops/cuda/subspace_kernel.py::smem_bytes) repeats the formula.
 
 #include <cuda_runtime.h>
 
-#include "orth_iter.cuh"  // matmul, set_eye, ns_inv_sqrt, orth_iter
+#include <cstdint>
+
+#include "orth_iter.cuh"  // scalar and padded products, orth_iter(4)
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kStageLen = 64;               // chunk length the plan grows for
+constexpr int kMaxSmemFloats = 232448 / 4;  // a block's dynamic shared memory
+// The tall lift stages t from this many columns up; at 32 columns reading
+// L2 was the faster on the H100 (PERF.md). -DSUBSPACE_LIFT_MIN_COLS moves it
+// (tools/torch_kernel_ab.py).
+#ifndef SUBSPACE_LIFT_MIN_COLS
+#define SUBSPACE_LIFT_MIN_COLS 64
+#endif
+constexpr int kLiftMinCols = SUBSPACE_LIFT_MIN_COLS;
 
+// Shared-memory plan (see the header comment).
 struct Plan {
+  bool padded;
+  int mp, rp;       // m and r, rounded up to 4 in the padded plan
   int g, q, y, ns;  // float offsets into dynamic shared memory
+  int stage;        // floats of each of the Gram's two chunk buffers, at mp*mp
   int total;        // floats
 };
 
-// Shared-memory plan; the Python gate (ops/cuda/subspace_kernel.py) repeats it.
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
+
 __host__ __device__ inline Plan make_plan(int rows, int cols, int r) {
   const int m = rows < cols ? rows : cols;
+  const int base = m * m + m * r + rows * r + 5 * r * r;  // unpadded
+  const int mp = up4(m), rp = up4(r), yp = up4(rows);
+  const int padded = mp * mp + mp * rp + yp * rp + 5 * rp * rp;
+  int want = imax(padded, mp * mp + 2 * (mp + 4) * kStageLen);
+  if (want > kMaxSmemFloats) want = kMaxSmemFloats;
   Plan p;
-  p.g = 0;                // Gram of the smaller side [m, m]
-  p.q = p.g + m * m;      // iterate Q or V [m, r]
-  p.y = p.q + m * r;      // Y = G Q [m, r], or the tall lift t V [rows, r]
-  p.ns = p.y + rows * r;  // 5 Newton-Schulz matrices [r, r]
-  p.total = p.ns + 5 * r * r;
+  p.total = imax(base, want);
+  p.padded = padded <= p.total;
+  p.mp = p.padded ? mp : m;
+  p.rp = p.padded ? rp : r;
+  p.g = 0;                              // Gram of the smaller side [m, m]
+  p.q = p.g + p.mp * p.mp;              // iterate Q or V [m, r]
+  p.y = p.q + p.mp * p.rp;              // Y = G Q, or the tall lift t V [rows, r]
+  p.ns = p.y + (p.padded ? yp : rows) * p.rp;  // 5 Newton-Schulz matrices [r, r]
+  p.stage = (p.total - p.mp * p.mp) / 2;  // >= m + 2 floats
+  if (p.padded) p.stage &= ~3;           // >= mp + 4: 16-byte aligned buffers
   return p;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies n contiguous floats (16 bytes at a time where both ends allow).
+__device__ void copy_contiguous(float* dst, const float* src, int n) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(dst) |
+                     reinterpret_cast<uintptr_t>(src)) & 15) == 0 && n % 4 == 0;
+  if (vec) {
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x)
+      cp_async16(dst + i, src + i);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
+  }
+}
+
+// Copies rows [r0, r0 + n) of a row-major [*, w] matrix to dst with row
+// stride ld >= w (the pads [w, ld) of each row are left alone).
+__device__ void copy_rows(float* dst, int ld, const float* src, int w, int r0,
+                          int n) {
+  if (ld == w) {
+    copy_contiguous(dst, src + r0 * w, n * w);
+    return;
+  }
+  for (int idx = threadIdx.x; idx < n * w; idx += blockDim.x) {
+    const int row = idx / w, col = idx - row * w;
+    cp_async4(dst + row * ld + col, src + (r0 + row) * w + col);
+  }
+}
+
+// The Gram's chunks hold the long side's index p major: chunk[p * ldc + i]
+// for i < m. Tall, that is t's own rows. Wide, it is a transpose: a warp
+// copies 8 consecutive columns of 4 rows (32-byte pieces of device memory)
+// into 4 x 8 distinct banks when ldc = 4 (mod 32).
+__device__ void load_gram_chunk(float* dst, int ldc, const float* t, bool wide,
+                                int m, int cols, int len, int kc, int c) {
+  const int c0 = c * kc;
+  const int kk = min(kc, len - c0);
+  if (!wide) {
+    copy_rows(dst, ldc, t, m, c0, kk);
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int dp = lane & 7, di = lane >> 3;
+  const int pieces = cdiv(m, 4) * cdiv(kk, 8);
+  const int kp = cdiv(kk, 8);
+  for (int piece = warp; piece < pieces; piece += warps) {
+    const int i = (piece / kp) * 4 + di, p = (piece % kp) * 8 + dp;
+    if (i < m && p < kk) cp_async4(dst + p * ldc + i, t + i * cols + c0 + p);
+  }
+}
+
+// One micro-tile per thread of a 16 x 16 grid for block (bi, bj) of the Gram, 16 G on a side, summed over the
+// whole long side, chunk by chunk. Its rows and columns are interleaved
+// (ty + 16 i), or with V4 contiguous (4 ty + i), read as float4.
+template <int G, bool V4>
+__device__ void gram_block(float* __restrict__ g, int mo,
+                           const float* t, bool wide, int m, int cols,
+                           int len, int kc, int ldc, float* buf, int stage,
+                           int bi, int bj) {
+  constexpr int kB = 16 * G;
+  const int nchunks = cdiv(len, kc);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  int ra[G], rb[G];  // rows and columns, clamped inside the chunk
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    ra[i] = V4 ? min(bi * kB + 4 * ty, ldc - 4) + i
+               : min(bi * kB + ty + 16 * i, m - 1);
+    rb[i] = V4 ? min(bj * kB + 4 * tx, ldc - 4) + i
+               : min(bj * kB + tx + 16 * i, m - 1);
+  }
+  float acc[G][G];
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[i][j] = 0.f;
+  load_gram_chunk(buf, ldc, t, wide, m, cols, len, kc, 0);
+  cp_async_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {
+      load_gram_chunk(buf + ((c + 1) & 1) * stage, ldc, t, wide, m, cols, len,
+                      kc, c + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* s = buf + (c & 1) * stage;
+    const int kk = min(kc, len - c * kc);
+#pragma unroll 4
+    for (int p = 0; p < kk; ++p, s += ldc) {
+      float av[G], bv[G];
+      if (V4) {
+        const float4 a4 = ld4(s + ra[0]), b4 = ld4(s + rb[0]);
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          av[i] = f4(a4, i);
+          bv[i] = f4(b4, i);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          av[i] = s[ra[i]];
+          bv[i] = s[rb[i]];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+#pragma unroll
+        for (int j = 0; j < G; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();  // the buffer is refilled by the next chunk's copy
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int row = bi * kB + (V4 ? 4 * ty + i : ty + 16 * i);
+      const int col = bj * kB + (V4 ? 4 * tx + j : tx + 16 * j);
+      if (row < mo && col < mo) {
+        const float v = row < m && col < m ? acc[i][j] : 0.f;  // pads are 0
+        g[row * mo + col] = v;
+        if (bi != bj) g[col * mo + row] = v;
+      }
+    }
+}
+
+// g[mo, mo] (zero past m) = the Gram of the smaller side of
+// t [rows, cols] (device memory), streamed through two shared buffers of
+// `stage` floats at buf; the micro-tile is 1x1 up to m = 16, 2x2 up to 32,
+// else 4x4 on 64 x 64 blocks (float4 reads in the padded plan).
+__device__ void gram_staged(float* __restrict__ g, int mo,
+                            const float* t, int rows, int cols, float* buf,
+                            int stage, bool padded) {
+  const bool wide = rows <= cols;
+  const int m = wide ? rows : cols;
+  const int len = wide ? cols : rows;  // the side the Gram sums over
+  // chunk row stride: padded, a multiple of 4 for float4 reads, and wide
+  // one float4 past the rows, so that the transposing copy's 4 rows x 8
+  // columns per warp land on distinct banks (for m = 32 and 64 exactly)
+  const int ldc = padded ? (wide ? up4(m) + 4 : up4(m)) : m;
+  const int kc = stage / ldc;  // chunk length, >= 1
+  // (a chunk's pad columns feed only Gram entries past m, which are
+  // stored as 0, so they are never cleared)
+  if (m <= 16) {
+    gram_block<1, false>(g, mo, t, wide, m, cols, len, kc, ldc, buf,
+                         stage, 0, 0);
+  } else if (m <= 32) {
+    gram_block<2, false>(g, mo, t, wide, m, cols, len, kc, ldc, buf,
+                         stage, 0, 0);
+  } else {
+    const int nb = cdiv(mo, 64);
+    for (int bi = 0; bi < nb; ++bi)  // symmetric: upper blocks, mirrored
+      for (int bj = bi; bj < nb; ++bj) {
+        if (padded)
+          gram_block<4, true>(g, mo, t, wide, m, cols, len, kc, ldc, buf,
+                              stage, bi, bj);
+        else
+          gram_block<4, false>(g, mo, t, wide, m, cols, len, kc, ldc, buf,
+                               stage, bi, bj);
+      }
+  }
+  __syncthreads();
+}
+
+// Padded tall lift: y[rows, rp] = t[rows, cols] v[mp, rp]. From
+// kLiftMinCols up, t streams in chunks of mp/2 rows (row stride mp, zero
+// pads) through two buffers in buf (the Gram's mp*mp floats, free now), read
+// as float4; narrower slices read t from device memory (L2) with the scalar
+// tiles, as chunks of fewer than 32 rows cost more in barriers than they
+// save.
+__device__ void lift_padded(float* __restrict__ y, const float* t,
+                            const float* v, int rows, int cols, int mp,
+                            int rp, float* buf) {
+  if (cols < kLiftMinCols) {
+    matmul(y, rp, t, cols, 1, v, rp, 1, rows, rp, cols, false);
+    return;
+  }
+  const int kr = mp / 2;
+  const int half = kr * mp;
+  if (mp != cols) {  // zero the pads of both buffers once
+    for (int idx = threadIdx.x; idx < 2 * half; idx += blockDim.x)
+      if (idx % mp >= cols) buf[idx] = 0.f;
+  }
+  const int nchunks = cdiv(rows, kr);
+  copy_rows(buf, mp, t, cols, 0, min(kr, rows));
+  cp_async_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    const int c0 = c * kr;
+    if (c + 1 < nchunks) {
+      copy_rows(buf + ((c + 1) & 1) * half, mp, t, cols, c0 + kr,
+                min(kr, rows - c0 - kr));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // ends with the barrier that frees this buffer for the copy after next
+    matmul4<false>(y + c0 * rp, rp, buf + (c & 1) * half, mp, v, rp,
+                   min(kr, rows - c0), rp, mp);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -64,27 +344,41 @@ subspace_kernel(const float* __restrict__ t, float* __restrict__ q_out,
                 int rows, int cols, int r, int iters) {
   extern __shared__ float smem[];
   const Plan p = make_plan(rows, cols, r);
+  const int m = rows < cols ? rows : cols;
   float* g = smem + p.g;
   float* q = smem + p.q;
   float* y = smem + p.y;
   float* ns = smem + p.ns;
   const float* tl = t + static_cast<size_t>(blockIdx.x) * rows * cols;
   float* ql = q_out + static_cast<size_t>(blockIdx.x) * rows * r;
+  const int mp = p.mp, rp = p.rp;
 
+  gram_staged(g, mp, tl, rows, cols, smem + mp * mp, p.stage,
+              p.padded);  // t t^T or t^T t
+  set_eye(q, mp, r, rp);
+  if (p.padded)
+    orth_iter4(g, q, mp, r, rp, iters, y, ns);  // Q, or V in the tall case
+  else
+    orth_iter(g, q, m, r, iters, y, ns);
   if (rows <= cols) {
-    matmul(g, rows, tl, cols, 1, tl, 1, cols, rows, rows, cols, false);  // t t^T
-    set_eye(q, rows, r);
-    orth_iter(g, q, rows, r, iters, y, ns);
-    for (int idx = threadIdx.x; idx < rows * r; idx += blockDim.x) ql[idx] = q[idx];
-  } else {
-    matmul(g, cols, tl, 1, cols, tl, cols, 1, cols, cols, rows, false);  // t^T t
-    set_eye(q, cols, r);
-    orth_iter(g, q, cols, r, iters, y, ns);                              // V
-    matmul(y, r, tl, cols, 1, q, r, 1, rows, r, cols, false);            // Y = t V
-    matmul(ns, r, y, 1, r, y, r, 1, r, r, rows, false);                  // Y^T Y
-    const float* z = ns_inv_sqrt(ns, r);
-    matmul(ql, r, y, r, 1, z, r, 1, rows, r, r, false);                  // q = Y Z
+    for (int idx = threadIdx.x; idx < rows * r; idx += blockDim.x)
+      ql[idx] = q[(idx / r) * rp + idx % r];
+    return;
   }
+  const float* z;
+  if (p.padded) {
+    const int yp = up4(rows);
+    for (int idx = rows * rp + threadIdx.x; idx < yp * rp; idx += blockDim.x)
+      y[idx] = 0.f;                                         // pad rows of Y
+    lift_padded(y, tl, q, rows, cols, mp, rp, g);           // Y = t V
+    z = gram_inv_sqrt4(y, ns, r, rp, yp);                   // (Y^T Y)^{-1/2}
+  } else {
+    matmul(y, r, tl, cols, 1, q, r, 1, rows, r, cols, false);  // Y = t V
+    matmul(ns, r, y, 1, r, y, r, 1, r, r, rows, false);        // Y^T Y
+    z = ns_inv_sqrt(ns, r, r);
+  }
+  // q = Y Z, the first r columns, straight to device memory
+  matmul(ql, r, y, rp, 1, z, rp, 1, rows, r, rp, false);
 }
 
 }  // namespace

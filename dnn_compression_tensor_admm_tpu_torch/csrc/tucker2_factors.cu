@@ -85,8 +85,8 @@ tucker2_factors_kernel(const float* __restrict__ x, float* __restrict__ u0_out,
   const bool solve1 = r1 < i;
 
   // HOSVD init (a full-rank factor is the identity)
-  set_eye(u0, o, r0);
-  set_eye(u1, i, r1);
+  set_eye(u0, o, r0, r0);
+  set_eye(u1, i, r1, r1);
   if (solve0) {
     for (int kk = 0; kk < k; ++kk) {  // G0 = sum_k X_k X_k^T
       const float* xk = xl + kk * o * i;

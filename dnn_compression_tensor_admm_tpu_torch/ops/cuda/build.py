@@ -5,7 +5,9 @@ shared library with a plain C interface and loaded with `ctypes`. The
 library is named after a hash of its source, every shared header
 (`csrc/*.cuh`) and the flags, so a stale build is never loaded; it
 lives under `build/torch_kernels/` at the root of the checkout. Nothing
-is built at import: the first launch builds.
+is built at import: the first launch builds. `src_dir` and `defines`
+build another checkout's sources, or this one's with its tuning macros
+set (`tools/torch_kernel_ab.py`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -37,25 +40,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, src_dir: Path = SRC_DIR, defines=()) -> Path:
     digest = hashlib.sha256()
-    for src in [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
+    for src in [src_dir / f"{name}.cu", *sorted(src_dir.glob("*.cuh"))]:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> dict:
-    """Compile `csrc/<name>.cu` unless its library exists.
+def build(name: str, src_dir: Path = SRC_DIR, defines=()) -> dict:
+    """Compile `<src_dir>/<name>.cu`, with `-D` for each of `defines`,
+    unless its library exists.
 
     Returns {'path', 'seconds', 'compiler_output'}; `seconds` is 0 and
     `compiler_output` empty when the library was already built."""
-    so = library_path(name)
+    so = library_path(name, src_dir, defines)
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "compiler_output": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    tmp = so.with_name(
+        f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+           str(src_dir / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdin=subprocess.DEVNULL, capture_output=True,
                           text=True, timeout=600)
@@ -69,6 +79,7 @@ def build(name: str) -> dict:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build if needed, then load `lib<name>` once per process."""
-    return ctypes.CDLL(build(name)["path"])
+def load(name: str, src_dir: Path = SRC_DIR, defines=()) -> ctypes.CDLL:
+    """Build if needed, then load the library once per process
+    (`defines` a tuple)."""
+    return ctypes.CDLL(build(name, src_dir, defines)["path"])

@@ -28,12 +28,43 @@ from .tucker_kernel import (MAX_SMEM_BYTES, _eye, _ns_inv_sqrt, _orth_iter,
                             ns_flops, orth_flops)
 
 
-def smem_bytes(rows: int, cols: int, r: int) -> int:
-    """Shared-memory plan of one block, as `make_plan` in the CUDA source:
-    the Gram of the smaller side, the iterate, Y (rows x r, which the tall
-    lift needs) and five Newton-Schulz matrices."""
+# Chunk length along the Gram's long side that the plan grows for
+# (kStageLen in the CUDA source).
+STAGE_LEN = 64
+
+
+def _up4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _plan(rows: int, cols: int, r: int):
+    """(floats, padded) of one block's shared-memory plan, as `make_plan`
+    in the CUDA source.
+
+    The unpadded plan holds the Gram of the smaller side, the iterate, Y
+    (rows x r, which the tall lift needs) and five Newton-Schulz matrices.
+    The padded plan (every size rounded up to 4) and two Gram chunks of
+    STAGE_LEN along the long side may grow it, but only up to what a block
+    may have: a shape fits if and only if its unpadded plan does, and takes
+    the padded plan wherever that fits too."""
     m = min(rows, cols)
-    return 4 * (m * m + m * r + rows * r + 5 * r * r)
+    base = m * m + m * r + rows * r + 5 * r * r
+    mp, rp, yp = _up4(m), _up4(r), _up4(rows)
+    padded = mp * mp + mp * rp + yp * rp + 5 * rp * rp
+    want = max(padded, mp * mp + 2 * (mp + 4) * STAGE_LEN)
+    total = max(base, min(want, MAX_SMEM_BYTES // 4))
+    return total, padded <= total
+
+
+def smem_bytes(rows: int, cols: int, r: int) -> int:
+    """Bytes of one block's shared-memory plan (`subspace_smem_bytes`)."""
+    return 4 * _plan(rows, cols, r)[0]
+
+
+def padded_plan(rows: int, cols: int, r: int) -> bool:
+    """True if the launch takes the padded plan (float4 products); shapes
+    near a block's limit take the unpadded one (scalar products)."""
+    return _plan(rows, cols, r)[1]
 
 
 def subspace_supported(shape, r: int) -> bool:
@@ -104,14 +135,34 @@ def dominant_left_subspace_plain(t: torch.Tensor, r: int, *,
 # the CUDA kernel
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("subspace")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a loaded `subspace` library."""
     fn = lib.subspace_launch
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.subspace_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.subspace_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return bind(build.load("subspace"))
+
+
+def launch(lib: ctypes.CDLL, t: torch.Tensor, r: int, *,
+           iters: int) -> torch.Tensor:
+    """One launch of `lib`'s kernel on t's device and current stream:
+    t [L, rows, cols] float32, contiguous, on a CUDA card -> q [L, rows, r];
+    the caller has checked the shape and clamped r."""
+    l, rows, _ = t.shape
+    q = torch.empty((l, rows, r), dtype=torch.float32, device=t.device)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = lib.subspace_launch(t.data_ptr(), q.data_ptr(), l, rows,
+                                  t.shape[2], r, iters, stream)
+    if err != 0:
+        raise RuntimeError(f"subspace kernel launch failed: CUDA error {err}")
+    return q
 
 
 def dominant_left_subspace_batched(t: torch.Tensor, r: int, *,
@@ -140,14 +191,7 @@ def dominant_left_subspace_batched(t: torch.Tensor, r: int, *,
     if not subspace_supported(t.shape, r):
         raise ValueError(f"stack {tuple(t.shape)} at rank {r} exceeds the "
                          "kernel's shared-memory plan")
-    lib = _library()
-    q = torch.empty((l, rows, r), dtype=torch.float32, device=t.device)
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        err = lib.subspace_launch(t.data_ptr(), q.data_ptr(), l, rows, cols,
-                                  r, iters, stream)
-    if err != 0:
-        raise RuntimeError(f"subspace kernel launch failed: CUDA error {err}")
+    q = launch(_library(), t, r, iters=iters)
     dominant_left_subspace_batched.launches += 1
     return q
 

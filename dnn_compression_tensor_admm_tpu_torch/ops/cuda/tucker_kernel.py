@@ -153,14 +153,36 @@ def tucker2_factors_plain(x: torch.Tensor, r0: int, r1: int, *,
 # the CUDA kernel
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("tucker2_factors")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a loaded `tucker2_factors` library."""
     fn = lib.tucker2_factors_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.tucker2_factors_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.tucker2_factors_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return bind(build.load("tucker2_factors"))
+
+
+def launch(lib: ctypes.CDLL, x: torch.Tensor, r0: int, r1: int, *,
+           sweeps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of `lib`'s kernel on x's device and current stream:
+    x [L, K, O, I] float32, contiguous, on a CUDA card -> (U0, U1); the
+    caller has checked the shape and clamped the ranks."""
+    l, k, o, i = x.shape
+    u0 = torch.empty((l, o, r0), dtype=torch.float32, device=x.device)
+    u1 = torch.empty((l, i, r1), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tucker2_factors_launch(
+            x.data_ptr(), u0.data_ptr(), u1.data_ptr(), l, k, o, i, r0, r1,
+            sweeps, stream)
+    if err != 0:
+        raise RuntimeError(f"tucker2_factors kernel launch failed: CUDA error {err}")
+    return u0, u1
 
 
 def tucker2_factors_batched(x: torch.Tensor, r0: int, r1: int, *,
@@ -189,16 +211,7 @@ def tucker2_factors_batched(x: torch.Tensor, r0: int, r1: int, *,
     if not kernel_supported(x.shape, r0, r1):
         raise ValueError(f"bucket {tuple(x.shape)} at ranks ({r0}, {r1}) "
                          "exceeds the kernel's shared-memory plan")
-    lib = _library()
-    u0 = torch.empty((l, o, r0), dtype=torch.float32, device=x.device)
-    u1 = torch.empty((l, i, r1), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tucker2_factors_launch(
-            x.data_ptr(), u0.data_ptr(), u1.data_ptr(), l, k, o, i, r0, r1,
-            sweeps, stream)
-    if err != 0:
-        raise RuntimeError(f"tucker2_factors kernel launch failed: CUDA error {err}")
+    u0, u1 = launch(_library(), x, r0, r1, sweeps=sweeps)
     tucker2_factors_batched.launches += 1
     return u0, u1
 

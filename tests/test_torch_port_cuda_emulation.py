@@ -1,0 +1,226 @@
+"""The port's CUDA C++ kernels, compiled for the CPU, against their plain versions.
+
+There is no CUDA compiler or card here, so the kernels' sources are
+rewritten for g++ and run under a small emulation of the CUDA subset they
+use: a block is 256 host threads, `__syncthreads` a std::barrier, shared
+memory a buffer of exactly the kernel's planned size (with a guard band
+behind it), a cp.async copy a plain copy made either when it is issued or
+as late as the kernel's wait allows. That runs each kernel's own indexing,
+staging, padding and synchronisation, and catches a misaligned float4
+access, a copy never waited for, or a write past the shared-memory plan.
+It says nothing about speed or about what nvcc accepts: `chip_smoke.py`
+builds and checks the kernels on the card.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build
+from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk
+from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk
+
+SHIM = r"""
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+#include <thread>
+struct Dim { unsigned x; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline thread_local Dim threadIdx, blockIdx;
+inline Dim blockDim{256};
+inline std::barrier<>* emu_bar;
+inline float* emu_smem;
+inline int emu_error = 0;  // 1 misaligned float4, 2 copy not waited for
+inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+using std::min;
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+inline uintptr_t __cvta_generic_to_shared(const void* p) { return (uintptr_t)p; }
+template <class T> inline T* emu_aligned(T* p) {
+  if (reinterpret_cast<uintptr_t>(p) & 15) emu_error = 1;
+  return p;
+}
+struct EmuCopy { float* d; const float* s; int n; };
+inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+inline thread_local std::vector<EmuCopy> emu_open;
+inline int emu_late = 0;  // 0: a copy lands at issue, 1: at the latest wait
+inline void emu_copy(float* d, const float* s, int n) {
+  if (emu_late) emu_open.push_back({d, s, n}); else std::memcpy(d, s, 4 * n);
+}
+inline void emu_commit() { emu_groups.push_back(emu_open); emu_open.clear(); }
+inline void emu_wait(int n) {
+  while (static_cast<int>(emu_groups.size()) > n) {
+    for (auto& c : emu_groups.front()) std::memcpy(c.d, c.s, 4 * c.n);
+    emu_groups.erase(emu_groups.begin());
+  }
+}
+constexpr int kGuard = 1024;  // floats behind the plan, filled with a sentinel
+template <class Kernel>
+int emu_launch(int blocks, int floats, Kernel kernel) {
+  std::vector<float> smem(floats + kGuard);
+  emu_smem = smem.data();
+  emu_error = 0;
+  for (int b = 0; b < blocks; ++b) {
+    std::fill(smem.begin(), smem.end(), NAN);
+    std::fill(smem.begin() + floats, smem.end(), 12345.f);
+    std::barrier<> bar(blockDim.x);
+    emu_bar = &bar;
+    std::vector<std::thread> threads;
+    for (unsigned i = 0; i < blockDim.x; ++i)
+      threads.emplace_back([&, i, b] {
+        threadIdx.x = i;
+        blockIdx.x = b;
+        kernel();
+        if (!emu_groups.empty() || !emu_open.empty()) emu_error = 2;
+      });
+    for (auto& t : threads) t.join();
+    for (int i = floats; i < floats + kGuard; ++i)
+      if (smem[i] != 12345.f) return 3;  // written past the plan
+  }
+  return emu_error;
+}
+"""
+
+RUNNERS = {
+    "subspace": r"""
+extern "C" int emu_run(const float* t, float* q, int l, int rows, int cols,
+                       int r, int iters, int late) {
+  emu_late = late;
+  blockDim.x = kThreads;
+  return emu_launch(l, make_plan(rows, cols, r).total, [&] {
+    subspace_kernel(t, q, rows, cols, r, iters);
+  });
+}
+""",
+    "tucker2_factors": r"""
+extern "C" int emu_run(const float* x, float* u0, float* u1, int l, int k,
+                       int o, int i, int r0, int r1, int sweeps) {
+  blockDim.x = kThreads;
+  return emu_launch(l, make_plan(o, i, r0, r1).total, [&] {
+    tucker2_factors_kernel(x, u0, u1, k, o, i, r0, r1, sweeps);
+  });
+}
+""",
+}
+
+
+def _for_the_cpu(name: str) -> str:
+    """The kernel's source, its headers inlined, rewritten for g++."""
+    def read(path):
+        return path.read_text().replace("#include <cuda_runtime.h>", "")
+    src = read(build.SRC_DIR / f"{name}.cu")
+    for header in build.SRC_DIR.glob("*.cuh"):
+        src = src.replace(f'#include "{header.name}"', read(header))
+    src = src.replace("extern __shared__ float smem[];",
+                      "float* smem = emu_smem;")
+    src = src.replace("#pragma once", "")
+    bodies = {"cp_async4": "emu_copy(dst, src, 1);",
+              "cp_async16": "emu_copy(dst, src, 4);",
+              "cp_async_commit": "emu_commit();",
+              "cp_async_wait": "emu_wait(N);"}
+    for fn, body in bodies.items():
+        src = re.sub(rf"(void {fn}\([^)]*\) \{{).*?\n\}}", rf"\1 {body} }}",
+                     src, flags=re.S)
+    src = re.sub(r"\*reinterpret_cast<(const )?float4\*>\(([^;=]*?)\)( =|;)",
+                 r"*emu_aligned(reinterpret_cast<\1float4*>(\2))\3", src)
+    # the C interface launches on a stream; the emulation has its own runner
+    src = src[:src.rindex('extern "C" {')]
+    return SHIM + src + RUNNERS[name]
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the CPU emulation of the CUDA sources")
+    out = {}
+    for name in RUNNERS:
+        cpp = tmp_path_factory.mktemp("emu") / f"{name}.cpp"
+        cpp.write_text(_for_the_cpu(name))
+        so = cpp.with_suffix(".so")
+        subprocess.run([gxx, "-std=c++20", "-O1", "-fno-strict-aliasing",
+                        "-fPIC", "-shared", "-Wno-unknown-pragmas", "-o",
+                        str(so), str(cpp), "-pthread"], check=True,
+                       capture_output=True, stdin=subprocess.DEVNULL)
+        out[name] = ctypes.CDLL(str(so))
+    out["subspace"].emu_run.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+    out["tucker2_factors"].emu_run.argtypes = ([ctypes.c_void_p] * 3
+                                               + [ctypes.c_int] * 7)
+    return out
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The emulation runs 256 threads; keep torch's pool out of their way."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("late", [0, 1])
+@pytest.mark.parametrize("L,rows,cols,r", [
+    (2, 32, 72, 8),     # wide, scalar 2x2 Gram, scalar products (rp < 12)
+    (1, 40, 150, 13),   # wide, padded: transposed chunks, float4 Gram and products
+    (1, 100, 36, 10),   # tall, 36 columns: lift from L2
+    (1, 90, 33, 12),    # tall, 33 columns padded to 36: lift from L2
+    (1, 100, 64, 10),   # tall: lift staged in row chunks
+    (1, 150, 66, 12),   # tall: lift chunks with zero pads (66 -> 68)
+    (2, 120, 8, 8),     # tall, full rank in the columns: lift from L2
+    (1, 70, 130, 20),   # wide, Gram of 70 rows in two 64 x 64 blocks
+    (1, 193, 197, 33),  # near a block's limit: the unpadded plan
+    (1, 197, 193, 33),  # the same, tall: scalar products, lift from L2
+])
+def test_subspace_source_matches_plain(libs, L, rows, cols, r, late):
+    t = (np.random.RandomState(rows + cols).standard_normal((L, rows, cols))
+         / np.sqrt(cols)).astype(np.float32)
+    assert sk.subspace_supported(t.shape, r)
+    for iters in (8, 0):
+        q = np.full((L, rows, r), np.nan, np.float32)
+        err = libs["subspace"].emu_run(t.ctypes.data, q.ctypes.data, L, rows,
+                                       cols, r, iters, late)
+        assert err == 0, f"emulation fault {err}"
+        p = sk.dominant_left_subspace_plain(torch.from_numpy(t), r,
+                                            iters=iters).numpy()
+        # the same float32 iteration, summed in the same order; only
+        # rsqrtf differs (exact here, approximate on the card)
+        assert np.abs(q - p).max() < 1e-5
+        zq = q @ (q.transpose(0, 2, 1) @ t)
+        zp = p @ (p.transpose(0, 2, 1) @ t)
+        assert np.linalg.norm(zq - zp) / np.linalg.norm(zp) < 1e-5
+
+
+@pytest.mark.parametrize("shape,r0,r1", [
+    ((2, 9, 16, 16), 16, 16),   # full rank: the identity
+    ((1, 9, 32, 16), 12, 8),
+    ((1, 3, 40, 20), 9, 5),
+])
+def test_tucker2_source_matches_plain(libs, shape, r0, r1):
+    l, k, o, i = shape
+    x = (np.random.RandomState(o * i).standard_normal(shape)
+         / np.sqrt(k * i)).astype(np.float32)
+    u0 = np.full((l, o, r0), np.nan, np.float32)
+    u1 = np.full((l, i, r1), np.nan, np.float32)
+    err = libs["tucker2_factors"].emu_run(x.ctypes.data, u0.ctypes.data,
+                                          u1.ctypes.data, l, k, o, i, r0, r1, 2)
+    assert err == 0, f"emulation fault {err}"
+    xt = torch.from_numpy(x)
+    p0, p1 = tk.tucker2_factors_plain(xt, r0, r1, sweeps=2)
+    z = tk.tucker2_reconstruct(xt, torch.from_numpy(u0), torch.from_numpy(u1))
+    zp = tk.tucker2_reconstruct(xt, p0, p1)
+    assert (torch.linalg.vector_norm(z - zp)
+            / torch.linalg.vector_norm(zp)).item() < 1e-5

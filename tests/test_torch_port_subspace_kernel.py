@@ -105,20 +105,59 @@ def test_tt_project_batched_exact_on_tt_rank_input():
 
 
 def test_shared_memory_gates_on_main_path_launches():
-    # floats: m^2 + m r + rows r + 5 r^2 with m = min(rows, cols); the
-    # compiled library reports the same plan on the card (chip_smoke.py)
+    # floats: the padded plan mp^2 + mp rp + yp rp + 5 rp^2 (m = min(rows,
+    # cols), m, r and rows rounded up to 4), or the Gram plus two chunks of
+    # STAGE_LEN along the long side where that is larger; the compiled
+    # library reports the same plan on the card (chip_smoke.py)
     got = [sk.smem_bytes(s[1], s[2], r) for s, r in MAIN_PATH_LAUNCHES]
     assert got[:3] == [4 * (256 + 256 + 144 * 16 + 5 * 256),
                        4 * (256 + 256 + 288 * 16 + 5 * 256),
-                       4 * (16 + 16 + 64 * 4 + 5 * 16)]
-    assert max(got) == 70904          # [1, 261, 64] at rank 29
-    assert sum(b > 48 * 1024 for b in got) == 6  # the launcher opts in
+                       4 * (16 + 2 * (4 + 4) * 64)]  # [1, 64, 4]: the chunks
+    # [1, 261, 64] at rank 29, padded to 32 and 264 rows
+    assert max(got) == 4 * (64 * 64 + 64 * 32 + 264 * 32 + 5 * 32 * 32) == 78848
+    assert sum(b > 48 * 1024 for b in got) == 12  # the launcher opts in
     assert all(sk.subspace_supported(s, r) for s, r in MAIN_PATH_LAUNCHES)
     assert not sk.subspace_supported((1, 720, 512), 128)  # Gram 1 MiB
     assert not sk.subspace_supported((4, 64, 8, 8), 4)    # not [L, rows, cols]
     assert not sk.tt_supported(2, 100, [4, 5, 6], [1, 4, 4, 1])  # numel
     assert sk.tt_supported(9, 32 * 32 * 9, [8, 4, 9, 4, 8],
                            [1, 8, 16, 16, 8, 1])
+
+
+def test_main_path_takes_the_padded_plan_and_near_cap_shapes_do_not():
+    assert all(sk.padded_plan(s[1], s[2], r) for s, r in MAIN_PATH_LAUNCHES)
+    # chip_smoke.py's near-cap launches: the unpadded plan fits a block's
+    # 58,112 floats, the padded one (196 x 196 Gram, rank 36) does not
+    for rows, cols in [(193, 197), (197, 193)]:
+        assert sk.subspace_supported((2, rows, cols), 33)
+        assert not sk.padded_plan(rows, cols, 33)
+        assert sk.smem_bytes(rows, cols, 33) == 232_448
+
+
+def _unpadded_plan_fits(rows, cols, r):
+    """The first version's gate: its unpadded plan within a block's 227 KB."""
+    m = min(rows, cols)
+    return 4 * (m * m + m * r + rows * r + 5 * r * r) <= 232_448
+
+
+@pytest.mark.parametrize("rows", [4, 5, 7, 16, 33, 64, 99, 128, 200, 241,
+                                  256, 513, 1024])
+def test_gate_accepts_exactly_the_shapes_the_unpadded_plan_fits(rows):
+    # the padded plan and the Gram's chunks may grow a block's shared memory,
+    # but only where it has room: no shape the unpadded plan fits is refused
+    for cols in [*range(4, 1025, 3), 1024]:
+        m = min(rows, cols)
+        top = min(m, rows - 1)  # r < rows (r == rows does not launch)
+        # every rank up to 64, a sample above, and the ranks around the
+        # unpadded plan's limit (5 r^2 + (m + rows) r + m^2 = 58112)
+        disc = (m + rows) ** 2 - 20 * (m * m - 232_448 // 4)
+        edge = int((-(m + rows) + max(disc, 0) ** 0.5) / 10)
+        ranks = {*range(1, min(top, 64) + 1), *range(64, top + 1, 37),
+                 *range(edge - 1, edge + 3), top}
+        for r in sorted(x for x in ranks if 1 <= x <= top):
+            fits = _unpadded_plan_fits(rows, cols, r)
+            assert sk.subspace_supported((1, rows, cols), r) == fits, \
+                (rows, cols, r)
 
 
 def test_main_path_launch_list_and_bound():

@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""The port's two Z-step kernels of another checkout against this one's, on one card.
+
+Run from the root of a checkout, with the root of a second checkout (for
+example the parent commit, unpacked with `git archive` into a directory
+that .gitignore lists) as the baseline:
+
+    python3 tools/torch_kernel_ab.py BASELINE_DIR [--out FILE] [--reps N]
+        [--kernels subspace tucker2_factors] [-D NAME=VALUE ...]
+
+It builds `subspace.cu` and `tucker2_factors.cu` of both checkouts with
+nvcc (all processes at once) and, at the shapes of the main path
+(`chip_smoke.py`: the 24 subspace launches of a ResNet32-TT@3x Z-step and
+the 5 Tucker-2 buckets of ResNet32-TK@3x, inputs from --seed), times
+baseline, this, this, baseline in device time (`chip_smoke.graph_ms`).
+The subspace kernel is timed at the Z-step's iteration count and at
+iters=0 (the Gram, the identity start and the lift). It reports this
+checkout's errors against the plain versions and the largest difference
+between the two builds' outputs, one JSON line per shape and per-Z-step
+sums, also written to --out (default build/kernel_ab.jsonl).
+
+`-D` builds this checkout's side with a tuning macro of the CUDA sources
+set (ORTH_VEC_MIN_RP, ORTH_TILE_ROWS, SUBSPACE_LIFT_MIN_COLS), so with
+`.` as the baseline it measures a threshold against the default:
+
+    python3 tools/torch_kernel_ab.py . --kernels subspace -D ORTH_VEC_MIN_RP=4
+
+Needs a CUDA card; exits 1 without one.
+"""
+
+import argparse
+import concurrent.futures
+import faulthandler
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.precision import full_f32  # noqa: E402
+
+BIND = {"subspace": sk.bind, "tucker2_factors": tk.bind}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("baseline", type=Path, help="root of the baseline checkout")
+    ap.add_argument("--out", type=Path, default=Path("build/kernel_ab.jsonl"))
+    ap.add_argument("--reps", type=int, default=4,
+                    help="replays of a graph of 25 launches per turn")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", nargs="+", choices=tuple(BIND),
+                    default=list(BIND))
+    ap.add_argument("-D", "--define", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="a macro for this checkout's build (repeatable)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    faulthandler.dump_traceback_later(900, exit=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    out = args.out.open("w")
+
+    def emit(obj):
+        line = json.dumps(obj)
+        print(line, flush=True)
+        out.write(line + "\n")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdin=subprocess.DEVNULL, capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    base_src = (args.baseline.resolve() / "dnn_compression_tensor_admm_tpu_torch"
+                / "csrc")
+    sides = {"baseline": (base_src, ()),
+             "this": (build.SRC_DIR, tuple(args.define))}
+    items = [(side, name) for name in args.kernels for side in sides]
+
+    def build_one(item):
+        side, name = item
+        return build.build(name, *sides[side])
+
+    with concurrent.futures.ThreadPoolExecutor(len(items)) as pool:
+        infos = list(pool.map(build_one, items))
+    libs = {(side, name): BIND[name](build.load(name, *sides[side]))
+            for side, name in items}
+    emit({"card": smi, "defines": args.define,
+          "builds_s": {f"{s} {n}": i["seconds"]
+                       for (s, n), i in zip(items, infos)},
+          "ptxas": {f"{s} {n}": i["compiler_output"].splitlines()[-4:]
+                    for (s, n), i in zip(items, infos)}})
+    order = ("baseline", "this", "this", "baseline")
+
+    def turns(fn):
+        ms = [cs.graph_ms(lambda s=s: fn(s), replays=args.reps) for s in order]
+        return {"baseline": (ms[0] + ms[3]) / 2, "this": (ms[1] + ms[2]) / 2}
+
+    rng = np.random.RandomState(args.seed)
+    total = {}
+    for shape, r in cs.tt_launches() if "subspace" in args.kernels else ():
+        t = torch.from_numpy((rng.standard_normal(shape)
+                              / np.sqrt(shape[2])).astype(np.float32)).cuda()
+
+        def subspace(side, iters=cs.TT_ITERS):
+            return sk.launch(libs[side, "subspace"], t, r, iters=iters)
+
+        q, qb = subspace("this"), subspace("baseline")
+        p = sk.dominant_left_subspace_plain(t, r, iters=cs.TT_ITERS)
+        with full_f32():
+            proj = torch.linalg.matrix_norm(q @ q.mT - p @ p.mT).max().item()
+            zq, zp = q @ (q.mT @ t), p @ (p.mT @ t)
+        row = {"kernel": "subspace", "shape": list(shape), "r": r,
+               "projector_err": proj,
+               "projected_rel_err": (torch.linalg.vector_norm(zq - zp)
+                                     / torch.linalg.vector_norm(zp)).item(),
+               "max_abs_diff_vs_baseline": (q - qb).abs().max().item()}
+        for iters in (cs.TT_ITERS, 0):
+            for side, ms in turns(lambda s: subspace(s, iters)).items():
+                row[f"{side}_ms_iters{iters}"] = ms
+                key = f"subspace {side} iters={iters}"
+                total[key] = total.get(key, 0.0) + ms
+        emit(row)
+    for shape, r0, r1 in (cs.main_path_buckets()
+                          if "tucker2_factors" in args.kernels else ()):
+        x = torch.from_numpy((rng.standard_normal(shape) / np.sqrt(
+            shape[1] * shape[3])).astype(np.float32)).cuda()
+
+        def tucker(side):
+            return tk.launch(libs[side, "tucker2_factors"], x, r0, r1,
+                             sweeps=cs.SWEEPS)
+
+        (u0, u1), (b0, b1) = tucker("this"), tucker("baseline")
+        p0, p1 = tk.tucker2_factors_plain(x, r0, r1, sweeps=cs.SWEEPS)
+        z = tk.tucker2_reconstruct(x, u0, u1)
+        zp = tk.tucker2_reconstruct(x, p0, p1)
+        row = {"kernel": "tucker2_factors", "shape": list(shape),
+               "ranks": [r0, r1],
+               "z_rel_err": (torch.linalg.vector_norm(z - zp)
+                             / torch.linalg.vector_norm(zp)).item(),
+               "max_abs_diff_vs_baseline": max((u0 - b0).abs().max().item(),
+                                               (u1 - b1).abs().max().item())}
+        for side, ms in turns(tucker).items():
+            row[f"{side}_ms"] = ms
+            total[f"tucker2 {side}"] = total.get(f"tucker2 {side}", 0.0) + ms
+        emit(row)
+    emit({"ms_per_z_step": total, "card": smi, "defines": args.define})
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
