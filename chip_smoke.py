@@ -8,14 +8,16 @@ prints one JSON line per phase:
 1. device  — the card's name, count and power limit;
 2. build   — compiles both CUDA kernels from `csrc/` (two nvcc processes
    at once) and checks each compiled shared-memory plan against the
-   Python gate at every main-path shape;
+   Python gate at every main-path and near-cap shape;
 3. kernel  — each kernel at its main path's shapes (inputs from --seed)
    against its plain PyTorch version on the card, with its time, the
    plain version's, a library yardstick's and the card's bound: the
-   Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x, the
+   Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x, each also
+   at sweeps=0 (`hosvd_ms`: the Grams of X and the HOSVD init), the
    subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step, each
    also at iters=0 (`gram_ms`: the Gram, the identity start and the lift),
-   and at two shapes near a block's shared-memory limit, which take the
+   and both kernels at two shapes near a block's shared-memory limit,
+   which take the Tucker-2 kernel's streamed plan and the subspace
    kernel's unpadded plan; kernel times are device times (launches
    captured in a CUDA graph and replayed);
 4. main    — ResNet32 Tucker-2 @3x, then ResNet32 Tensor-Train @3x, each
@@ -23,7 +25,7 @@ prints one JSON line per phase:
    steps), decompose, fine-tune 20 steps, eval and runtime, counting
    both kernels' launches.
 
-Then the script's wall time, the first CUDA versions' times as PERF.md
+Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
 `nvidia-smi` name and power limit, and last the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
@@ -83,6 +85,10 @@ TT_ITERS = max(8, 6)  # iters = max(8, admm_hooi_iters), as the Z-step runs it
 # plan (scalar products, the lift from L2), wide and tall; not on the main
 # path, so outside its per-Z-step sums.
 NEAR_CAP_LAUNCHES = [((2, 193, 197), 33), ((2, 197, 193), 33)]
+# Tucker-2 buckets near a block's 227 KB whose X does not fit in shared
+# memory: the streamed plan (X_k through chunk buffers, scalar products);
+# not on the main path, so outside its per-Z-step sums.
+NEAR_CAP_BUCKETS = [((2, 9, 144, 144), 40, 40), ((2, 9, 160, 96), 40, 30)]
 
 
 def emit(obj) -> None:
@@ -147,29 +153,40 @@ def tt_launches():
             if r != rows]
 
 
+def tucker_input(rng, shape):
+    l, k, o, i = shape
+    x_np = rng.standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x_np / np.float32(np.sqrt(k * i))).cuda()
+
+
+def check_tucker(x, r0, r1):
+    """The kernel at x against its plain version: (max abs difference,
+    Z relative error, projector errors); raises past the tolerances."""
+    u0, u1 = tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS)
+    torch.cuda.synchronize()
+    p0, p1 = tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS)
+    z = tk.tucker2_reconstruct(x, u0, u1)
+    zp = tk.tucker2_reconstruct(x, p0, p1)
+    z_rel = (torch.linalg.vector_norm(z - zp)
+             / torch.linalg.vector_norm(zp)).item()
+    sub0 = torch.linalg.matrix_norm(u0 @ u0.mT - p0 @ p0.mT).max().item()
+    sub1 = torch.linalg.matrix_norm(u1 @ u1.mT - p1 @ p1.mT).max().item()
+    max_abs = max((u0 - p0).abs().max().item(), (u1 - p1).abs().max().item())
+    if not (z_rel < Z_REL_TOL and sub0 < SUBSPACE_TOL
+            and sub1 < SUBSPACE_TOL):
+        raise AssertionError(f"kernel disagrees with plain at "
+                             f"{tuple(x.shape)}: z_rel={z_rel} "
+                             f"sub=({sub0}, {sub1})")
+    return max_abs, z_rel, [sub0, sub1]
+
+
 def phase_kernel(seed: int, buckets):
     rng = np.random.RandomState(seed)
     rows = []
     for shape, r0, r1 in buckets:
         l, k, o, i = shape
-        x_np = rng.standard_normal(shape).astype(np.float32)
-        x = torch.from_numpy(x_np / np.float32(np.sqrt(k * i))).cuda()
-        u0, u1 = tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS)
-        torch.cuda.synchronize()
-        p0, p1 = tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS)
-        z = tk.tucker2_reconstruct(x, u0, u1)
-        zp = tk.tucker2_reconstruct(x, p0, p1)
-        z_rel = (torch.linalg.vector_norm(z - zp)
-                 / torch.linalg.vector_norm(zp)).item()
-        sub0 = torch.linalg.matrix_norm(
-            u0 @ u0.mT - p0 @ p0.mT).max().item()
-        sub1 = torch.linalg.matrix_norm(
-            u1 @ u1.mT - p1 @ p1.mT).max().item()
-        max_abs = max((u0 - p0).abs().max().item(), (u1 - p1).abs().max().item())
-        if not (z_rel < Z_REL_TOL and sub0 < SUBSPACE_TOL
-                and sub1 < SUBSPACE_TOL):
-            raise AssertionError(f"kernel disagrees with plain at {shape}: "
-                                 f"z_rel={z_rel} sub=({sub0}, {sub1})")
+        x = tucker_input(rng, shape)
+        max_abs, z_rel, sub = check_tucker(x, r0, r1)
         unf0 = x.permute(0, 2, 1, 3).reshape(l, o, k * i)
         unf1 = x.permute(0, 3, 1, 2).reshape(l, i, k * o)
 
@@ -179,6 +196,10 @@ def phase_kernel(seed: int, buckets):
 
         kernel_ms = graph_ms(
             lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS))
+        # the same launch without the HOOI sweeps: the Grams of X and the
+        # HOSVD init
+        hosvd_ms = graph_ms(
+            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=0))
         plain_ms = cuda_ms(
             lambda: tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS), 5, 1)
         library_ms = cuda_ms(library, 5, 1)
@@ -187,17 +208,35 @@ def phase_kernel(seed: int, buckets):
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
         row = {"phase": "kernel", "name": "tucker2_factors_batched",
                "shape_LKOI": list(shape), "ranks": [r0, r1],
+               "plan": "resident" if tk.resident_plan(k, o, i, r0, r1)
+               else "streamed",
                "z_rel_err": z_rel, "z_rel_tol": Z_REL_TOL,
-               "subspace_err": [sub0, sub1], "subspace_tol": SUBSPACE_TOL,
+               "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms,
+               "hosvd_ms": hosvd_ms, "plain_ms": plain_ms,
                "library_ms_hosvd_only_svd_of_both_unfoldings": library_ms,
                "flops": flops, "bytes": nbytes,
                "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
                "bytes_us": 1e6 * t_bytes,
+               "bound_share": 1e3 * max(t_ops, t_bytes) / kernel_ms,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         emit(row)
         rows.append(row)
+    for shape, r0, r1 in NEAR_CAP_BUCKETS:
+        _, k, o, i = shape
+        if (tk.resident_plan(k, o, i, r0, r1)
+                or not tk.kernel_supported(shape, r0, r1)):
+            raise AssertionError(f"{shape} {r0}/{r1} does not take the "
+                                 "streamed plan")
+        x = tucker_input(rng, shape)
+        max_abs, z_rel, sub = check_tucker(x, r0, r1)
+        emit({"phase": "kernel", "name": "tucker2_factors_batched",
+              "plan": "streamed", "shape_LKOI": list(shape), "ranks": [r0, r1],
+              "z_rel_err": z_rel, "z_rel_tol": Z_REL_TOL,
+              "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
+              "max_abs_err": max_abs,
+              "kernel_ms": graph_ms(lambda: tk.tucker2_factors_batched(
+                  x, r0, r1, sweeps=SWEEPS))})
     return rows
 
 
@@ -405,11 +444,14 @@ def phase_main(seed: int, card: str, fmt: str, launches_per_z_step: int,
     return launches
 
 
-# ms per Z-step of the first CUDA version of each kernel, as PERF.md
+# ms per Z-step of earlier CUDA versions of each kernel, as PERF.md
 # records them (NVIDIA H100 80GB HBM3, 700 W): printed on a line of their
 # own, labelled as recorded, apart from this run's measurements
-RECORDED_FIRST_VERSION_MS = {"tucker2_factors_batched": 7.85,
-                             "dominant_left_subspace_batched": 15.13}
+RECORDED_MS = {
+    "first_version_ms_per_z_step": {"tucker2_factors_batched": 7.85,
+                                    "dominant_left_subspace_batched": 15.13},
+    "tucker2_before_its_redesign_ms_per_z_step": 3.97,
+}
 
 
 def kernel_summary(name, source, replaces, launches, rows, library_key):
@@ -453,12 +495,15 @@ def main() -> int:
     build_wall_s = time.perf_counter() - t0
     tk_lib, sk_lib = tk._library(), sk._library()
     buckets = main_path_buckets()
-    for shape, r0, r1 in buckets:
-        planned = tk_lib.tucker2_factors_smem_bytes(shape[2], shape[3], r0, r1)
-        if planned != tk.smem_bytes(shape[2], shape[3], r0, r1):
+    for shape, r0, r1 in [*buckets, *NEAR_CAP_BUCKETS]:
+        planned = tk_lib.tucker2_factors_smem_bytes(*shape[1:], r0, r1)
+        if planned != tk.smem_bytes(*shape[1:], r0, r1):
             raise AssertionError(f"shared-memory plans differ at {shape}")
         if not tk.kernel_supported(shape, r0, r1):
-            raise AssertionError(f"main-path bucket {shape} fails the gate")
+            raise AssertionError(f"Tucker-2 bucket {shape} fails the gate")
+    for shape, r0, r1 in buckets:
+        if not tk.resident_plan(*shape[1:], r0, r1):
+            raise AssertionError(f"main-path bucket {shape} does not hold X")
     launches_tt = tt_launches()
     for (l, rows, cols), r in launches_tt:
         if sk_lib.subspace_smem_bytes(rows, cols, r) != sk.smem_bytes(rows, cols, r):
@@ -469,8 +514,8 @@ def main() -> int:
           "kernels": {name: {"build_seconds": i["seconds"],
                              "compiler_output": i["compiler_output"].splitlines()}
                       for name, i in infos.items()},
-          "tk_buckets": [[list(s), r0, r1, tk.smem_bytes(s[2], s[3], r0, r1)]
-                         for s, r0, r1 in buckets],
+          "tk_buckets": [[list(s), r0, r1, tk.smem_bytes(*s[1:], r0, r1)]
+                         for s, r0, r1 in [*buckets, *NEAR_CAP_BUCKETS]],
           "tt_launches": [[list(s), r, sk.smem_bytes(s[1], s[2], r)]
                           for s, r in launches_tt]})
 
@@ -484,7 +529,7 @@ def main() -> int:
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
-          "first_version_ms_per_z_step": RECORDED_FIRST_VERSION_MS})
+          **RECORDED_MS})
     src = "dnn_compression_tensor_admm_tpu_torch/csrc/"
     ref = "dnn_compression_tensor_admm_tpu/ops/pallas/"
     subspace = kernel_summary(
@@ -492,11 +537,12 @@ def main() -> int:
         ref + "subspace_kernel.py:85", launches_tt_main, rows_tt,
         "library_ms_batched_svd")
     subspace["gram_ms"] = sum(r["gram_ms"] for r in rows_tt)
-    emit({"kernels": [
-        kernel_summary("tucker2_factors_batched", src + "tucker2_factors.cu",
-                       ref + "tucker_kernel.py:142", launches_tk_main, rows_tk,
-                       "library_ms_hosvd_only_svd_of_both_unfoldings"),
-        subspace]})
+    tucker = kernel_summary(
+        "tucker2_factors_batched", src + "tucker2_factors.cu",
+        ref + "tucker_kernel.py:142", launches_tk_main, rows_tk,
+        "library_ms_hosvd_only_svd_of_both_unfoldings")
+    tucker["hosvd_ms"] = sum(r["hosvd_ms"] for r in rows_tk)
+    emit({"kernels": [tucker, subspace]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

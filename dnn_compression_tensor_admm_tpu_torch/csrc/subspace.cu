@@ -66,15 +66,13 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
 #include "orth_iter.cuh"  // scalar and padded products, orth_iter(4)
+#include "stage.cuh"      // cp.async copies, gram_streamed
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStageLen = 64;               // chunk length the plan grows for
-constexpr int kMaxSmemFloats = 232448 / 4;  // a block's dynamic shared memory
+constexpr int kStageLen = 64;  // chunk length the plan grows for
 // The tall lift stages t from this many columns up; at 32 columns reading
 // L2 was the faster on the H100 (PERF.md). -DSUBSPACE_LIFT_MIN_COLS moves it
 // (tools/torch_kernel_ab.py).
@@ -91,9 +89,6 @@ struct Plan {
   int stage;        // floats of each of the Gram's two chunk buffers, at mp*mp
   int total;        // floats
 };
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 
 __host__ __device__ inline Plan make_plan(int rows, int cols, int r) {
   const int m = rows < cols ? rows : cols;
@@ -116,156 +111,9 @@ __host__ __device__ inline Plan make_plan(int rows, int cols, int r) {
   return p;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copies n contiguous floats (16 bytes at a time where both ends allow).
-__device__ void copy_contiguous(float* dst, const float* src, int n) {
-  const bool vec = ((reinterpret_cast<uintptr_t>(dst) |
-                     reinterpret_cast<uintptr_t>(src)) & 15) == 0 && n % 4 == 0;
-  if (vec) {
-    for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x)
-      cp_async16(dst + i, src + i);
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
-  }
-}
-
-// Copies rows [r0, r0 + n) of a row-major [*, w] matrix to dst with row
-// stride ld >= w (the pads [w, ld) of each row are left alone).
-__device__ void copy_rows(float* dst, int ld, const float* src, int w, int r0,
-                          int n) {
-  if (ld == w) {
-    copy_contiguous(dst, src + r0 * w, n * w);
-    return;
-  }
-  for (int idx = threadIdx.x; idx < n * w; idx += blockDim.x) {
-    const int row = idx / w, col = idx - row * w;
-    cp_async4(dst + row * ld + col, src + (r0 + row) * w + col);
-  }
-}
-
-// The Gram's chunks hold the long side's index p major: chunk[p * ldc + i]
-// for i < m. Tall, that is t's own rows. Wide, it is a transpose: a warp
-// copies 8 consecutive columns of 4 rows (32-byte pieces of device memory)
-// into 4 x 8 distinct banks when ldc = 4 (mod 32).
-__device__ void load_gram_chunk(float* dst, int ldc, const float* t, bool wide,
-                                int m, int cols, int len, int kc, int c) {
-  const int c0 = c * kc;
-  const int kk = min(kc, len - c0);
-  if (!wide) {
-    copy_rows(dst, ldc, t, m, c0, kk);
-    return;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int dp = lane & 7, di = lane >> 3;
-  const int pieces = cdiv(m, 4) * cdiv(kk, 8);
-  const int kp = cdiv(kk, 8);
-  for (int piece = warp; piece < pieces; piece += warps) {
-    const int i = (piece / kp) * 4 + di, p = (piece % kp) * 8 + dp;
-    if (i < m && p < kk) cp_async4(dst + p * ldc + i, t + i * cols + c0 + p);
-  }
-}
-
-// One micro-tile per thread of a 16 x 16 grid for block (bi, bj) of the Gram, 16 G on a side, summed over the
-// whole long side, chunk by chunk. Its rows and columns are interleaved
-// (ty + 16 i), or with V4 contiguous (4 ty + i), read as float4.
-template <int G, bool V4>
-__device__ void gram_block(float* __restrict__ g, int mo,
-                           const float* t, bool wide, int m, int cols,
-                           int len, int kc, int ldc, float* buf, int stage,
-                           int bi, int bj) {
-  constexpr int kB = 16 * G;
-  const int nchunks = cdiv(len, kc);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  int ra[G], rb[G];  // rows and columns, clamped inside the chunk
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    ra[i] = V4 ? min(bi * kB + 4 * ty, ldc - 4) + i
-               : min(bi * kB + ty + 16 * i, m - 1);
-    rb[i] = V4 ? min(bj * kB + 4 * tx, ldc - 4) + i
-               : min(bj * kB + tx + 16 * i, m - 1);
-  }
-  float acc[G][G];
-#pragma unroll
-  for (int i = 0; i < G; ++i)
-#pragma unroll
-    for (int j = 0; j < G; ++j) acc[i][j] = 0.f;
-  load_gram_chunk(buf, ldc, t, wide, m, cols, len, kc, 0);
-  cp_async_commit();
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      load_gram_chunk(buf + ((c + 1) & 1) * stage, ldc, t, wide, m, cols, len,
-                      kc, c + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* s = buf + (c & 1) * stage;
-    const int kk = min(kc, len - c * kc);
-#pragma unroll 4
-    for (int p = 0; p < kk; ++p, s += ldc) {
-      float av[G], bv[G];
-      if (V4) {
-        const float4 a4 = ld4(s + ra[0]), b4 = ld4(s + rb[0]);
-#pragma unroll
-        for (int i = 0; i < G; ++i) {
-          av[i] = f4(a4, i);
-          bv[i] = f4(b4, i);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < G; ++i) {
-          av[i] = s[ra[i]];
-          bv[i] = s[rb[i]];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < G; ++i)
-#pragma unroll
-        for (int j = 0; j < G; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();  // the buffer is refilled by the next chunk's copy
-  }
-#pragma unroll
-  for (int i = 0; i < G; ++i)
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const int row = bi * kB + (V4 ? 4 * ty + i : ty + 16 * i);
-      const int col = bj * kB + (V4 ? 4 * tx + j : tx + 16 * j);
-      if (row < mo && col < mo) {
-        const float v = row < m && col < m ? acc[i][j] : 0.f;  // pads are 0
-        g[row * mo + col] = v;
-        if (bi != bj) g[col * mo + row] = v;
-      }
-    }
-}
-
 // g[mo, mo] (zero past m) = the Gram of the smaller side of
 // t [rows, cols] (device memory), streamed through two shared buffers of
-// `stage` floats at buf; the micro-tile is 1x1 up to m = 16, 2x2 up to 32,
-// else 4x4 on 64 x 64 blocks (float4 reads in the padded plan).
+// `stage` floats at buf (float4 reads in the padded plan).
 __device__ void gram_staged(float* __restrict__ g, int mo,
                             const float* t, int rows, int cols, float* buf,
                             int stage, bool padded) {
@@ -276,28 +124,9 @@ __device__ void gram_staged(float* __restrict__ g, int mo,
   // one float4 past the rows, so that the transposing copy's 4 rows x 8
   // columns per warp land on distinct banks (for m = 32 and 64 exactly)
   const int ldc = padded ? (wide ? up4(m) + 4 : up4(m)) : m;
-  const int kc = stage / ldc;  // chunk length, >= 1
   // (a chunk's pad columns feed only Gram entries past m, which are
   // stored as 0, so they are never cleared)
-  if (m <= 16) {
-    gram_block<1, false>(g, mo, t, wide, m, cols, len, kc, ldc, buf,
-                         stage, 0, 0);
-  } else if (m <= 32) {
-    gram_block<2, false>(g, mo, t, wide, m, cols, len, kc, ldc, buf,
-                         stage, 0, 0);
-  } else {
-    const int nb = cdiv(mo, 64);
-    for (int bi = 0; bi < nb; ++bi)  // symmetric: upper blocks, mirrored
-      for (int bj = bi; bj < nb; ++bj) {
-        if (padded)
-          gram_block<4, true>(g, mo, t, wide, m, cols, len, kc, ldc, buf,
-                              stage, bi, bj);
-        else
-          gram_block<4, false>(g, mo, t, wide, m, cols, len, kc, ldc, buf,
-                               stage, bi, bj);
-      }
-  }
-  __syncthreads();
+  gram_streamed(g, mo, t, 0, 1, wide, m, cols, len, ldc, buf, stage, padded);
 }
 
 // Padded tall lift: y[rows, rp] = t[rows, cols] v[mp, rp]. From

@@ -15,94 +15,404 @@
 //   orth_iter(G, Q): Y = G Q; Q = Y (Y^T Y)^{-1/2}, the inverse square root by
 //   kNsIters Newton-Schulz steps on S/tr(S) + 1e-6 I, then scaled by tr(S)^{-1/2}.
 //   The iteration counts are the reference kernel's (8, 3, 12); only `sweeps`
-//   is an argument.
+//   is an argument (0 leaves the Grams of X and the HOSVD init).
 //   A full-rank mode (r >= n) returns the identity and skips its work.
 // Outputs u0[L, O, r0] and u1[L, I, r1], float32.
 //
 // Bound on the H100 (SXM, 700 W): the main path's 5 buckets of ResNet32-TK@3x
 // need 0.84 GFLOP of float32 (`factor_flops` in ops/cuda/tucker_kernel.py) and
 // move about 2 MB per Z-step, so the card could take 12.6 us at its 67 TFLOP/s
-// non-tensor float32 rate: the work is bound by operations, not bytes.
+// non-tensor float32 rate: the work is bound by operations, not bytes. What
+// bounds it in practice is latency: each layer is a chain of about 800 small
+// dependent products separated by block-wide barriers (28 orthogonal-iteration
+// steps of ~28 phases each), on one 256-thread block per layer (grid = L, 1 to
+// 10 blocks for 132 SMs).
 //
-// Why this kernel sits far from that bound: each layer is a chain of about a
-// thousand small dependent products (28 orthogonal-iteration steps, each with a
-// 12-step Newton-Schulz loop on r x r matrices, r <= 32), separated by block-wide
-// barriers, and a bucket gives only 1 to 10 blocks for 132 SMs. The design is
-// the simple one: one 256-thread block per layer (grid = L); X stays in device
-// memory (a whole bucket is at most 1.3 MB, which L2 holds); the Grams, the
-// factors, the iterates and the Newton-Schulz matrices live in dynamic shared
-// memory; the HOOI products M_k are made one k at a time and accumulated into
-// the Gram, so all K of them are never held at once. Products are plain FMA
-// loops in float32: TF32 tensor cores would break exactness on full-rank
-// layers and destabilise the Newton-Schulz iteration.
+// The design, for the H100. Every output is summed in the same order as in
+// the first version (one product per k, each summed over p in order with one
+// fmaf per term, added to the running total in k order; zero pads at the end
+// of a sum), so the results are the same bit for bit.
+// 1. The resident plan (every main-path bucket). Layer l's X [K, O, I] is
+//    copied once into shared memory with cp.async, 16 bytes a piece,
+//    neighbouring threads on neighbouring addresses, at a row stride ldx that
+//    is an odd number of float4s with zero pads to a multiple of 4. A Gram is
+//    one phase for all k: a 16 x 16 thread grid holds it as register
+//    micro-tiles (1x1, 2x2, or 4x4 on 64 x 64 blocks), each thread summing
+//    each k's terms in registers and adding them to its running total.
+//    G0 = sum X_k X_k^T reads rows of X as float4 along the summed index (8
+//    neighbouring rows on 8 distinct bank groups, by the odd stride); G1 =
+//    sum X_k^T X_k reads X's rows along the output index (contiguous float4s).
+//    The HOOI products M_k = X_k U1 (or N_k = U0^T X_k) for a group of k are
+//    one padded product phase, their Gram a second; the group holds all K but
+//    at [9, 9, 64, 64], where X (156,672 B) leaves room for 5 of the 9 M_k
+//    beside the factors: there two groups (5 + 4) cost 2 phases more than
+//    one, where reading X from L2 for M would read 9 x 16 KB per product
+//    again. The M_k and N_k live where Y and the Newton-Schulz matrices go
+//    during the iteration. The factors, Y and the Newton-Schulz matrices are
+//    in the padded layout (orth_iter4 in orth_iter.cuh: float4 products from
+//    padded rank 12 up, the scalar tiles below).
+// 2. The streamed plan, for shapes whose X does not fit beside that (near a
+//    block's limit): the first version's unpadded plan, byte for byte, with
+//    the two HOSVD Grams streaming X_k through two cp.async chunk buffers
+//    where Y, M and the Newton-Schulz matrices go later (G0's chunks are
+//    transposed column slices, G1's row slices), accumulated in registers as
+//    above (gram_streamed in stage.cuh, the subspace kernel's Gram with a
+//    sum over k). The HOOI products read X_k from device memory (L2) one k at a
+//    time, and the iteration runs the scalar products, as before.
+// Products are plain FMA loops in float32: TF32 tensor cores would break
+// exactness on full-rank layers and destabilise the Newton-Schulz iteration.
 
 #include <cuda_runtime.h>
 
-#include "orth_iter.cuh"  // matmul, set_eye, orth_iter; kNsIters = 12
+#include <cstdint>
+
+#include "orth_iter.cuh"  // products, set_eye, orth_iter(4); kNsIters = 12
+#include "stage.cuh"      // cp.async copies, Gram tiles, gram_streamed
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kInitIters = 8;   // HOSVD start: orthogonal-iteration steps
 constexpr int kSweepIters = 3;  // orthogonal-iteration steps per HOOI sweep
+// The least multiple of 4 >= x that is an odd number of float4s: 8
+// consecutive rows at this stride start on 8 distinct 16-byte bank groups.
+__host__ __device__ inline int odd4(int x) {
+  const int s = up4(x);
+  return (s & 4) ? s : s + 4;
+}
 
 struct Plan {
-  int g, u0, u1, y, m, ns;  // float offsets into dynamic shared memory
-  int total;                // floats
+  bool resident;  // X held in shared memory (else the streamed plan)
+  int ldx, ldm;   // resident: row strides of X_k and M_k
+  int kg;         // resident: k per HOOI product phase
+  int x, g, u0, u1, y, m, ns;  // float offsets into dynamic shared memory
+  int total;                   // floats
 };
 
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
-// Shared-memory plan; the Python gate (ops/cuda/tucker_kernel.py) repeats it.
-__host__ __device__ inline Plan make_plan(int o, int i, int r0, int r1) {
-  const int n = imax(o, i);
-  const int r = imax(r0, r1);
+// Shared-memory plan; the Python gate (ops/cuda/tucker_kernel.py::_plan)
+// repeats it. Resident, padded (every size rounded up to 4): X [K, op, ldx],
+// the Gram [np, np], U0 [op, r0p], U1 [ip, r1p], then either Y [np, rp] and
+// five Newton-Schulz matrices [rp, rp], or kg HOOI products, each
+// max(M_k [op, ldm], N_k [r0p, ip]). Streamed, unpadded, the first version's
+// plan: the Gram [n, n], U0, U1, Y [n, r], the HOOI product, five [r, r].
+__host__ __device__ inline Plan make_plan(int k, int o, int i, int r0, int r1) {
+  const int op = up4(o), ip = up4(i), r0p = up4(r0), r1p = up4(r1);
+  const int np = imax(op, ip), rp = imax(r0p, r1p);
   Plan p;
-  p.g = 0;                            // Gram [n, n]
-  p.u0 = p.g + n * n;                 // U0 [O, r0]
-  p.u1 = p.u0 + o * r0;               // U1 [I, r1]
-  p.y = p.u1 + i * r1;                // orth-iter Y [n, r]
-  p.m = p.y + n * r;                  // HOOI product [O, r1] or [r0, I]
-  p.ns = p.m + imax(o * r1, r0 * i);  // 5 Newton-Schulz matrices [r, r]
+  p.ldx = odd4(ip);
+  p.ldm = odd4(r1p);
+  p.x = 0;
+  p.g = k * op * p.ldx;
+  p.u0 = p.g + np * np;
+  p.u1 = p.u0 + op * r0p;
+  p.y = p.u1 + ip * r1p;
+  p.m = p.y;  // the HOOI products take Y's and the Newton-Schulz matrices' room
+  p.ns = p.y + np * rp;
+  const int per_k = imax(op * p.ldm, r0p * ip);
+  const int room = kMaxSmemFloats - p.y;
+  const int fit = room > 0 ? imin(k, room / per_k) : 0;
+  const int groups = fit > 0 ? (k + fit - 1) / fit : 1;
+  p.kg = fit > 0 ? (k + groups - 1) / groups : 0;  // groups of equal size
+  p.total = p.y + imax(np * rp + 5 * rp * rp, p.kg * per_k);
+  p.resident = p.kg > 0 && p.total <= kMaxSmemFloats;
+  if (p.resident) return p;
+  const int n = imax(o, i), r = imax(r0, r1);
+  p.ldx = p.ldm = p.kg = 0;
+  p.g = 0;
+  p.u0 = n * n;
+  p.u1 = p.u0 + o * r0;
+  p.y = p.u1 + i * r1;
+  p.m = p.y + n * r;
+  p.ns = p.m + imax(o * r1, r0 * i);
   p.total = p.ns + 5 * r * r;
   return p;
 }
 
-__global__ void __launch_bounds__(kThreads)
-tucker2_factors_kernel(const float* __restrict__ x, float* __restrict__ u0_out,
-                       float* __restrict__ u1_out, int k, int o, int i, int r0,
-                       int r1, int sweeps) {
-  extern __shared__ float smem[];
-  const Plan p = make_plan(o, i, r0, r1);
+// ---------------------------------------------------------------------------
+// Grams of resident operands, summed over k in one phase (micro-tiles and
+// their helpers in stage.cuh).
+
+// tot = the total so far, read back from g (for a group of k after the first).
+template <int G, bool V4>
+__device__ __forceinline__ void load_tile(float (&tot)[G][G], const float* g,
+                                          int ldg, int m, int bi, int bj) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      tot[i][j] = g[imin(tile_at<G, V4>(bi, ty, i), m - 1) * ldg +
+                    imin(tile_at<G, V4>(bj, tx, j), m - 1)];
+}
+
+// g[mo, mo] = (accumulate ? g : 0) + sum over k < kn of A_k^T A_k, A_k
+// [len, m] at a + k kstride (row stride lda, a multiple of 4 with V4).
+template <int G, bool V4>
+__device__ void gram_tn(float* __restrict__ g, int mo, const float* a, int lda,
+                        int kstride, int kn, int m, int len, bool accumulate) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nb = cdiv(m, 16 * G);
+  for (int bi = 0; bi < nb; ++bi)
+    for (int bj = bi; bj < nb; ++bj) {
+      int ra[G], rb[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        ra[i] = V4 ? imin(bi * 64 + 4 * ty, lda - 4) + i
+                   : imin(tile_at<G, V4>(bi, ty, i), m - 1);
+        rb[i] = V4 ? imin(bj * 64 + 4 * tx, lda - 4) + i
+                   : imin(tile_at<G, V4>(bj, tx, i), m - 1);
+      }
+      float tot[G][G], acc[G][G];
+      if (accumulate) load_tile<G, V4>(tot, g, mo, m, bi, bj);
+      for (int kk = 0; kk < kn; ++kk) {
+        zero_tile<G>(acc);
+        tn_terms<G, V4>(acc, a + kk * kstride, lda, len, ra, rb);
+        add_k<G>(tot, acc, kk == 0 && !accumulate);
+      }
+      store_tile<G, V4>(g, mo, m, tot, bi, bj);
+    }
+  __syncthreads();
+}
+
+// g[mo, mo] = (accumulate ? g : 0) + sum over k < kn of A_k A_k^T, A_k
+// [m, len4] at a + k kstride (row stride lda, a multiple of 4; zero past the
+// logical length), read as float4 along the summed index.
+template <int G>
+__device__ void gram_nt(float* __restrict__ g, int mo, const float* a, int lda,
+                        int kstride, int kn, int m, int len4, bool accumulate) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nb = cdiv(m, 16 * G);
+  for (int bi = 0; bi < nb; ++bi)
+    for (int bj = bi; bj < nb; ++bj) {
+      const float* ra[G];
+      const float* rb[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        ra[i] = a + imin(tile_at<G, false>(bi, ty, i), m - 1) * lda;
+        rb[i] = a + imin(tile_at<G, false>(bj, tx, i), m - 1) * lda;
+      }
+      float tot[G][G], acc[G][G];
+      if (accumulate) load_tile<G, false>(tot, g, mo, m, bi, bj);
+      for (int kk = 0; kk < kn; ++kk) {
+        const int off = kk * kstride;
+        zero_tile<G>(acc);
+        for (int p = 0; p < len4; p += 4) {
+          float4 av[G], bv[G];
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            av[i] = ld4(ra[i] + off + p);
+            bv[i] = ld4(rb[i] + off + p);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int i = 0; i < G; ++i)
+#pragma unroll
+              for (int j = 0; j < G; ++j)
+                acc[i][j] = fmaf(f4(av[i], q), f4(bv[j], q), acc[i][j]);
+        }
+        add_k<G>(tot, acc, kk == 0 && !accumulate);
+      }
+      store_tile<G, false>(g, mo, m, tot, bi, bj);
+    }
+  __syncthreads();
+}
+
+// The micro-tile: 1x1 up to m = 16, 2x2 up to 32, else 4x4 on 64 x 64 blocks.
+__device__ void gram_nt_any(float* g, int mo, const float* a, int lda,
+                            int kstride, int kn, int m, int len4,
+                            bool accumulate) {
+  if (m <= 16)
+    gram_nt<1>(g, mo, a, lda, kstride, kn, m, len4, accumulate);
+  else if (m <= 32)
+    gram_nt<2>(g, mo, a, lda, kstride, kn, m, len4, accumulate);
+  else
+    gram_nt<4>(g, mo, a, lda, kstride, kn, m, len4, accumulate);
+}
+
+__device__ void gram_tn_any(float* g, int mo, const float* a, int lda,
+                            int kstride, int kn, int m, int len,
+                            bool accumulate) {
+  if (m <= 16)
+    gram_tn<1, false>(g, mo, a, lda, kstride, kn, m, len, accumulate);
+  else if (m <= 32)
+    gram_tn<2, false>(g, mo, a, lda, kstride, kn, m, len, accumulate);
+  else
+    gram_tn<4, true>(g, mo, a, lda, kstride, kn, m, len, accumulate);
+}
+
+// c_b [m, n4] = a_b b_b for b < batch, one round of padded tiles for all
+// (as matmul4 in orth_iter.cuh); operand b lies a_bs, b_bs, c_bs floats
+// after operand b - 1.
+template <bool AT>
+__device__ void matmul4_batch(float* __restrict__ c, int ldc, int c_bs,
+                              const float* a, int lda, int a_bs,
+                              const float* b, int ldb, int b_bs, int m, int n4,
+                              int k4, int batch) {
+  constexpr int TM = AT ? 4 : kTileRows;
+  const int nt = n4 >> 2;
+  const int mt = AT ? m >> 2 : cdiv(m, TM);
+  const int tiles = mt * nt;
+  for (int t = threadIdx.x; t < batch * tiles; t += blockDim.x) {
+    const int bb = t / tiles, tt = t - bb * tiles;
+    const int ti = tt / nt, tj = tt - ti * nt;
+    int rows[TM];
+    tile_rows<TM, AT>(rows, ti, mt, m);
+    float acc[TM][4];
+    tile_dot4<TM, AT>(acc, a + bb * a_bs, lda, b + bb * b_bs, ldb, k4, rows,
+                      4 * tj);
+    float* cb = c + bb * c_bs;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = tile_row<TM, AT>(ti, mt, i);
+      if (row < m)
+        *reinterpret_cast<float4*>(cb + row * ldc + 4 * tj) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
+  __syncthreads();
+}
+
+// One compiled copy of each iteration for all its call sites (an inlined
+// copy per site multiplies the build's template instances).
+__device__ __noinline__ void orth_iter_padded(const float* g, float* q, int mp,
+                                              int r, int rp, int iters,
+                                              float* y, float* ns) {
+  orth_iter4(g, q, mp, r, rp, iters, y, ns);
+}
+
+__device__ __noinline__ void orth_iter_unpadded(const float* g, float* q, int n,
+                                                int r, int iters, float* y,
+                                                float* ns) {
+  orth_iter(g, q, n, r, iters, y, ns);
+}
+
+// ---------------------------------------------------------------------------
+// The resident plan
+
+// X [k, o, i] (device memory) -> xs [k, op, ldx] with zero pads in columns
+// [i, up4(i)) and rows [o, op); cp.async, 16 bytes a piece where i and x
+// allow. The copies are committed, not waited for.
+__device__ void stage_x(float* xs, int ldx, const float* x, int k, int o,
+                        int i, int op) {
+  const int ip = up4(i);
+  if (ip != i)
+    for (int idx = threadIdx.x; idx < k * op * (ip - i); idx += blockDim.x) {
+      const int row = idx / (ip - i);
+      xs[row * ldx + i + idx - row * (ip - i)] = 0.f;
+    }
+  if (op != o)
+    for (int idx = threadIdx.x; idx < k * (op - o) * ip; idx += blockDim.x) {
+      const int row = idx / ip, kk = row / (op - o);
+      xs[(kk * op + o + row - kk * (op - o)) * ldx + idx - row * ip] = 0.f;
+    }
+  if (i % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const int w4 = i / 4;
+    for (int idx = threadIdx.x; idx < k * o * w4; idx += blockDim.x) {
+      const int row = idx / w4, c4 = idx - row * w4, kk = row / o;
+      cp_async16(xs + (row + kk * (op - o)) * ldx + 4 * c4, x + row * i + 4 * c4);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < k * o * i; idx += blockDim.x) {
+      const int row = idx / i, col = idx - row * i, kk = row / o;
+      cp_async4(xs + (row + kk * (op - o)) * ldx + col, x + idx);
+    }
+  }
+  cp_async_commit();
+}
+
+__device__ void solve_resident(const Plan& p, float* smem, const float* xl,
+                               int k, int o, int i, int r0, int r1, int sweeps) {
+  const int op = up4(o), ip = up4(i), r0p = up4(r0), r1p = up4(r1);
+  const int xk = op * p.ldx;  // floats from X_k to X_{k+1}
+  float* xs = smem + p.x;
+  float* g = smem + p.g;
+  float* u0 = smem + p.u0;
+  float* u1 = smem + p.u1;
+  float* y = smem + p.y;
+  float* mk = smem + p.m;
+  float* ns = smem + p.ns;
+  const bool solve0 = r0 < o, solve1 = r1 < i;
+  if (solve0 || solve1) stage_x(xs, p.ldx, xl, k, o, i, op);
+  set_eye(u0, op, r0, r0p);
+  set_eye(u1, ip, r1, r1p);
+  if (!solve0 && !solve1) return;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // HOSVD init (a full-rank factor is the identity)
+  if (solve0) {  // G0 = sum_k X_k X_k^T
+    gram_nt_any(g, op, xs, p.ldx, xk, k, o, ip, false);
+    orth_iter_padded(g, u0, op, r0, r0p, kInitIters, y, ns);
+  }
+  if (solve1) {  // G1 = sum_k X_k^T X_k
+    gram_tn_any(g, ip, xs, p.ldx, xk, k, i, o, false);
+    orth_iter_padded(g, u1, ip, r1, r1p, kInitIters, y, ns);
+  }
+
+  // HOOI sweeps, warm-started from the current factors
+  for (int s = 0; s < sweeps; ++s) {
+    if (solve0) {  // G0' = sum_k (X_k U1)(X_k U1)^T
+      for (int k0 = 0; k0 < k; k0 += p.kg) {
+        const int kn = imin(p.kg, k - k0);
+        matmul4_batch<false>(mk, p.ldm, op * p.ldm, xs + k0 * xk, p.ldx, xk,
+                             u1, r1p, 0, op, r1p, ip, kn);
+        gram_nt_any(g, op, mk, p.ldm, op * p.ldm, kn, o, r1p, k0 > 0);
+      }
+      orth_iter_padded(g, u0, op, r0, r0p, kSweepIters, y, ns);
+    }
+    if (solve1) {  // G1' = sum_k (U0^T X_k)^T (U0^T X_k)
+      for (int k0 = 0; k0 < k; k0 += p.kg) {
+        const int kn = imin(p.kg, k - k0);
+        matmul4_batch<true>(mk, ip, r0p * ip, u0, r0p, 0, xs + k0 * xk, p.ldx,
+                            xk, r0p, ip, op, kn);
+        gram_tn_any(g, ip, mk, ip, r0p * ip, kn, i, r0, k0 > 0);
+      }
+      orth_iter_padded(g, u1, ip, r1, r1p, kSweepIters, y, ns);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The streamed plan
+
+// g [m, m] = G0 (mode0: X_k's columns, transposed into chunks) or G1 (X_k's
+// rows) of the layer's X (device memory), X_k after X_k through two chunk
+// buffers of `stage` floats. A transposed chunk's row stride is an odd
+// number of float4s where the buffer has room, so its copy meets no bank
+// conflict.
+__device__ void gram_of_x(float* g, const float* x, int k, int o, int i,
+                          bool mode0, float* buf, int stage) {
+  const int m = mode0 ? o : i;
+  const int ldc = mode0 && odd4(m) <= stage ? odd4(m) : m;
+  gram_streamed(g, m, x, o * i, k, mode0, m, i, mode0 ? i : o, ldc, buf,
+                stage, false);
+}
+
+__device__ void solve_streamed(const Plan& p, float* smem, const float* xl,
+                               int k, int o, int i, int r0, int r1, int sweeps) {
   float* g = smem + p.g;
   float* u0 = smem + p.u0;
   float* u1 = smem + p.u1;
   float* y = smem + p.y;
   float* m = smem + p.m;
   float* ns = smem + p.ns;
-  const float* xl = x + static_cast<size_t>(blockIdx.x) * k * o * i;
-  const bool solve0 = r0 < o;
-  const bool solve1 = r1 < i;
+  const int stage = (p.total - p.y) / 2;  // two chunk buffers from Y on
+  const bool solve0 = r0 < o, solve1 = r1 < i;
 
   // HOSVD init (a full-rank factor is the identity)
   set_eye(u0, o, r0, r0);
   set_eye(u1, i, r1, r1);
   if (solve0) {
-    for (int kk = 0; kk < k; ++kk) {  // G0 = sum_k X_k X_k^T
-      const float* xk = xl + kk * o * i;
-      matmul(g, o, xk, i, 1, xk, 1, i, o, o, i, kk > 0);
-    }
-    orth_iter(g, u0, o, r0, kInitIters, y, ns);
+    gram_of_x(g, xl, k, o, i, true, y, stage);
+    orth_iter_unpadded(g, u0, o, r0, kInitIters, y, ns);
   }
   if (solve1) {
-    for (int kk = 0; kk < k; ++kk) {  // G1 = sum_k X_k^T X_k
-      const float* xk = xl + kk * o * i;
-      matmul(g, i, xk, 1, i, xk, i, 1, i, i, o, kk > 0);
-    }
-    orth_iter(g, u1, i, r1, kInitIters, y, ns);
+    gram_of_x(g, xl, k, o, i, false, y, stage);
+    orth_iter_unpadded(g, u1, i, r1, kInitIters, y, ns);
   }
 
-  // HOOI sweeps, warm-started from the current factors
+  // HOOI sweeps, one k at a time, X_k read from device memory
   for (int s = 0; s < sweeps; ++s) {
     if (solve0) {
       for (int kk = 0; kk < k; ++kk) {  // G0' = sum_k (X_k U1)(X_k U1)^T
@@ -110,7 +420,7 @@ tucker2_factors_kernel(const float* __restrict__ x, float* __restrict__ u0_out,
         matmul(m, r1, xk, i, 1, u1, r1, 1, o, r1, i, false);
         matmul(g, o, m, r1, 1, m, 1, r1, o, o, r1, kk > 0);
       }
-      orth_iter(g, u0, o, r0, kSweepIters, y, ns);
+      orth_iter_unpadded(g, u0, o, r0, kSweepIters, y, ns);
     }
     if (solve1) {
       for (int kk = 0; kk < k; ++kk) {  // G1' = sum_k (U0^T X_k)^T (U0^T X_k)
@@ -118,23 +428,44 @@ tucker2_factors_kernel(const float* __restrict__ x, float* __restrict__ u0_out,
         matmul(m, i, u0, 1, r0, xk, i, 1, r0, i, o, false);
         matmul(g, i, m, 1, i, m, i, 1, i, i, r0, kk > 0);
       }
-      orth_iter(g, u1, i, r1, kSweepIters, y, ns);
+      orth_iter_unpadded(g, u1, i, r1, kSweepIters, y, ns);
     }
   }
+}
 
+// At 1 to 10 blocks for 132 SMs a block has its SM to itself, so one block
+// per SM is asked for and ptxas may use up to 255 registers a thread. Given
+// the thread count alone, it capped this kernel at 128 registers with 348
+// bytes of spill, 5% slower on the H100 (PERF.md).
+__global__ void __launch_bounds__(kThreads, 1)
+tucker2_factors_kernel(const float* __restrict__ x, float* __restrict__ u0_out,
+                       float* __restrict__ u1_out, int k, int o, int i, int r0,
+                       int r1, int sweeps) {
+  extern __shared__ float smem[];
+  const Plan p = make_plan(k, o, i, r0, r1);
+  const float* xl = x + static_cast<size_t>(blockIdx.x) * k * o * i;
+  if (p.resident)
+    solve_resident(p, smem, xl, k, o, i, r0, r1, sweeps);
+  else
+    solve_streamed(p, smem, xl, k, o, i, r0, r1, sweeps);
+  const int ld0 = p.resident ? up4(r0) : r0, ld1 = p.resident ? up4(r1) : r1;
+  const float* u0 = smem + p.u0;
+  const float* u1 = smem + p.u1;
   float* u0l = u0_out + static_cast<size_t>(blockIdx.x) * o * r0;
   float* u1l = u1_out + static_cast<size_t>(blockIdx.x) * i * r1;
-  for (int idx = threadIdx.x; idx < o * r0; idx += blockDim.x) u0l[idx] = u0[idx];
-  for (int idx = threadIdx.x; idx < i * r1; idx += blockDim.x) u1l[idx] = u1[idx];
+  for (int idx = threadIdx.x; idx < o * r0; idx += blockDim.x)
+    u0l[idx] = u0[(idx / r0) * ld0 + idx % r0];
+  for (int idx = threadIdx.x; idx < i * r1; idx += blockDim.x)
+    u1l[idx] = u1[(idx / r1) * ld1 + idx % r1];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for an [O, I] layer.
-int tucker2_factors_smem_bytes(int o, int i, int r0, int r1) {
-  return make_plan(o, i, r0, r1).total * static_cast<int>(sizeof(float));
+// Bytes of dynamic shared memory one block needs for a [K, O, I] layer.
+int tucker2_factors_smem_bytes(int k, int o, int i, int r0, int r1) {
+  return make_plan(k, o, i, r0, r1).total * static_cast<int>(sizeof(float));
 }
 
 // Launches the solve on `stream`; returns cudaGetLastError() (0 on success).
@@ -143,7 +474,7 @@ int tucker2_factors_launch(const void* x, void* u0, void* u1, int l, int k,
                            int o, int i, int r0, int r1, int sweeps,
                            void* stream) {
   if (l == 0) return 0;
-  const int bytes = tucker2_factors_smem_bytes(o, i, r0, r1);
+  const int bytes = tucker2_factors_smem_bytes(k, o, i, r0, r1);
   cudaError_t err = cudaFuncSetAttribute(
       tucker2_factors_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -33,21 +33,67 @@ SWEEP_ITERS = 3
 NS_ITERS = 12
 
 
-def smem_bytes(o: int, i: int, r0: int, r1: int) -> int:
-    """Shared-memory plan of one block, as `make_plan` in the CUDA source."""
+MAX_SMEM_FLOATS = MAX_SMEM_BYTES // 4
+
+
+def _up4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _odd4(x: int) -> int:
+    """The least multiple of 4 >= x that is an odd number of float4s."""
+    s = _up4(x)
+    return s if s & 4 else s + 4
+
+
+def _plan(k: int, o: int, i: int, r0: int, r1: int):
+    """(floats, resident, k per HOOI group) of one block's shared-memory
+    plan, as `make_plan` in the CUDA source.
+
+    Resident (X held in shared memory), every size rounded up to 4: X
+    [K, op, odd4(ip)], the Gram, U0, U1, then the larger of Y plus five
+    Newton-Schulz matrices and a group of HOOI products M_k [op,
+    odd4(r1p)] / N_k [r0p, ip], as many k as fit, in groups of equal size.
+    Where that does not fit, the streamed plan: the first version's
+    unpadded plan, n^2 + O r0 + I r1 + n r + max(O r1, r0 I) + 5 r^2
+    floats (n = max(O, I), r = max(r0, r1))."""
+    op, ip, r0p, r1p = _up4(o), _up4(i), _up4(r0), _up4(r1)
+    npad, rp = max(op, ip), max(r0p, r1p)
+    fixed = k * op * _odd4(ip) + npad * npad + op * r0p + ip * r1p
+    per_k = max(op * _odd4(r1p), r0p * ip)
+    room = MAX_SMEM_FLOATS - fixed
+    fit = min(k, room // per_k) if room > 0 else 0
+    kg = -(-k // -(-k // fit)) if fit > 0 else 0
+    total = fixed + max(npad * rp + 5 * rp * rp, kg * per_k)
+    if kg > 0 and total <= MAX_SMEM_FLOATS:
+        return total, True, kg
     n, r = max(o, i), max(r0, r1)
-    floats = n * n + o * r0 + i * r1 + n * r + max(o * r1, r0 * i) + 5 * r * r
-    return 4 * floats
+    base = n * n + o * r0 + i * r1 + n * r + max(o * r1, r0 * i) + 5 * r * r
+    return base, False, 0
+
+
+def smem_bytes(k: int, o: int, i: int, r0: int, r1: int) -> int:
+    """Bytes of one block's plan for a [K, O, I] layer
+    (`tucker2_factors_smem_bytes`)."""
+    return 4 * _plan(k, o, i, r0, r1)[0]
+
+
+def resident_plan(k: int, o: int, i: int, r0: int, r1: int) -> bool:
+    """True if the launch holds X in shared memory; shapes whose X does not
+    fit take the streamed plan."""
+    return _plan(k, o, i, r0, r1)[1]
 
 
 def kernel_supported(shape, r0: int, r1: int) -> bool:
     """True if an [L, K, O, I] bucket fits the kernel's shared-memory plan
-    (the role of the JAX package's `pallas_tk_supported`)."""
+    (the role of the JAX package's `pallas_tk_supported`): every shape
+    whose first version's plan fits, and more where X is small."""
     if len(shape) != 4:
         return False
-    _, _, o, i = shape
+    _, k, o, i = shape
     r0, r1 = min(r0, o), min(r1, i)
-    return r0 >= 1 and r1 >= 1 and smem_bytes(o, i, r0, r1) <= MAX_SMEM_BYTES
+    return (r0 >= 1 and r1 >= 1
+            and smem_bytes(k, o, i, r0, r1) <= MAX_SMEM_BYTES)
 
 
 def ns_flops(r: int) -> int:
@@ -158,7 +204,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.tucker2_factors_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.tucker2_factors_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.tucker2_factors_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.tucker2_factors_smem_bytes.restype = ctypes.c_int
     return lib
 

@@ -46,7 +46,8 @@ inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __noinline__
+#define __launch_bounds__(...)
 using std::min;
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 inline uintptr_t __cvta_generic_to_shared(const void* p) { return (uintptr_t)p; }
@@ -108,9 +109,10 @@ extern "C" int emu_run(const float* t, float* q, int l, int rows, int cols,
 """,
     "tucker2_factors": r"""
 extern "C" int emu_run(const float* x, float* u0, float* u1, int l, int k,
-                       int o, int i, int r0, int r1, int sweeps) {
+                       int o, int i, int r0, int r1, int sweeps, int late) {
+  emu_late = late;
   blockDim.x = kThreads;
-  return emu_launch(l, make_plan(o, i, r0, r1).total, [&] {
+  return emu_launch(l, make_plan(k, o, i, r0, r1).total, [&] {
     tucker2_factors_kernel(x, u0, u1, k, o, i, r0, r1, sweeps);
   });
 }
@@ -159,7 +161,7 @@ def libs(tmp_path_factory):
         out[name] = ctypes.CDLL(str(so))
     out["subspace"].emu_run.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
     out["tucker2_factors"].emu_run.argtypes = ([ctypes.c_void_p] * 3
-                                               + [ctypes.c_int] * 7)
+                                               + [ctypes.c_int] * 8)
     return out
 
 
@@ -204,23 +206,47 @@ def test_subspace_source_matches_plain(libs, L, rows, cols, r, late):
         assert np.linalg.norm(zq - zp) / np.linalg.norm(zp) < 1e-5
 
 
-@pytest.mark.parametrize("shape,r0,r1", [
-    ((2, 9, 16, 16), 16, 16),   # full rank: the identity
-    ((1, 9, 32, 16), 12, 8),
-    ((1, 3, 40, 20), 9, 5),
-])
-def test_tucker2_source_matches_plain(libs, shape, r0, r1):
+def _tucker2_against_plain(libs, shape, r0, r1, sweeps, late):
     l, k, o, i = shape
     x = (np.random.RandomState(o * i).standard_normal(shape)
          / np.sqrt(k * i)).astype(np.float32)
     u0 = np.full((l, o, r0), np.nan, np.float32)
     u1 = np.full((l, i, r1), np.nan, np.float32)
     err = libs["tucker2_factors"].emu_run(x.ctypes.data, u0.ctypes.data,
-                                          u1.ctypes.data, l, k, o, i, r0, r1, 2)
+                                          u1.ctypes.data, l, k, o, i, r0, r1,
+                                          sweeps, late)
     assert err == 0, f"emulation fault {err}"
     xt = torch.from_numpy(x)
-    p0, p1 = tk.tucker2_factors_plain(xt, r0, r1, sweeps=2)
+    p0, p1 = tk.tucker2_factors_plain(xt, r0, r1, sweeps=sweeps)
     z = tk.tucker2_reconstruct(xt, torch.from_numpy(u0), torch.from_numpy(u1))
     zp = tk.tucker2_reconstruct(xt, p0, p1)
     assert (torch.linalg.vector_norm(z - zp)
             / torch.linalg.vector_norm(zp)).item() < 1e-5
+
+
+@pytest.mark.parametrize("shape,r0,r1", [
+    ((2, 9, 16, 16), 16, 16),   # full rank: the identity
+    ((1, 9, 32, 16), 12, 8),
+    ((1, 3, 40, 20), 9, 5),
+])
+def test_tucker2_source_matches_plain(libs, shape, r0, r1):
+    _tucker2_against_plain(libs, shape, r0, r1, 2, 0)
+
+
+@pytest.mark.parametrize("late", [0, 1])
+@pytest.mark.parametrize("shape,r0,r1,sweeps,resident", [
+    ((1, 9, 32, 32), 20, 20, 2, True),    # resident X, padded iteration
+    ((1, 9, 64, 64), 25, 23, 2, True),    # HOOI products in two groups (5 + 4)
+    ((1, 9, 64, 64), 25, 23, 0, True),    # sweeps=0: the Grams and HOSVD init
+    ((1, 9, 32, 16), 24, 16, 2, True),    # even ranks, mode 1 full rank
+    ((1, 9, 30, 18), 7, 5, 2, True),      # odd sizes and ranks: zero pads, scalar
+    ((2, 1, 36, 20), 12, 8, 2, True),     # K = 1: padded mode 0, scalar mode 1
+    ((1, 4, 8, 24), 8, 5, 2, True),       # mode 0 full rank (identity)
+    ((1, 9, 144, 144), 40, 40, 2, False), # X streamed: 64 x 64 Gram blocks
+    ((1, 9, 160, 96), 40, 30, 2, False),  # X streamed, O != I
+])
+def test_tucker2_plans_match_plain(libs, shape, r0, r1, sweeps, resident, late):
+    _, k, o, i = shape
+    assert tk.kernel_supported(shape, r0, r1)
+    assert tk.resident_plan(k, o, i, r0, r1) == resident
+    _tucker2_against_plain(libs, shape, r0, r1, sweeps, late)

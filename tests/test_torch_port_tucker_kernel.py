@@ -72,16 +72,66 @@ def test_plain_exact_on_low_rank_input():
 
 
 def test_shared_memory_gate_on_main_path_buckets():
-    # floats: n^2 + O r0 + I r1 + n r + max(O r1, r0 I) + 5 r^2, n = max(O, I),
-    # r = max(r0, r1); the compiled library reports the same plan on the card
-    expected = [10240, 24832, 22336, 62848, 53972]
-    got = [tk.smem_bytes(s[2], s[3], r0, r1) for s, r0, r1 in MAIN_PATH_BUCKETS]
+    # the resident plan, in floats: X [K, op, odd4(ip)], the Gram np^2,
+    # U0 op r0p, U1 ip r1p, then the larger of Y np rp + 5 rp^2 and a group
+    # of HOOI products, each max(op odd4(r1p), r0p ip) (every size rounded up
+    # to 4, odd4 to an odd number of float4s); the compiled library reports
+    # the same plan on the card (chip_smoke.py)
+    expected = [4 * (9 * 16 * 20 + 256 + 256 + 256 + 9 * 16 * 20),
+                4 * (9 * 32 * 20 + 1024 + 32 * 24 + 16 * 16 + 9 * 32 * 20),
+                4 * (9 * 32 * 36 + 1024 + 32 * 20 + 32 * 20 + 9 * 32 * 20),
+                4 * (9 * 64 * 36 + 4096 + 64 * 32 + 32 * 28 + 9 * 64 * 28),
+                # [9, 9, 64, 64]: room for 6 of the 9 products, taken as 5 + 4
+                4 * (9 * 64 * 68 + 4096 + 64 * 28 + 64 * 24 + 5 * 64 * 28)]
+    assert expected == [26112, 54272, 73728, 175616, 222208]
+    got = [tk.smem_bytes(*s[1:], r0, r1) for s, r0, r1 in MAIN_PATH_BUCKETS]
     assert got == expected
     assert all(tk.kernel_supported(s, r0, r1) for s, r0, r1 in MAIN_PATH_BUCKETS)
-    # two of them need more than the 48 KB default: the launcher opts in
-    assert sum(b > 48 * 1024 for b in got) == 2
+    # four of them need more than the 48 KB default: the launcher opts in
+    assert sum(b > 48 * 1024 for b in got) == 4
     assert not tk.kernel_supported((4, 9, 256, 256), 64, 64)  # Gram alone 256 KiB
     assert not tk.kernel_supported((4, 64, 64), 8, 8)         # not [L, K, O, I]
+
+
+# chip_smoke.py's near-cap buckets: the first version's plan fits, X does not
+NEAR_CAP_BUCKETS = [((2, 9, 144, 144), 40, 40), ((2, 9, 160, 96), 40, 30)]
+
+
+def test_main_path_holds_x_and_near_cap_buckets_stream_it():
+    assert all(tk.resident_plan(*s[1:], r0, r1) for s, r0, r1 in MAIN_PATH_BUCKETS)
+    assert [tk._plan(*s[1:], r0, r1)[2] for s, r0, r1 in MAIN_PATH_BUCKETS] \
+        == [9, 9, 9, 9, 5]
+    for shape, r0, r1 in NEAR_CAP_BUCKETS:
+        assert tk.kernel_supported(shape, r0, r1)
+        assert not tk.resident_plan(*shape[1:], r0, r1)
+    # the streamed plan is the first version's, byte for byte
+    assert [tk.smem_bytes(*s[1:], r0, r1) for s, r0, r1 in NEAR_CAP_BUCKETS] \
+        == [207_104, 216_320]
+
+
+def _first_plan_fits(o, i, r0, r1):
+    """The first version's gate: its plan within a block's 227 KB."""
+    n, r = max(o, i), max(r0, r1)
+    return 4 * (n * n + o * r0 + i * r1 + n * r + max(o * r1, r0 * i)
+                + 5 * r * r) <= 232_448
+
+
+@pytest.mark.parametrize("k", [1, 4, 9, 25])
+def test_gate_accepts_every_shape_the_first_plan_fits(k):
+    sizes = [1, 3, 4, 7, 16, 33, 64, 96, 100, 144, 160, 201, 240, 256]
+    for o in sizes:
+        for i in sizes:
+            ranks = sorted({1, 2, 5, 12, 23, 40, 64, 97, min(o, i), max(o, i)})
+            for r0 in (r for r in ranks if r <= o):
+                for r1 in (r for r in ranks if r <= i):
+                    fits = _first_plan_fits(o, i, r0, r1)
+                    ok = tk.kernel_supported((1, k, o, i), r0, r1)
+                    assert ok or not fits, (k, o, i, r0, r1)
+                    if not tk.resident_plan(k, o, i, r0, r1) and fits:
+                        assert tk.smem_bytes(k, o, i, r0, r1) == 4 * (
+                            max(o, i) ** 2 + o * r0 + i * r1
+                            + max(o, i) * max(r0, r1) + max(o * r1, r0 * i)
+                            + 5 * max(r0, r1) ** 2)
 
 
 def test_main_path_work_and_bound():

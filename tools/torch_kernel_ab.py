@@ -11,16 +11,19 @@ that .gitignore lists) as the baseline:
 It builds `subspace.cu` and `tucker2_factors.cu` of both checkouts with
 nvcc (all processes at once) and, at the shapes of the main path
 (`chip_smoke.py`: the 24 subspace launches of a ResNet32-TT@3x Z-step and
-the 5 Tucker-2 buckets of ResNet32-TK@3x, inputs from --seed), times
-baseline, this, this, baseline in device time (`chip_smoke.graph_ms`).
-The subspace kernel is timed at the Z-step's iteration count and at
-iters=0 (the Gram, the identity start and the lift). It reports this
-checkout's errors against the plain versions and the largest difference
-between the two builds' outputs, one JSON line per shape and per-Z-step
-sums, also written to --out (default build/kernel_ab.jsonl).
+the 5 Tucker-2 buckets of ResNet32-TK@3x, inputs from --seed) and at
+chip_smoke.py's two near-cap Tucker-2 buckets, times baseline, this,
+this, baseline in device time (`chip_smoke.graph_ms`). The subspace
+kernel is timed at the Z-step's iteration count and at iters=0 (the
+Gram, the identity start and the lift), the Tucker-2 kernel at the
+Z-step's sweeps and at sweeps=0 (the Grams of X and the HOSVD init). It
+reports this checkout's errors against the plain versions and the
+largest difference between the two builds' outputs (at both counts),
+one JSON line per shape and per-Z-step sums over the main-path shapes,
+also written to --out (default build/kernel_ab.jsonl).
 
-`-D` builds this checkout's side with a tuning macro of the CUDA sources
-set (ORTH_VEC_MIN_RP, ORTH_TILE_ROWS, SUBSPACE_LIFT_MIN_COLS), so with
+`-D` builds this checkout's side with any macro of the CUDA sources set
+(ORTH_VEC_MIN_RP, ORTH_TILE_ROWS, SUBSPACE_LIFT_MIN_COLS), so with
 `.` as the baseline it measures a threshold against the default:
 
     python3 tools/torch_kernel_ab.py . --kernels subspace -D ORTH_VEC_MIN_RP=4
@@ -128,28 +131,36 @@ def main() -> int:
                 key = f"subspace {side} iters={iters}"
                 total[key] = total.get(key, 0.0) + ms
         emit(row)
-    for shape, r0, r1 in (cs.main_path_buckets()
-                          if "tucker2_factors" in args.kernels else ()):
+    buckets = [(b, True) for b in cs.main_path_buckets()]
+    buckets += [(b, False) for b in cs.NEAR_CAP_BUCKETS]
+    for (shape, r0, r1), main in (buckets if "tucker2_factors" in args.kernels
+                                  else ()):
         x = torch.from_numpy((rng.standard_normal(shape) / np.sqrt(
             shape[1] * shape[3])).astype(np.float32)).cuda()
 
-        def tucker(side):
+        def tucker(side, sweeps=cs.SWEEPS):
             return tk.launch(libs[side, "tucker2_factors"], x, r0, r1,
-                             sweeps=cs.SWEEPS)
+                             sweeps=sweeps)
 
-        (u0, u1), (b0, b1) = tucker("this"), tucker("baseline")
         p0, p1 = tk.tucker2_factors_plain(x, r0, r1, sweeps=cs.SWEEPS)
-        z = tk.tucker2_reconstruct(x, u0, u1)
-        zp = tk.tucker2_reconstruct(x, p0, p1)
         row = {"kernel": "tucker2_factors", "shape": list(shape),
                "ranks": [r0, r1],
-               "z_rel_err": (torch.linalg.vector_norm(z - zp)
-                             / torch.linalg.vector_norm(zp)).item(),
-               "max_abs_diff_vs_baseline": max((u0 - b0).abs().max().item(),
-                                               (u1 - b1).abs().max().item())}
-        for side, ms in turns(tucker).items():
-            row[f"{side}_ms"] = ms
-            total[f"tucker2 {side}"] = total.get(f"tucker2 {side}", 0.0) + ms
+               "plan": "resident" if tk.resident_plan(*shape[1:], r0, r1)
+               else "streamed"}
+        for sweeps in (cs.SWEEPS, 0):
+            (u0, u1), (b0, b1) = tucker("this", sweeps), tucker("baseline", sweeps)
+            row[f"max_abs_diff_vs_baseline_sweeps{sweeps}"] = max(
+                (u0 - b0).abs().max().item(), (u1 - b1).abs().max().item())
+            if sweeps == cs.SWEEPS:
+                z = tk.tucker2_reconstruct(x, u0, u1)
+                zp = tk.tucker2_reconstruct(x, p0, p1)
+                row["z_rel_err"] = (torch.linalg.vector_norm(z - zp)
+                                    / torch.linalg.vector_norm(zp)).item()
+            for side, ms in turns(lambda s: tucker(s, sweeps)).items():
+                row[f"{side}_ms_sweeps{sweeps}"] = ms
+                key = f"tucker2 {side} sweeps={sweeps}"
+                if main:
+                    total[key] = total.get(key, 0.0) + ms
         emit(row)
     emit({"ms_per_z_step": total, "card": smi, "defines": args.define})
     faulthandler.cancel_dump_traceback_later()
