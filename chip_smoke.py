@@ -7,23 +7,28 @@ prints one JSON line per phase:
 
 1. device  — the card's name, count and power limit;
 2. build   — compiles both CUDA kernels from `csrc/` (two nvcc processes
-   at once) and checks each compiled shared-memory plan against the
-   Python gate at every main-path and near-cap shape;
-3. kernel  — each kernel at its main path's shapes (inputs from --seed)
+   at once) and checks each compiled shared-memory plan (and the
+   subspace kernel's workspace) against the Python gate at every
+   main-path and near-cap shape;
+3. kernel  — each kernel at its main paths' shapes (inputs from --seed)
    against its plain PyTorch version on the card, with its time, the
    plain version's, a library yardstick's and the card's bound: the
    Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x, each also
    at sweeps=0 (`hosvd_ms`: the Grams of X and the HOSVD init), the
-   subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step, each
-   also at iters=0 (`gram_ms`: the Gram, the identity start and the lift),
-   and both kernels at two shapes near a block's shared-memory limit,
-   which take the Tucker-2 kernel's streamed plan and the subspace
-   kernel's unpadded plan; kernel times are device times (launches
-   captured in a CUDA graph and replayed);
-4. main    — ResNet32 Tucker-2 @3x, then ResNet32 Tensor-Train @3x, each
-   at full width and batch 256: ADMM (first projection + 2 epochs x 20
-   steps), decompose, fine-tune 20 steps, eval and runtime, counting
-   both kernels' launches.
+   subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step and at
+   the 33 of a DeiT-tiny-TT@2x Z-step (13 of them in the workspace
+   plan), each also at iters=0 (`gram_ms`: the Gram, the identity start
+   and the lift), and both kernels at two shapes near a block's
+   shared-memory limit, which take the Tucker-2 kernel's streamed plan
+   and the subspace kernel's unpadded plan; kernel times are device
+   times (launches captured in a CUDA graph and replayed);
+4. main    — ResNet32 Tucker-2 @3x and ResNet32 Tensor-Train @3x, each at
+   full width and batch 256, then DeiT-tiny Tensor-Train @2x at full
+   width (embed 192, depth 12, 224 x 224, 1000 classes) and batch 128
+   with AdamW: ADMM (first projection + 2 epochs x 20 steps), decompose,
+   fine-tune 20 steps, eval and runtime, counting both kernels' launches
+   (on the card the Z-step raises where a kernel's gate refuses a
+   bucket, so every bucket goes through a kernel).
 
 Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
@@ -128,10 +133,10 @@ def graph_ms(fn, launches: int = 25, replays: int = 4) -> float:
     return cuda_ms(graph.replay, replays, warmup=1) / launches
 
 
-def _program(fmt: str):
-    model = create_model("resnet32")
-    return build_program(dict(model.named_parameters()),
-                         get_rank_plan("resnet32", fmt, "3"))
+def _program(fmt: str, model: str = "resnet32", ratio: str = "3"):
+    dense = create_model(model)
+    return build_program(dict(dense.named_parameters()),
+                         get_rank_plan(model, fmt, ratio))
 
 
 def main_path_buckets():
@@ -144,13 +149,19 @@ def main_path_buckets():
     return out
 
 
-def tt_launches():
-    """(shape [L, rows, cols], r) of every subspace launch of a TT Z-step,
-    bucket by bucket in sweep order; full-rank steps do not launch."""
-    return [((len(g.names), rows, cols), r) for g in _program("tt").groups
+def tt_launches(program=None):
+    """(shape [L, rows, cols], r) of every subspace launch of a TT Z-step
+    (ResNet32-TT@3x's unless another program is given), bucket by bucket
+    in sweep order; full-rank steps do not launch."""
+    program = program or _program("tt")
+    return [((len(g.names), rows, cols), r) for g in program.groups
             for rows, cols, r in sk.sweep_steps(g.spec.tt_shapes,
                                                 g.spec.tt_ranks)
             if r != rows]
+
+
+def deit_program():
+    return _program("tt", "deit_tiny_patch16_224", "2")
 
 
 def tucker_input(rng, shape):
@@ -257,7 +268,10 @@ def check_subspace(t, r):
     return (q - p).abs().max().item(), proj, rel
 
 
-def phase_kernel_tt(seed: int, launches):
+def phase_kernel_tt(seed: int, launches, program, path: str,
+                    near_cap=NEAR_CAP_LAUNCHES):
+    """The subspace kernel at every launch of `program`'s Z-step, then at
+    `near_cap`, then the whole TT sweep of one Z-step."""
     rng = np.random.RandomState(seed)
     rows_out = []
     for shape, r in launches:
@@ -279,6 +293,7 @@ def phase_kernel_tt(seed: int, launches):
         nbytes = 4 * (l * rows * cols + l * rows * r)
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
         row = {"phase": "kernel", "name": "dominant_left_subspace_batched",
+               "path": path, "plan": sk.plan_name(rows, cols, r),
                "shape_L_rows_cols": list(shape), "rank": r,
                "projector_err": proj, "projector_tol": TT_PROJ_TOL,
                "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
@@ -292,7 +307,7 @@ def phase_kernel_tt(seed: int, launches):
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         emit(row)
         rows_out.append(row)
-    for shape, r in NEAR_CAP_LAUNCHES:
+    for shape, r in near_cap:
         l, rows, cols = shape
         if sk.padded_plan(rows, cols, r) or not sk.subspace_supported(shape, r):
             raise AssertionError(f"{shape} r={r} does not take the unpadded plan")
@@ -309,14 +324,14 @@ def phase_kernel_tt(seed: int, launches):
     # the whole batched TT-SVD sweep (kernel, residuals, reconstruction) of
     # one Z-step, bucket by bucket on random weights
     xs = []
-    for g in _program("tt").groups:
+    for g in program.groups:
         numel = int(np.prod(g.param_shape))
         x = rng.standard_normal((len(g.names), numel)).astype(np.float32)
         xs.append((torch.from_numpy(x).cuda(), g.spec))
     sweep_ms = cuda_ms(lambda: [
         sk.tt_project_batched(x, sp.tt_shapes, sp.tt_ranks, iters=TT_ITERS)
         for x, sp in xs], 10)
-    emit({"phase": "kernel", "name": "tt_project_batched",
+    emit({"phase": "kernel", "name": "tt_project_batched", "path": path,
           "buckets": len(xs), "ms_per_z_step": sweep_ms})
     return rows_out
 
@@ -337,11 +352,11 @@ def check_full_rank_layer(dense, compressed) -> float:
     return rel
 
 
-def check_projection_quality(model, fmt: str):
+def check_projection_quality(model, name: str, fmt: str, ratio: str):
     """On the trained weights, the kernel route's Z must fit W as well as
     the 'subspace' route's (the JAX package's criterion, within 0.02)."""
     params = dict(model.named_parameters())
-    program = build_program(params, get_rank_plan("resnet32", fmt, "3"))
+    program = build_program(params, get_rank_plan(name, fmt, ratio))
     state = admm_init(params, program)
     errs = {}
     for method in ("kernel", "subspace"):
@@ -356,29 +371,58 @@ def check_projection_quality(model, fmt: str):
     return errs
 
 
-# per format: the compressed model, its ratio (the JAX package's, to 2
-# decimals), the kernel the Z-step must launch and the one it must not
+# per main path: the dense and compressed models, the ratio (the JAX
+# package's, to 2 decimals), the training set-up (`bench.py`'s tk3x, tt3x
+# and deit_tt2, with the depth cut), the kernel the Z-step must launch and
+# the one it must not
+RESNET = dict(dense="resnet32", ratio_arg="3", dataset="synthetic-cifar10",
+              synthetic_size=None, batch_size=256, opt="momentum", lr=0.1,
+              input=(3, 32, 32), classes=10, full_rank_check=True)
 PATHS = {
-    "tk": {"model": "tkc_resnet32", "ratio": 2.83,
+    "tk": {**RESNET, "name": "resnet32 tk@3x", "fmt": "tk",
+           "model": "tkc_resnet32", "ratio": 2.83,
            "kernel": tk.tucker2_factors_batched,
            "other": sk.dominant_left_subspace_batched},
-    "tt": {"model": "ttm_resnet32", "ratio": 2.78,
+    "tt": {**RESNET, "name": "resnet32 tt@3x", "fmt": "tt",
+           "model": "ttm_resnet32", "ratio": 2.78,
            "kernel": sk.dominant_left_subspace_batched,
            "other": tk.tucker2_factors_batched},
+    "deit": {"name": "deit_tiny_patch16_224 tt@2x", "fmt": "tt",
+             "dense": "deit_tiny_patch16_224",
+             "model": "ttm_deit_tiny_patch16_224", "ratio_arg": "2",
+             "ratio": 1.88, "dataset": "synthetic-imagenet",
+             "synthetic_size": 512, "batch_size": 128, "opt": "adamw",
+             "lr": 5e-4, "input": (3, 224, 224), "classes": 1000,
+             "full_rank_check": False,
+             "kernel": sk.dominant_left_subspace_batched,
+             "other": tk.tucker2_factors_batched},
 }
+# the depth of every main path: bench.py runs 24 epochs of 196 (ResNet) or
+# 128 (DeiT) steps and the JAX package's fine-tune as many again
+CUT = {"admm": "first projection + 2 epochs x 20 steps",
+       "finetune": "1 epoch x 20 steps",
+       "bench_py": "24 epochs x 196 (resnet32) or 128 (deit) steps"}
 
 
-def phase_main(seed: int, card: str, fmt: str, launches_per_z_step: int,
+def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
                workdir: str):
-    path = PATHS[fmt]
-    common = dict(dataset="synthetic-cifar10", batch_size=256,
-                  steps_per_epoch=20, lr=0.1, smoothing=0.1,
+    path = PATHS[key]
+    fmt = path["fmt"]
+    t0 = time.perf_counter()
+    x_va, y_va, info = load_dataset(path["dataset"], False,
+                                    path["synthetic_size"]
+                                    and path["synthetic_size"] // 4)
+    load_dataset(path["dataset"], True, path["synthetic_size"])
+    dataset_s = time.perf_counter() - t0  # train_model makes both again
+    common = dict(dataset=path["dataset"], batch_size=path["batch_size"],
+                  synthetic_size=path["synthetic_size"], steps_per_epoch=20,
+                  opt=path["opt"], lr=path["lr"], smoothing=0.1,
                   compute_dtype="bfloat16", seed=seed, device="cuda",
                   print_fn=log)  # per-epoch rows go to stderr
-    admm_cfg = TrainConfig(model="resnet32", epochs=2, admm=True, rho=1e-3,
-                           fmt=fmt, ratio="3", admm_method="kernel",
-                           admm_hooi_iters=6,
-                           log_path=f"{workdir}/admm_{fmt}.log", **common)
+    admm_cfg = TrainConfig(model=path["dense"], epochs=2, admm=True,
+                           rho=1e-3, fmt=fmt, ratio=path["ratio_arg"],
+                           admm_method="kernel", admm_hooi_iters=6,
+                           log_path=f"{workdir}/admm_{key}.log", **common)
     tk.tucker2_factors_batched.launches = 0
     sk.dominant_left_subspace_batched.launches = 0
     t0 = time.perf_counter()
@@ -390,44 +434,51 @@ def phase_main(seed: int, card: str, fmt: str, launches_per_z_step: int,
     z_steps = 1 + admm_cfg.epochs
     if launches != z_steps * launches_per_z_step or other != 0:
         raise AssertionError(
-            f"{fmt}: kernel launched {launches} times (expected {z_steps} "
+            f"{key}: kernel launched {launches} times (expected {z_steps} "
             f"Z-steps x {launches_per_z_step}), the other kernel {other}")
 
-    plan = get_rank_plan(path["model"], fmt, "3")
+    plan = get_rank_plan(path["model"], fmt, path["ratio_arg"])
     t0 = time.perf_counter()
     sd = decompose_params(dense.state_dict(), plan)
     torch.cuda.synchronize()
     decompose_s = time.perf_counter() - t0
-    compressed = create_model(path["model"], ratio="3")
+    compressed = create_model(path["model"], ratio=path["ratio_arg"],
+                              num_classes=path["classes"])
     compressed.load_state_dict(sd)
     ratio = compression_ratio(dense, compressed)
     if round(ratio, 2) != path["ratio"]:
         raise AssertionError(f"compression ratio {ratio}, expected "
                              f"{path['ratio']}")
 
-    ft_cfg = TrainConfig(model=path["model"], epochs=1, ratio="3", **common)
+    ft_cfg = TrainConfig(model=path["model"], epochs=1,
+                         ratio=path["ratio_arg"], **common)
     ft, ft_hist = train_model(ft_cfg, init_state_dict=sd)
-    x_va, y_va, info = load_dataset("synthetic-cifar10", False)
     ev = evaluate_model(ft, x_va, y_va, info, compute_dtype="bfloat16")
-    rt = eval_runtime(ft, info, batch_size=256, compute_dtype="bfloat16")
+    rt = eval_runtime(ft, info, batch_size=path["batch_size"],
+                      compute_dtype="bfloat16")
     with torch.no_grad():
-        logits = ft.eval()(torch.zeros(4, 3, 32, 32, device="cuda"))
-    if tuple(logits.shape) != (4, 10) or not torch.isfinite(logits).all():
+        logits = ft.eval()(torch.zeros(4, *path["input"], device="cuda"))
+    if (tuple(logits.shape) != (4, path["classes"])
+            or not torch.isfinite(logits).all()):
         raise AssertionError(f"bad logits {tuple(logits.shape)}")
 
     losses = ([h["train_loss"] for h in hist + ft_hist]
               + [h["test_loss"] for h in hist + ft_hist] + [ev["loss"]])
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss in {losses}")
-    full_rank_rel = check_full_rank_layer(dense, compressed.cuda())
-    proj = check_projection_quality(dense, fmt)
+    full_rank_rel = (check_full_rank_layer(dense, compressed.cuda())
+                     if path["full_rank_check"] else None)
+    proj = check_projection_quality(dense, path["dense"], fmt,
+                                    path["ratio_arg"])
     last = hist[-1]
     steps = admm_cfg.steps_per_epoch
-    emit({"phase": "main", "card": card, "model": f"resnet32 {fmt}@3x",
-          "batch": 256, "admm_epochs": admm_cfg.epochs,
+    emit({"phase": "main", "card": card, "model": path["name"],
+          "batch": path["batch_size"], "optimizer": path["opt"],
+          "depth_cut": CUT, "admm_epochs": admm_cfg.epochs,
           "steps_per_epoch": steps, "z_steps": z_steps,
           "kernel_launches": launches, "other_kernel_launches": other,
           "launches_per_z_step": launches_per_z_step,
+          "dataset_s": dataset_s,
           "admm_it_per_s": steps / last["epoch_time_s"],
           "admm_x_step_it_per_s": steps / last["x_step_s"],
           "z_step_ms": 1000 * last["z_step_s"],
@@ -454,10 +505,13 @@ RECORDED_MS = {
 }
 
 
-def kernel_summary(name, source, replaces, launches, rows, library_key):
-    """One entry of the kernels line: per Z-step sums over `rows`."""
+def kernel_summary(name, path, source, replaces, launches, rows,
+                   library_key):
+    """One entry of the kernels line: a kernel on one main path, with sums
+    over `rows`, that path's launches of one Z-step."""
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "name": name, "path": path, "route": "cuda", "source": source,
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["kernel_ms"] for r in rows),
@@ -505,44 +559,81 @@ def main() -> int:
         if not tk.resident_plan(*shape[1:], r0, r1):
             raise AssertionError(f"main-path bucket {shape} does not hold X")
     launches_tt = tt_launches()
-    for (l, rows, cols), r in launches_tt:
-        if sk_lib.subspace_smem_bytes(rows, cols, r) != sk.smem_bytes(rows, cols, r):
-            raise AssertionError(f"shared-memory plans differ at {[l, rows, cols]}")
+    program_deit = deit_program()
+    launches_deit = tt_launches(program_deit)
+    if len(launches_deit) != 33:
+        raise AssertionError(f"{len(launches_deit)} DeiT launches, not 33")
+    for (l, rows, cols), r in [*launches_tt, *launches_deit]:
+        if sk.block_plan_fits(rows, cols, r):
+            planned = (sk_lib.subspace_smem_bytes(rows, cols, r), 0)
+            want = (sk.smem_bytes(rows, cols, r), 0)
+        else:  # the workspace plan
+            planned = (sk_lib.subspace_ws_smem_bytes(rows, cols, r),
+                       sk_lib.subspace_ws_floats(rows, cols, r))
+            ws = sk.ws_plan(rows, cols, r)
+            want = (4 * ws.smem_floats, ws.ws_floats)
+        if planned != want:
+            raise AssertionError(f"plans differ at {[l, rows, cols]} r={r}: "
+                                 f"{planned} != {want}")
         if not sk.subspace_supported((l, rows, cols), r):
             raise AssertionError(f"TT launch {[l, rows, cols]} fails the gate")
+
+    def plan_row(shape, r):
+        _, rows, cols = shape
+        if sk.block_plan_fits(rows, cols, r):
+            return [list(shape), r, sk.plan_name(rows, cols, r),
+                    sk.smem_bytes(rows, cols, r)]
+        ws = sk.ws_plan(rows, cols, r)
+        return [list(shape), r, "workspace", 4 * ws.smem_floats,
+                4 * ws.ws_floats * shape[0], list(ws.in_ws)]
+
     emit({"phase": "build", "wall_s": build_wall_s,
           "kernels": {name: {"build_seconds": i["seconds"],
                              "compiler_output": i["compiler_output"].splitlines()}
                       for name, i in infos.items()},
           "tk_buckets": [[list(s), r0, r1, tk.smem_bytes(*s[1:], r0, r1)]
                          for s, r0, r1 in [*buckets, *NEAR_CAP_BUCKETS]],
-          "tt_launches": [[list(s), r, sk.smem_bytes(s[1], s[2], r)]
-                          for s, r in launches_tt]})
+          "tt_launches": [plan_row(s, r) for s, r in launches_tt],
+          "deit_launches_shape_r_plan_smem_bytes_ws_bytes": [
+              plan_row(s, r) for s, r in launches_deit]})
 
     rows_tk = phase_kernel(args.seed, buckets)
-    rows_tt = phase_kernel_tt(args.seed, launches_tt)
+    rows_tt = phase_kernel_tt(args.seed, launches_tt, _program("tt"),
+                              "resnet32 tt@3x")
+    rows_deit = phase_kernel_tt(args.seed, launches_deit, program_deit,
+                                "deit_tiny_patch16_224 tt@2x", near_cap=())
     with tempfile.TemporaryDirectory() as workdir:
         launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
                                       workdir)
         launches_tt_main = phase_main(args.seed, smi, "tt", len(launches_tt),
                                       workdir)
+        launches_deit_main = phase_main(args.seed, smi, "deit",
+                                        len(launches_deit), workdir)
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
           **RECORDED_MS})
     src = "dnn_compression_tensor_admm_tpu_torch/csrc/"
     ref = "dnn_compression_tensor_admm_tpu/ops/pallas/"
-    subspace = kernel_summary(
-        "dominant_left_subspace_batched", src + "subspace.cu",
-        ref + "subspace_kernel.py:85", launches_tt_main, rows_tt,
-        "library_ms_batched_svd")
-    subspace["gram_ms"] = sum(r["gram_ms"] for r in rows_tt)
+    # one entry per kernel and main path, each with that path's launches
+    # and its times per Z-step; the ResNet32 TT entry keeps the kernel's name
     tucker = kernel_summary(
-        "tucker2_factors_batched", src + "tucker2_factors.cu",
+        "tucker2_factors_batched", "resnet32 tk@3x", src + "tucker2_factors.cu",
         ref + "tucker_kernel.py:142", launches_tk_main, rows_tk,
         "library_ms_hosvd_only_svd_of_both_unfoldings")
     tucker["hosvd_ms"] = sum(r["hosvd_ms"] for r in rows_tk)
-    emit({"kernels": [tucker, subspace]})
+    entries = [tucker]
+    for name, path, n, rows in (
+            ("dominant_left_subspace_batched", "resnet32 tt@3x",
+             launches_tt_main, rows_tt),
+            ("dominant_left_subspace_batched@deit_tt2",
+             "deit_tiny_patch16_224 tt@2x", launches_deit_main, rows_deit)):
+        one = kernel_summary(name, path, src + "subspace.cu",
+                             ref + "subspace_kernel.py:85", n, rows,
+                             "library_ms_batched_svd")
+        one["gram_ms"] = sum(r["gram_ms"] for r in rows)
+        entries.append(one)
+    emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -9,11 +9,14 @@ The plan's layers are bucketed by (kind, spec, shape); each bucket is
 stacked into one [L, ...] tensor and projected at once. With
 method='kernel' a Tucker-2 bucket goes through the CUDA factor kernel
 (`ops/cuda/tucker_kernel.py`) and a TT bucket through the batched TT-SVD
-sweep on the CUDA subspace kernel (`ops/cuda/subspace_kernel.py`); a
-bucket a kernel's shared-memory gate refuses, and every bucket with
-another method, goes layer by layer through `ops/tucker.py` or
-`ops/ttd.py`. U and Z are stored in each parameter's own layout (OIHW
-for convs); a TT projection works on the [O, kh*kw, I] view.
+sweep on the CUDA subspace kernel (`ops/cuda/subspace_kernel.py`). On
+the card a bucket that a kernel's gate refuses raises; on the CPU (where
+the kernel wrappers run their plain versions) it goes layer by layer
+through `ops/tucker.py` or `ops/ttd.py`, as every bucket does with
+another method.
+U and Z are stored in each parameter's own layout (OIHW for convs,
+[out, in] for linears); a TT projection works on the [O, kh*kw, I] view
+of a conv and on the weight itself for a linear.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..configs.hp import RankPlan, TKSpec, TTConvSpec
+from ..configs.hp import RankPlan, TKSpec, TTConvSpec, TTLinearSpec
 from ..ops.cuda.subspace_kernel import tt_project_batched, tt_supported
 from ..ops.cuda.tucker_kernel import kernel_supported, tucker2_project_batched
 from ..ops.precision import full_f32
@@ -59,6 +62,8 @@ class ProjectionProgram:
 def _classify(spec, w: torch.Tensor) -> str:
     if isinstance(spec, TTConvSpec) and w.dim() == 4:
         return "tt_conv"
+    if isinstance(spec, TTLinearSpec) and w.dim() == 2:
+        return "tt_linear"
     if isinstance(spec, TKSpec) and w.dim() == 4:
         return "tk_conv"
     raise NotImplementedError(f"{type(spec).__name__} on a {w.dim()}-d weight "
@@ -100,7 +105,10 @@ def admm_init(params: Mapping[str, torch.Tensor],
 
 def _project_one(g: _Group, w: torch.Tensor, *, method: str,
                  n_iter: int) -> torch.Tensor:
-    """Project one OIHW weight onto the group's Tucker-2 or TT ranks."""
+    """Project one weight (OIHW, or [out, in]) onto the group's Tucker-2
+    or TT ranks."""
+    if g.kind == "tt_linear":
+        return tt_project(w, g.spec.tt_shapes, g.spec.tt_ranks, method=method)
     if g.kind == "tt_conv":
         o, i, kh, kw = w.shape
         t = w.permute(0, 2, 3, 1).reshape(o, kh * kw, i)
@@ -113,23 +121,33 @@ def _project_one(g: _Group, w: torch.Tensor, *, method: str,
 
 def _project_group_kernel(g: _Group, ts: torch.Tensor,
                           n_iter: int) -> Optional[torch.Tensor]:
-    """Kernel Z-step for one bucket ts [L, O, I, kh, kw]; None where the
-    kernel's gate refuses the bucket."""
-    l, o, i, kh, kw = ts.shape
-    if g.kind == "tt_conv":
-        x = ts.permute(0, 1, 3, 4, 2).reshape(l, -1)  # [L, O, kh*kw, I]
+    """Kernel Z-step for one bucket ts [L, O, I, kh, kw] or [L, out, in].
+    Where the kernel's gate refuses the bucket: None for CPU tensors (the
+    caller goes layer by layer), and ValueError on any other device."""
+    l = ts.shape[0]
+    if g.kind == "tk_conv":
+        _, o, i, kh, kw = ts.shape
+        sp = g.spec.clamped((o, i, kh, kw))
+        x = ts.permute(0, 3, 4, 1, 2).reshape(l, kh * kw, o, i).contiguous()
+        if kernel_supported(x.shape, sp.out_rank, sp.in_rank):
+            z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
+                                        sweeps=max(1, n_iter // 3))
+            return z.reshape(l, kh, kw, o, i).permute(0, 3, 4, 1, 2)
+    else:
+        # the TT view: a linear's [out, in] weight itself, a conv's
+        # [O, kh*kw, I]
+        view = ts if g.kind == "tt_linear" else ts.permute(0, 1, 3, 4, 2)
         shapes, ranks = g.spec.tt_shapes, g.spec.tt_ranks
-        if not tt_supported(l, x.shape[1], shapes, ranks):
-            return None
-        z = tt_project_batched(x, shapes, ranks, iters=max(8, n_iter))
-        return z.reshape(l, o, kh, kw, i).permute(0, 1, 4, 2, 3)
-    sp = g.spec.clamped((o, i, kh, kw))
-    x = ts.permute(0, 3, 4, 1, 2).reshape(l, kh * kw, o, i).contiguous()
-    if not kernel_supported(x.shape, sp.out_rank, sp.in_rank):
-        return None
-    z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
-                                sweeps=max(1, n_iter // 3))
-    return z.reshape(l, kh, kw, o, i).permute(0, 3, 4, 1, 2)
+        if tt_supported(l, view[0].numel(), shapes, ranks):
+            z = tt_project_batched(view.reshape(l, -1), shapes, ranks,
+                                   iters=max(8, n_iter)).reshape(view.shape)
+            return z if g.kind == "tt_linear" else z.permute(0, 1, 4, 2, 3)
+    if ts.device.type != "cpu":
+        raise ValueError(
+            f"the {g.kind} kernel's gate refuses the bucket "
+            f"{len(g.names)} x {list(g.param_shape)} ({g.names[0]}, ...); "
+            "choose another --admm-method")
+    return None
 
 
 def _finite_or_prev(z: torch.Tensor, z_prev: torch.Tensor) -> torch.Tensor:
@@ -159,7 +177,7 @@ def admm_update(params: Mapping[str, torch.Tensor], state: AdmmState,
         zs_prev = torch.stack([state.z[n] for n in g.names])
         x = ws + us
         zs = _project_group_kernel(g, x, n_iter) if method == "kernel" else None
-        if zs is None:
+        if zs is None:  # another method, or a CPU bucket the gate refuses
             eff = "subspace" if method == "kernel" else method
             zs = torch.stack([_project_one(g, t, method=eff, n_iter=n_iter)
                               for t in x])

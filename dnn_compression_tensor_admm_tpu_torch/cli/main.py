@@ -1,5 +1,6 @@
 """Command line: the JAX package's `cli/main.py` surface for the port's
-slices (ResNet32, Tucker-2 and Tensor-Train, synthetic CIFAR geometry).
+slices (ResNet32 with Tucker-2 or Tensor-Train on synthetic CIFAR
+geometry; DeiT-tiny with Tensor-Train on synthetic ImageNet geometry).
 
 Pipeline modes:
   (default)     train (dense baseline, or ADMM with --admm)
@@ -22,13 +23,17 @@ import time
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Tensor-decomposition ADMM compression (PyTorch/CUDA)")
-    p.add_argument("--model", default="resnet32", type=str)
+    p.add_argument("--model", default="resnet32", type=str,
+                   help="resnet32 | tkc_resnet32 | ttm_resnet32 | "
+                        "deit_tiny_patch16_224 | ttm_deit_tiny_patch16_224")
     p.add_argument("--dataset", default="synthetic-cifar10", type=str,
-                   help="synthetic-cifar10 | synthetic-hard-cifar10")
+                   help="synthetic-cifar10 | synthetic-hard-cifar10 | "
+                        "synthetic-imagenet")
     p.add_argument("--batch-size", default=256, type=int)
     p.add_argument("--epochs", default=200, type=int)
     p.add_argument("--steps-per-epoch", default=None, type=int)
     p.add_argument("--synthetic-size", default=None, type=int)
+    p.add_argument("--opt", default="momentum", choices=["momentum", "adamw"])
     p.add_argument("--lr", default=0.1, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--weight-decay", default=1e-4, type=float)
@@ -118,7 +123,8 @@ def main(argv=None):
 
     cfg = TrainConfig(
         model=args.model, dataset=args.dataset, batch_size=args.batch_size,
-        epochs=args.epochs, steps_per_epoch=args.steps_per_epoch, lr=args.lr,
+        epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
+        opt=args.opt, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
         min_lr=args.min_lr, smoothing=args.smoothing, admm=args.admm,
         rho=args.rho, fmt=args.fmt, ratio=args.ratio, tt_type=args.tt_type,

@@ -1,5 +1,5 @@
 """Typed per-layer rank specifications (counterpart of the JAX package's
-`configs/hp.py`; `TTLinearSpec` waits for the ViT slice)."""
+`configs/hp.py`)."""
 
 from __future__ import annotations
 
@@ -52,14 +52,59 @@ class TTConvSpec:
         """Split at the first prefix of the shapes whose product is
         `out_channels`, and clamp the ranks."""
         shapes = tuple(tt_shapes)
-        channels = 1
-        for i, s in enumerate(shapes):
-            channels *= s
-            if channels == out_channels:
-                ranks = tuple(clamp_tt_ranks(shapes, tt_ranks))
-                return TTConvSpec(shapes, ranks, i + 1)
-        raise ValueError(f"tt_shapes {shapes} have no prefix with product "
-                         f"{out_channels}")
+        return TTConvSpec(shapes, tuple(clamp_tt_ranks(shapes, tt_ranks)),
+                          _out_order(shapes, out_channels))
+
+
+def _out_order(shapes: Tuple[int, ...], out_features: int) -> int:
+    """Length of the first prefix of the shapes whose product is
+    `out_features`."""
+    channels = 1
+    for i, s in enumerate(shapes):
+        channels *= s
+        if channels == out_features:
+            return i + 1
+    raise ValueError(f"tt_shapes {shapes} have no prefix with product "
+                     f"{out_features}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TTLinearSpec:
+    """TT factorization of a linear weight [out_features, in_features],
+    tensorized as ``[out_shapes..., in_shapes...]``. Ranks are clamped
+    when the spec is created."""
+    tt_shapes: Tuple[int, ...]
+    tt_ranks: Tuple[int, ...]
+    out_order: int  # number of leading shapes that multiply to out_features
+
+    @property
+    def out_shapes(self) -> Tuple[int, ...]:
+        return self.tt_shapes[:self.out_order]
+
+    @property
+    def in_shapes(self) -> Tuple[int, ...]:
+        return self.tt_shapes[self.out_order:]
+
+    @property
+    def out_features(self) -> int:
+        return math.prod(self.out_shapes)
+
+    @property
+    def in_features(self) -> int:
+        return math.prod(self.in_shapes)
+
+    @property
+    def mid_rank(self) -> int:
+        """The TT rank at the out/in boundary: the bottleneck width."""
+        return self.tt_ranks[self.out_order]
+
+    @staticmethod
+    def create(tt_shapes, tt_ranks, out_features: int) -> "TTLinearSpec":
+        """Split at the first prefix of the shapes whose product is
+        `out_features`, and clamp the ranks."""
+        shapes = tuple(tt_shapes)
+        return TTLinearSpec(shapes, tuple(clamp_tt_ranks(shapes, tt_ranks)),
+                            _out_order(shapes, out_features))
 
 
 @dataclasses.dataclass(frozen=True)

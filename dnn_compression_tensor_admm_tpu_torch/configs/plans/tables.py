@@ -1,10 +1,10 @@
 """Build RankPlans from the reference rank tables.
 
-`reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries and
-the ResNet32 Tensor-Train 3x entry of the JAX package's
-`configs/plans/reference_hp.json`. TK entries are ``[out_rank, in_rank]``,
-TT entries a TT rank list beside their ``tt_shapes``; a rank list of
-length 1 means plain SVD.
+`reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries, the
+ResNet32 Tensor-Train 3x entry and the DeiT-tiny Tensor-Train 2x entry of
+the JAX package's `configs/plans/reference_hp.json`. TK entries are
+``[out_rank, in_rank]``, TT entries a TT rank list beside their
+``tt_shapes``; a rank list of length 1 means plain SVD.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import json
 import os
 from typing import Callable
 
-from ..hp import RankPlan, SVDSpec, TKSpec, TTConvSpec
+from ..hp import RankPlan, SVDSpec, TKSpec, TTConvSpec, TTLinearSpec
 
 _JSON = os.path.join(os.path.dirname(__file__), "reference_hp.json")
 
@@ -46,16 +46,29 @@ def build_tk_plan(model: str, ratio: str) -> RankPlan:
     return RankPlan("tk", layers)
 
 
-def build_tt_conv_plan(model: str, ratio: str, tt_type: str,
-                       out_channels_fn: Callable[[str], int]) -> RankPlan:
-    """TT plan of a conv network; `out_channels_fn(name)` gives a layer's
-    output channels, which fix where its shapes split."""
+def _build_tt_plan(spec_cls, model: str, ratio: str, tt_type: str,
+                   out_fn: Callable[[str], int]) -> RankPlan:
     e = table_entry("tt", model, ratio, tt_type)
     layers = {}
     for name, r in e["ranks"].items():
         if isinstance(r, int) or len(r) == 1:
             layers[name] = SVDSpec(r if isinstance(r, int) else r[0])
         else:
-            layers[name] = TTConvSpec.create(tuple(e["tt_shapes"][name]),
-                                             tuple(r), out_channels_fn(name))
+            layers[name] = spec_cls.create(tuple(e["tt_shapes"][name]),
+                                           tuple(r), out_fn(name))
     return RankPlan("tt", layers)
+
+
+def build_tt_conv_plan(model: str, ratio: str, tt_type: str,
+                       out_channels_fn: Callable[[str], int]) -> RankPlan:
+    """TT plan of a conv network; `out_channels_fn(name)` gives a layer's
+    output channels, which fix where its shapes split."""
+    return _build_tt_plan(TTConvSpec, model, ratio, tt_type, out_channels_fn)
+
+
+def build_tt_linear_plan(model: str, ratio: str, tt_type: str,
+                         out_features_fn: Callable[[str], int]) -> RankPlan:
+    """TT plan of a transformer's linears; `out_features_fn(name)` gives a
+    layer's output features, which fix where its shapes split."""
+    return _build_tt_plan(TTLinearSpec, model, ratio, tt_type,
+                          out_features_fn)

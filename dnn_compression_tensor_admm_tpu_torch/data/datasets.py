@@ -2,8 +2,11 @@
 (counterpart of the JAX package's `data/datasets.py`; its CIFAR and
 MNIST file readers wait for a later slice).
 
-The synthetic generator is the JAX package's numpy code, so both
-packages see the same bytes for the same name and size.
+The synthetic generator is the JAX package's numpy arithmetic, so both
+packages see the same bytes for the same name and size. It renders only
+the prototypes the labels use and fills the images in chunks: at
+ImageNet geometry the JAX code stacks all 1000 float64 prototypes
+(1.2 GB) and a float64 copy of the whole set.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import numpy as np
 
 CIFAR10_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR10_STD = (0.2470, 0.2435, 0.2616)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +33,8 @@ class DatasetInfo:
 
 _INFO = {
     "cifar10": DatasetInfo("cifar10", 10, 32, CIFAR10_MEAN, CIFAR10_STD),
+    "imagenet": DatasetInfo("imagenet", 1000, 224, IMAGENET_MEAN,
+                            IMAGENET_STD),
 }
 
 
@@ -55,26 +62,39 @@ def _synthetic(info: DatasetInfo, train: bool, n: Optional[int] = None,
     s = info.input_size
     c = len(info.mean)
     yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / s
-    protos = []
     prng = np.random.RandomState(1234)
-    for k in range(info.num_classes):
+    freqs = []
+    for _ in range(info.num_classes):  # every class's draws, in order
         f = prng.uniform(1, 4, size=(2, c))
         ph = prng.uniform(0, 2 * np.pi, size=(2, c))
-        img = 0.5 + 0.25 * (np.sin(2 * np.pi * f[0] * yy[..., None] + ph[0]) +
-                            np.sin(2 * np.pi * f[1] * xx[..., None] + ph[1]))
-        protos.append(img)
-    protos = np.stack(protos)  # [K, s, s, c]
+        freqs.append((f, ph))
+
+    def proto(k):  # float64 [s, s, c]
+        f, ph = freqs[k]
+        return 0.5 + 0.25 * (np.sin(2 * np.pi * f[0] * yy[..., None] + ph[0]) +
+                             np.sin(2 * np.pi * f[1] * xx[..., None] + ph[1]))
+
+    render = y
     if hard:
         k = info.num_classes
         render = y.copy()
         flip = rng.rand(n) < 0.15
         render[flip] = rng.randint(0, k, size=int(flip.sum()))
         amp = rng.uniform(0.6, 1.4, size=(n, 1, 1, 1)).astype(np.float32)
-        x = 0.5 + amp * (protos[render] - 0.5)
-        x = x + rng.normal(0, 0.3, size=(n, s, s, c)).astype(np.float32)
+        noise = rng.normal(0, 0.3, size=(n, s, s, c)).astype(np.float32)
     else:
-        x = protos[y] + rng.normal(0, 0.15, size=(n, s, s, c)).astype(np.float32)
-    return (np.clip(x, 0, 1) * 255).astype(np.uint8), y
+        noise = rng.normal(0, 0.15, size=(n, s, s, c)).astype(np.float32)
+    used = np.unique(render)
+    table = np.stack([proto(k) for k in used])
+    idx = np.searchsorted(used, render)
+    x = np.empty((n, s, s, c), np.uint8)
+    for i in range(0, n, 64):  # the same float64 arithmetic, chunk by chunk
+        j = slice(i, i + 64)
+        p = table[idx[j]]
+        if hard:
+            p = 0.5 + amp[j] * (p - 0.5)
+        x[j] = (np.clip(p + noise[j], 0, 1) * 255).astype(np.uint8)
+    return x, y
 
 
 def load_dataset(name: str, train: bool, synthetic_size: Optional[int] = None):

@@ -1,5 +1,6 @@
 from .common import canonical_param_name, pair
 from .tk_conv import TKConv2d
 from .tt_conv import TTConv2d
+from .tt_linear import TTLinear
 
-__all__ = ["TKConv2d", "TTConv2d", "canonical_param_name", "pair"]
+__all__ = ["TKConv2d", "TTConv2d", "TTLinear", "canonical_param_name", "pair"]

@@ -12,8 +12,8 @@ from typing import Dict
 import torch
 from torch import nn
 
-from ..configs.hp import RankPlan, TKSpec, TTConvSpec
-from ..layers import TKConv2d, TTConv2d
+from ..configs.hp import RankPlan, TKSpec, TTConvSpec, TTLinearSpec
+from ..layers import TKConv2d, TTConv2d, TTLinear
 from ..ops.precision import full_f32
 
 
@@ -32,6 +32,10 @@ def decompose_params(state_dict: Dict[str, torch.Tensor], plan: RankPlan, *,
         with torch.no_grad():
             if isinstance(spec, TTConvSpec) and w.dim() == 4:
                 factors = TTConv2d.factorize_dense(w.float(), spec,
+                                                   method=method)
+            elif isinstance(spec, TTLinearSpec) and w.dim() == 2:
+                # a Linear's weight is [out, in] already, the TT view
+                factors = TTLinear.factorize_dense(w.float(), spec,
                                                    method=method)
             elif isinstance(spec, TKSpec) and w.dim() == 4:
                 factors = TKConv2d.factorize_dense(w.float(), spec,

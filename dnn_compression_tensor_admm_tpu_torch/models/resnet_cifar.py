@@ -43,7 +43,10 @@ class BasicBlock(nn.Module):
         self.bn2 = _bn(planes)
         self.pad = planes // 4 if (stride != 1 or in_planes != planes) else 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` is taken for a common signature and not used: the
+        network draws nothing at random."""
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         sc = x
@@ -75,7 +78,10 @@ class ResNetCifar(nn.Module):
         kaiming_(self.linear.weight, generator)
         nn.init.zeros_(self.linear.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` is taken for a common signature and not used: the
+        network draws nothing at random."""
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.layer3(self.layer2(self.layer1(y)))
         y = y.mean(dim=(2, 3))

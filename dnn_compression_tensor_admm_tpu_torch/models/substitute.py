@@ -1,5 +1,5 @@
-"""Layer substitution: a dense conv, or the factorized layer a RankPlan
-prescribes for its canonical parameter name."""
+"""Layer substitution: a dense conv or linear, or the factorized layer a
+RankPlan prescribes for its canonical parameter name."""
 
 from __future__ import annotations
 
@@ -8,8 +8,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..configs.hp import RankPlan, TKSpec, TTConvSpec
-from ..layers import TKConv2d, TTConv2d
+from ..configs.hp import RankPlan, TKSpec, TTConvSpec, TTLinearSpec
+from ..layers import TKConv2d, TTConv2d, TTLinear
 
 
 def kaiming_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -44,3 +44,23 @@ def make_conv(in_ch: int, out_ch: int, kernel_size: int, *, stride=1,
                         generator=generator)
     raise NotImplementedError(
         f"{type(spec).__name__} layers are not ported yet ({key})")
+
+
+def make_linear(in_f: int, out_f: int, *, plan: Optional[RankPlan], mode: str,
+                key: str, bias: bool = True,
+                generator: Optional[torch.Generator] = None) -> nn.Module:
+    """A dense linear (He-normal on fan-in, zero bias), or the TT linear
+    the plan prescribes for `key` ('blocks.0.attn.qkv.weight')."""
+    spec = plan.spec(key) if plan is not None else None
+    if spec is None:
+        linear = nn.Linear(in_f, out_f, bias=bias)
+        kaiming_(linear.weight, generator)
+        if bias:
+            nn.init.zeros_(linear.bias)
+        return linear
+    if isinstance(spec, TTLinearSpec):
+        tt_mode = "reconstruct" if mode == "reconstruct" else "factorized"
+        return TTLinear(in_f, out_f, spec, bias=bias, mode=tt_mode,
+                        generator=generator)
+    raise NotImplementedError(
+        f"{type(spec).__name__} linears are not ported yet ({key})")

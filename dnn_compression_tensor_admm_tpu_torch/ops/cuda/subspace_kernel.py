@@ -9,7 +9,10 @@ one in the tall case; the CUDA source `csrc/subspace.cu` says how.
 
 `dominant_left_subspace_batched` launches the CUDA kernel for a CUDA
 tensor and runs `dominant_left_subspace_plain`, the same iteration in
-batched torch matmuls, for a CPU tensor. `tt_project_batched` is the
+batched torch matmuls, for a CPU tensor. A shape whose plan fits one
+block's shared memory takes the block plan; any other takes the
+workspace plan, which keeps what does not fit in a per-layer slab of
+device memory that `launch` allocates. `tt_project_batched` is the
 batched TT-SVD sweep built on it.
 """
 
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -57,25 +60,91 @@ def _plan(rows: int, cols: int, r: int):
 
 
 def smem_bytes(rows: int, cols: int, r: int) -> int:
-    """Bytes of one block's shared-memory plan (`subspace_smem_bytes`)."""
+    """Bytes of one block's shared-memory plan (`subspace_smem_bytes`);
+    more than a block may have where the shape takes the workspace plan."""
     return 4 * _plan(rows, cols, r)[0]
 
 
 def padded_plan(rows: int, cols: int, r: int) -> bool:
-    """True if the launch takes the padded plan (float4 products); shapes
-    near a block's limit take the unpadded one (scalar products)."""
+    """True if the launch takes the padded block plan (float4 products);
+    shapes near a block's limit take the unpadded one (scalar products)."""
     return _plan(rows, cols, r)[1]
 
 
+def block_plan_fits(rows: int, cols: int, r: int) -> bool:
+    """True if the shape takes a block plan, False if the workspace plan."""
+    return smem_bytes(rows, cols, r) <= MAX_SMEM_BYTES
+
+
+# regions of the workspace plan, in the order they are taken into shared
+# memory (`make_ws_plan`)
+WS_REGIONS = ("ns", "g", "q", "y")
+
+
+class WsPlan(NamedTuple):
+    smem_floats: int   # shared memory, the Gram's chunk buffers included
+    ws_floats: int     # device memory per layer
+    in_ws: Tuple[str, ...]  # regions in the workspace
+    stage: int         # floats of each Gram chunk buffer
+    mp: int
+
+
+def ws_plan(rows: int, cols: int, r: int) -> WsPlan:
+    """The workspace plan of a [rows, cols] slice at rank r, as
+    `make_ws_plan` in the CUDA source: the padded layout, its regions (the
+    five Newton-Schulz matrices, the Gram, the iterate, Y) taken into
+    shared memory in that order while they fit, the rest in the
+    workspace; a shared Gram leaves room for two chunks of 16."""
+    mp, rp, yp = _up4(min(rows, cols)), _up4(r), _up4(rows)
+    sizes = {"ns": 5 * rp * rp, "g": mp * mp, "q": mp * rp, "y": yp * rp}
+    cap = MAX_SMEM_BYTES // 4
+    smem, in_ws = 0, []
+    for name in WS_REGIONS:
+        size = sizes[name]
+        if smem + size <= cap and (name != "g"
+                                   or size + 2 * (mp + 4) * 16 <= cap):
+            smem += size
+        else:
+            in_ws.append(name)
+    g_smem = 0 if "g" in in_ws else sizes["g"]
+    total = max(smem, min(g_smem + 2 * (mp + 4) * STAGE_LEN, cap))
+    return WsPlan(total, sum(sizes[n] for n in in_ws), tuple(in_ws),
+                  ((total - g_smem) // 2) & ~3, mp)
+
+
+def plan_name(rows: int, cols: int, r: int) -> str:
+    """'padded' or 'unpadded' (block plans) or 'workspace'."""
+    if not block_plan_fits(rows, cols, r):
+        return "workspace"
+    return "padded" if padded_plan(rows, cols, r) else "unpadded"
+
+
+# The CUDA source indexes within a layer, and sizes and places its plans'
+# regions, in 32-bit int.
+INT_MAX = 2 ** 31 - 1
+
+
 def subspace_supported(shape, r: int) -> bool:
-    """True if a [L, rows, cols] stack at rank r fits the kernel's
-    shared-memory plan (the role of the JAX package's
-    `pallas_subspace_supported`)."""
+    """True if the kernel takes a [L, rows, cols] stack at rank r (the
+    role of the JAX package's `pallas_subspace_supported`): a block plan
+    fits, or the workspace plan's Gram chunks hold at least one row of
+    t's long side (min(rows, cols) up to about 29,000). A shape whose
+    layer (rows x cols) or padded plan (all four regions, which bounds
+    every offset and the per-layer workspace) passes 2**31 - 1 floats is
+    refused, since the kernel's int arithmetic would overflow."""
     if len(shape) != 3:
         return False
     _, rows, cols = shape
     r = min(r, rows, cols)
-    return r >= 1 and smem_bytes(rows, cols, r) <= MAX_SMEM_BYTES
+    if r < 1:
+        return False
+    mp, rp, yp = _up4(min(rows, cols)), _up4(r), _up4(rows)
+    if max(rows * cols, mp * mp + mp * rp + yp * rp + 5 * rp * rp) > INT_MAX:
+        return False
+    if block_plan_fits(rows, cols, r):
+        return True
+    p = ws_plan(rows, cols, r)
+    return p.stage >= p.mp + 4
 
 
 def sweep_steps(tt_shapes: Sequence[int], tt_ranks: Sequence[int]):
@@ -142,6 +211,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.subspace_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.subspace_smem_bytes.restype = ctypes.c_int
+    fn = lib.subspace_ws_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    for name in ("subspace_ws_smem_bytes", "subspace_ws_floats"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 3
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -153,13 +229,24 @@ def launch(lib: ctypes.CDLL, t: torch.Tensor, r: int, *,
            iters: int) -> torch.Tensor:
     """One launch of `lib`'s kernel on t's device and current stream:
     t [L, rows, cols] float32, contiguous, on a CUDA card -> q [L, rows, r];
-    the caller has checked the shape and clamped r."""
-    l, rows, _ = t.shape
+    the caller has checked the shape and clamped r. A shape whose block
+    plan does not fit takes the workspace plan, with its slab allocated
+    here."""
+    l, rows, cols = t.shape
     q = torch.empty((l, rows, r), dtype=torch.float32, device=t.device)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
-        err = lib.subspace_launch(t.data_ptr(), q.data_ptr(), l, rows,
-                                  t.shape[2], r, iters, stream)
+        if block_plan_fits(rows, cols, r):
+            err = lib.subspace_launch(t.data_ptr(), q.data_ptr(), l, rows,
+                                      cols, r, iters, stream)
+        else:
+            # torch's allocations are 512-byte aligned, and every slab is a
+            # multiple of 4 floats
+            ws = torch.empty(l * ws_plan(rows, cols, r).ws_floats,
+                             dtype=torch.float32, device=t.device)
+            err = lib.subspace_ws_launch(t.data_ptr(), q.data_ptr(),
+                                         ws.data_ptr(), l, rows, cols, r,
+                                         iters, stream)
     if err != 0:
         raise RuntimeError(f"subspace kernel launch failed: CUDA error {err}")
     return q
@@ -190,7 +277,7 @@ def dominant_left_subspace_batched(t: torch.Tensor, r: int, *,
         raise ValueError(f"unsupported device {t.device}")
     if not subspace_supported(t.shape, r):
         raise ValueError(f"stack {tuple(t.shape)} at rank {r} exceeds the "
-                         "kernel's shared-memory plan")
+                         "kernel's shared-memory plans")
     q = launch(_library(), t, r, iters=iters)
     dominant_left_subspace_batched.launches += 1
     return q

@@ -6,6 +6,8 @@ One ADMM epoch is the Z/U step (`admm_update`) followed by
 from the device-resident dataset: an epoch permutation drawn on the
 device, a contiguous slice of it per step, then crop, flip and
 normalise on the device. The host reads back a few scalars per epoch.
+Every model's forward takes that device generator; a ViT draws its drop
+path from it, a ResNet ignores it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class TrainConfig:
     batch_size: int = 256
     epochs: int = 200
     steps_per_epoch: Optional[int] = None  # default: len(train) // batch
+    opt: str = "momentum"  # momentum | adamw
     lr: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 1e-4
@@ -149,8 +152,8 @@ def train_model(cfg: TrainConfig, *,
     images = torch.from_numpy(x_tr).to(device)
     labels = torch.from_numpy(y_tr).long().to(device)
     steps = cfg.steps_per_epoch or max(1, len(x_tr) // cfg.batch_size)
-    opt = make_optimizer(model.parameters(), cfg.lr, momentum=cfg.momentum,
-                         weight_decay=cfg.weight_decay)
+    opt = make_optimizer(model.parameters(), cfg.lr, opt=cfg.opt,
+                         momentum=cfg.momentum, weight_decay=cfg.weight_decay)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
 
     program = admm = None
@@ -191,7 +194,7 @@ def train_model(cfg: TrainConfig, *,
                 group["lr"] = cosine_lr(step, cfg.lr, cfg.epochs * steps,
                                         cfg.min_lr)
             with _autocast(device, cfg.compute_dtype):
-                logits = model(x)
+                logits = model(x, generator=gen)
             loss = cross_entropy(logits, yb, cfg.smoothing)
             if program is not None:
                 loss = loss + admm_penalty(params, admm, program, cfg.rho)

@@ -12,10 +12,14 @@ The JAX variables are given as nested dicts of numpy arrays
   keep their layout;
 * TT ``core_kernel`` (the middle core as a conv kernel, [r_outL, r_in0]
   as O and I) HWIO <-> OIHW by the same rule; ``out_core_i`` and
-  ``in_core_i`` ([r_i, n_i, r_{i+1}]) keep their layout.
+  ``in_core_i`` ([r_i, n_i, r_{i+1}]) keep their layout;
+* ViT: LayerNorm ``scale`` <-> ``weight``; the patch embedding's conv
+  kernel HWIO <-> OIHW with its bias; ``cls_token``, ``pos_embed`` and a
+  TT linear's ``core_i`` keep their layout.
 
-Flax module names may hold a dot ('layer1.0'); on the way back a purely
-numeric name part is joined to the part before it.
+Flax module names may hold a dot ('layer1.0', 'patch_embed.proj',
+'mlp.fc1'); on the way back a purely numeric name part is joined to the
+part before it, and the ViT's dotted module names are joined whole.
 """
 
 from __future__ import annotations
@@ -56,10 +60,14 @@ def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     return out
 
 
+# flax module names of the ViT that hold a dot without a number
+_DOTTED = ("patch_embed.proj", "mlp.fc1", "mlp.fc2")
+
+
 def _jax_path(name: str):
     parts = []
     for p in name.split("."):
-        if p.isdigit() and parts:
+        if parts and (p.isdigit() or f"{parts[-1]}.{p}" in _DOTTED):
             parts[-1] = f"{parts[-1]}.{p}"
         else:
             parts.append(p)

@@ -106,6 +106,22 @@ extern "C" int emu_run(const float* t, float* q, int l, int rows, int cols,
     subspace_kernel(t, q, rows, cols, r, iters);
   });
 }
+extern "C" int emu_run_ws(const float* t, float* q, float* ws, int l,
+                          int rows, int cols, int r, int iters, int late) {
+  emu_late = late;
+  blockDim.x = kThreads;
+  return emu_launch(l, make_ws_plan(rows, cols, r).total, [&] {
+    subspace_ws_kernel(t, q, ws, rows, cols, r, iters);
+  });
+}
+extern "C" int emu_ws_plan(int rows, int cols, int r, int* out) {
+  const WsPlan p = make_ws_plan(rows, cols, r);
+  out[0] = p.total;
+  out[1] = p.ws;
+  out[2] = static_cast<int>(p.in_ws);
+  out[3] = p.stage;
+  return 0;
+}
 """,
     "tucker2_factors": r"""
 extern "C" int emu_run(const float* x, float* u0, float* u1, int l, int k,
@@ -160,6 +176,9 @@ def libs(tmp_path_factory):
                        capture_output=True, stdin=subprocess.DEVNULL)
         out[name] = ctypes.CDLL(str(so))
     out["subspace"].emu_run.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+    out["subspace"].emu_run_ws.argtypes = ([ctypes.c_void_p] * 3
+                                           + [ctypes.c_int] * 6)
+    out["subspace"].emu_ws_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     out["tucker2_factors"].emu_run.argtypes = ([ctypes.c_void_p] * 3
                                                + [ctypes.c_int] * 8)
     return out
@@ -200,6 +219,49 @@ def test_subspace_source_matches_plain(libs, L, rows, cols, r, late):
                                             iters=iters).numpy()
         # the same float32 iteration, summed in the same order; only
         # rsqrtf differs (exact here, approximate on the card)
+        assert np.abs(q - p).max() < 1e-5
+        zq = q @ (q.transpose(0, 2, 1) @ t)
+        zp = p @ (p.transpose(0, 2, 1) @ t)
+        assert np.linalg.norm(zq - zp) / np.linalg.norm(zp) < 1e-5
+
+
+GUARD = 1024  # floats behind the workspace, filled with a sentinel
+
+
+@pytest.mark.parametrize("late", [0, 1])
+@pytest.mark.parametrize("L,rows,cols,r,in_ws", [
+    (1, 144, 192, 96, "g q y"),    # DeiT wide r = 96: Newton-Schulz shared
+    (1, 720, 192, 96, "g q y"),    # DeiT tall r = 96: lift from L2
+    (2, 2304, 32, 30, "y"),        # DeiT 2304 x 32: Y in the workspace
+    (1, 3600, 64, 16, "y"),        # tall, Gram shared: lift staged through it
+    (1, 300, 320, 106, "ns g y"),  # r > 104: the Newton-Schulz matrices too
+])
+def test_subspace_workspace_plan_matches_plain(libs, L, rows, cols, r, in_ws,
+                                               late):
+    assert not sk.block_plan_fits(rows, cols, r)
+    assert sk.subspace_supported((L, rows, cols), r)
+    plan = sk.ws_plan(rows, cols, r)
+    assert plan.in_ws == tuple(in_ws.split())
+    got = np.zeros(4, np.int32)
+    libs["subspace"].emu_ws_plan(rows, cols, r, got.ctypes.data)
+    bits = {"ns": 1, "g": 2, "q": 4, "y": 8}
+    assert list(got) == [plan.smem_floats, plan.ws_floats,
+                         sum(bits[n] for n in plan.in_ws), plan.stage]
+    t = (np.random.RandomState(rows + cols).standard_normal((L, rows, cols))
+         / np.sqrt(cols)).astype(np.float32)
+    ws = np.full(L * plan.ws_floats + GUARD, np.nan, np.float32)
+    ws[-GUARD:] = 12345.0
+    assert ws.ctypes.data % 16 == 0
+    for iters in (8, 0):
+        q = np.full((L, rows, r), np.nan, np.float32)
+        err = libs["subspace"].emu_run_ws(t.ctypes.data, q.ctypes.data,
+                                          ws.ctypes.data, L, rows, cols, r,
+                                          iters, late)
+        assert err == 0, f"emulation fault {err}"
+        assert (ws[-GUARD:] == 12345.0).all(), "written past the workspace"
+        p = sk.dominant_left_subspace_plain(torch.from_numpy(t), r,
+                                            iters=iters).numpy()
+        # as the block plans: the same iteration summed in the same order
         assert np.abs(q - p).max() < 1e-5
         zq = q @ (q.transpose(0, 2, 1) @ t)
         zp = p @ (p.transpose(0, 2, 1) @ t)

@@ -117,7 +117,11 @@ def test_shared_memory_gates_on_main_path_launches():
     assert max(got) == 4 * (64 * 64 + 64 * 32 + 264 * 32 + 5 * 32 * 32) == 78848
     assert sum(b > 48 * 1024 for b in got) == 12  # the launcher opts in
     assert all(sk.subspace_supported(s, r) for s, r in MAIN_PATH_LAUNCHES)
-    assert not sk.subspace_supported((1, 720, 512), 128)  # Gram 1 MiB
+    # a Gram of 1 MiB fits no block: the workspace plan takes it
+    assert not sk.block_plan_fits(720, 512, 128)
+    assert sk.subspace_supported((1, 720, 512), 128)
+    # the workspace plan's Gram chunks hold one row of at most ~29,000
+    assert not sk.subspace_supported((1, 30_000, 30_000), 8)
     assert not sk.subspace_supported((4, 64, 8, 8), 4)    # not [L, rows, cols]
     assert not sk.tt_supported(2, 100, [4, 5, 6], [1, 4, 4, 1])  # numel
     assert sk.tt_supported(9, 32 * 32 * 9, [8, 4, 9, 4, 8],
@@ -145,6 +149,7 @@ def _unpadded_plan_fits(rows, cols, r):
 def test_gate_accepts_exactly_the_shapes_the_unpadded_plan_fits(rows):
     # the padded plan and the Gram's chunks may grow a block's shared memory,
     # but only where it has room: no shape the unpadded plan fits is refused
+    # a block plan; every other shape takes the workspace plan
     for cols in [*range(4, 1025, 3), 1024]:
         m = min(rows, cols)
         top = min(m, rows - 1)  # r < rows (r == rows does not launch)
@@ -156,8 +161,8 @@ def test_gate_accepts_exactly_the_shapes_the_unpadded_plan_fits(rows):
                  *range(edge - 1, edge + 3), top}
         for r in sorted(x for x in ranks if 1 <= x <= top):
             fits = _unpadded_plan_fits(rows, cols, r)
-            assert sk.subspace_supported((1, rows, cols), r) == fits, \
-                (rows, cols, r)
+            assert sk.block_plan_fits(rows, cols, r) == fits, (rows, cols, r)
+            assert sk.subspace_supported((1, rows, cols), r), (rows, cols, r)
 
 
 def test_main_path_launch_list_and_bound():

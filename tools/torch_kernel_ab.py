@@ -9,11 +9,12 @@ that .gitignore lists) as the baseline:
         [--kernels subspace tucker2_factors] [-D NAME=VALUE ...]
 
 It builds `subspace.cu` and `tucker2_factors.cu` of both checkouts with
-nvcc (all processes at once) and, at the shapes of the main path
-(`chip_smoke.py`: the 24 subspace launches of a ResNet32-TT@3x Z-step and
-the 5 Tucker-2 buckets of ResNet32-TK@3x, inputs from --seed) and at
-chip_smoke.py's two near-cap Tucker-2 buckets, times baseline, this,
-this, baseline in device time (`chip_smoke.graph_ms`). The subspace
+nvcc (all processes at once) and, at the shapes of the main paths
+(`chip_smoke.py`: the 24 subspace launches of a ResNet32-TT@3x Z-step,
+the 33 of a DeiT-tiny-TT@2x Z-step where the baseline has the workspace
+plan, and the 5 Tucker-2 buckets of ResNet32-TK@3x, inputs from --seed)
+and at chip_smoke.py's two near-cap Tucker-2 buckets, times baseline,
+this, this, baseline in device time (`chip_smoke.graph_ms`). The subspace
 kernel is timed at the Z-step's iteration count and at iters=0 (the
 Gram, the identity start and the lift), the Tucker-2 kernel at the
 Z-step's sweeps and at sweeps=0 (the Grams of X and the HOSVD init). It
@@ -33,6 +34,7 @@ Needs a CUDA card; exits 1 without one.
 
 import argparse
 import concurrent.futures
+import ctypes
 import faulthandler
 import json
 import subprocess
@@ -49,7 +51,20 @@ from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.precision import full_f32  # noqa: E402
 
-BIND = {"subspace": sk.bind, "tucker2_factors": tk.bind}
+
+
+def bind_subspace(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`subspace_kernel.bind`, or for a baseline built before the workspace
+    plan (it has no `subspace_ws_*` symbols) the block plans' launch alone."""
+    if hasattr(lib, "subspace_ws_launch"):
+        return sk.bind(lib)
+    lib.subspace_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                                    + [ctypes.c_void_p])
+    lib.subspace_launch.restype = ctypes.c_int
+    return lib
+
+
+BIND = {"subspace": bind_subspace, "tucker2_factors": tk.bind}
 
 
 def main() -> int:
@@ -108,7 +123,13 @@ def main() -> int:
 
     rng = np.random.RandomState(args.seed)
     total = {}
-    for shape, r in cs.tt_launches() if "subspace" in args.kernels else ():
+    launches = []
+    if "subspace" in args.kernels:
+        launches = [("resnet32", s) for s in cs.tt_launches()]
+        if hasattr(libs["baseline", "subspace"], "subspace_ws_launch"):
+            launches += [("deit", s)
+                         for s in cs.tt_launches(cs.deit_program())]
+    for path, (shape, r) in launches:
         t = torch.from_numpy((rng.standard_normal(shape)
                               / np.sqrt(shape[2])).astype(np.float32)).cuda()
 
@@ -120,7 +141,8 @@ def main() -> int:
         with full_f32():
             proj = torch.linalg.matrix_norm(q @ q.mT - p @ p.mT).max().item()
             zq, zp = q @ (q.mT @ t), p @ (p.mT @ t)
-        row = {"kernel": "subspace", "shape": list(shape), "r": r,
+        row = {"kernel": "subspace", "path": path, "shape": list(shape),
+               "r": r, "plan": sk.plan_name(shape[1], shape[2], r),
                "projector_err": proj,
                "projected_rel_err": (torch.linalg.vector_norm(zq - zp)
                                      / torch.linalg.vector_norm(zp)).item(),
@@ -128,7 +150,7 @@ def main() -> int:
         for iters in (cs.TT_ITERS, 0):
             for side, ms in turns(lambda s: subspace(s, iters)).items():
                 row[f"{side}_ms_iters{iters}"] = ms
-                key = f"subspace {side} iters={iters}"
+                key = f"subspace {path} {side} iters={iters}"
                 total[key] = total.get(key, 0.0) + ms
         emit(row)
     buckets = [(b, True) for b in cs.main_path_buckets()]
