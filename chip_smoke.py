@@ -6,15 +6,19 @@ It imports the port, torch, numpy and the standard library only, and
 prints one JSON line per phase:
 
 1. device  — the card's name, count and power limit;
-2. build   — compiles both CUDA kernels from `csrc/` (two nvcc processes
-   at once) and checks each compiled shared-memory plan (and the
-   subspace kernel's workspace) against the Python gate at every
-   main-path and near-cap shape;
+2. build   — compiles the CUDA kernels from `csrc/` (the Tucker-2 block
+   plans, its workspace plan and the subspace kernel: three nvcc
+   processes at once) and checks each compiled shared-memory plan (and
+   each workspace) against the Python gate at every main-path, near-cap
+   and extra workspace shape;
 3. kernel  — each kernel at its main paths' shapes (inputs from --seed)
    against its plain PyTorch version on the card, with its time, the
    plain version's, a library yardstick's and the card's bound: the
-   Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x, each also
-   at sweeps=0 (`hosvd_ms`: the Grams of X and the HOSVD init), the
+   Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x and the 4 of
+   DeiT-tiny-TK@2x (all 4 in the workspace plan), each also at sweeps=0
+   (`hosvd_ms`: the Grams of X and the HOSVD init), and untimed at two
+   workspace-plan buckets of other plans (ResNet50 TK 3, DenseNet40 TK
+   2), the
    subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step and at
    the 33 of a DeiT-tiny-TT@2x Z-step (13 of them in the workspace
    plan), each also at iters=0 (`gram_ms`: the Gram, the identity start
@@ -23,9 +27,10 @@ prints one JSON line per phase:
    and the subspace kernel's unpadded plan; kernel times are device
    times (launches captured in a CUDA graph and replayed);
 4. main    — ResNet32 Tucker-2 @3x and ResNet32 Tensor-Train @3x, each at
-   full width and batch 256, then DeiT-tiny Tensor-Train @2x at full
-   width (embed 192, depth 12, 224 x 224, 1000 classes) and batch 128
-   with AdamW: ADMM (first projection + 2 epochs x 20 steps), decompose,
+   full width and batch 256, then DeiT-tiny Tensor-Train @2x and
+   DeiT-tiny Tucker-2 @2x, each at full width (embed 192, depth 12,
+   224 x 224, 1000 classes) and batch 128 with AdamW: ADMM (first
+   projection + 2 epochs x 20 steps), decompose,
    fine-tune 20 steps, eval and runtime, counting both kernels' launches
    (on the card the Z-step raises where a kernel's gate refuses a
    bucket, so every bucket goes through a kernel).
@@ -94,6 +99,14 @@ NEAR_CAP_LAUNCHES = [((2, 193, 197), 33), ((2, 197, 193), 33)]
 # memory: the streamed plan (X_k through chunk buffers, scalar products);
 # not on the main path, so outside its per-Z-step sums.
 NEAR_CAP_BUCKETS = [((2, 9, 144, 144), 40, 40), ((2, 9, 160, 96), 40, 30)]
+# Tucker-2 buckets of other plans that the Pallas gate takes and that take
+# the workspace plan: ResNet50 TK 3's largest (layer3's 3 x 3 convs) and
+# DenseNet40 TK 2's largest (a 3 x 3 conv of the last dense block); not
+# on a main path, so outside its per-Z-step sums.
+WS_EXTRA_BUCKETS = [((6, 9, 256, 256), 64, 64), ((1, 9, 16, 328), 8, 75)]
+# A DeiT-TK launch does 0.1 to 3 G FMA a layer on one SM, tens of ms:
+# fewer launches per graph keep its timing to seconds.
+DEIT_TK_GRAPH = {"launches": 5, "replays": 2}
 
 
 def emit(obj) -> None:
@@ -139,11 +152,12 @@ def _program(fmt: str, model: str = "resnet32", ratio: str = "3"):
                          get_rank_plan(model, fmt, ratio))
 
 
-def main_path_buckets():
-    """(shape [L, K, O, I], r0, r1) of every Z-step bucket of the TK path."""
+def main_path_buckets(program=None):
+    """(shape [L, K, O, I], r0, r1) of every Z-step bucket of a TK path
+    (ResNet32-TK@3x's unless another program is given; a linear as K = 1)."""
     out = []
-    for g in _program("tk").groups:
-        o, i, kh, kw = g.param_shape
+    for g in (program or _program("tk")).groups:
+        o, i, kh, kw = (*g.param_shape, 1, 1)[:4]
         sp = g.spec.clamped(g.param_shape)
         out.append(((len(g.names), kh * kw, o, i), sp.out_rank, sp.in_rank))
     return out
@@ -160,8 +174,8 @@ def tt_launches(program=None):
             if r != rows]
 
 
-def deit_program():
-    return _program("tt", "deit_tiny_patch16_224", "2")
+def deit_program(fmt: str = "tt"):
+    return _program(fmt, "deit_tiny_patch16_224", "2")
 
 
 def tucker_input(rng, shape):
@@ -191,7 +205,12 @@ def check_tucker(x, r0, r1):
     return max_abs, z_rel, [sub0, sub1]
 
 
-def phase_kernel(seed: int, buckets):
+def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
+                 extra_plan: str = "streamed", graph=None):
+    """The Tucker-2 kernel at every bucket of a TK path's Z-step, then
+    untimed at `extra`, which must take `extra_plan`; `graph` sets
+    graph_ms's launches and replays."""
+    graph = graph or {}
     rng = np.random.RandomState(seed)
     rows = []
     for shape, r0, r1 in buckets:
@@ -206,11 +225,12 @@ def phase_kernel(seed: int, buckets):
             torch.linalg.svd(unf1, full_matrices=False)
 
         kernel_ms = graph_ms(
-            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS))
+            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS),
+            **graph)
         # the same launch without the HOOI sweeps: the Grams of X and the
         # HOSVD init
         hosvd_ms = graph_ms(
-            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=0))
+            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=0), **graph)
         plain_ms = cuda_ms(
             lambda: tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS), 5, 1)
         library_ms = cuda_ms(library, 5, 1)
@@ -218,9 +238,8 @@ def phase_kernel(seed: int, buckets):
         nbytes = 4 * (l * k * o * i + l * o * r0 + l * i * r1)
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
         row = {"phase": "kernel", "name": "tucker2_factors_batched",
-               "shape_LKOI": list(shape), "ranks": [r0, r1],
-               "plan": "resident" if tk.resident_plan(k, o, i, r0, r1)
-               else "streamed",
+               "path": path, "shape_LKOI": list(shape), "ranks": [r0, r1],
+               "plan": tk.plan_name(k, o, i, r0, r1),
                "z_rel_err": z_rel, "z_rel_tol": Z_REL_TOL,
                "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
@@ -233,21 +252,23 @@ def phase_kernel(seed: int, buckets):
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         emit(row)
         rows.append(row)
-    for shape, r0, r1 in NEAR_CAP_BUCKETS:
+    for shape, r0, r1 in extra:
         _, k, o, i = shape
-        if (tk.resident_plan(k, o, i, r0, r1)
+        if (tk.plan_name(k, o, i, r0, r1) != extra_plan
                 or not tk.kernel_supported(shape, r0, r1)):
             raise AssertionError(f"{shape} {r0}/{r1} does not take the "
-                                 "streamed plan")
+                                 f"{extra_plan} plan")
         x = tucker_input(rng, shape)
         max_abs, z_rel, sub = check_tucker(x, r0, r1)
-        emit({"phase": "kernel", "name": "tucker2_factors_batched",
-              "plan": "streamed", "shape_LKOI": list(shape), "ranks": [r0, r1],
-              "z_rel_err": z_rel, "z_rel_tol": Z_REL_TOL,
-              "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
-              "max_abs_err": max_abs,
-              "kernel_ms": graph_ms(lambda: tk.tucker2_factors_batched(
-                  x, r0, r1, sweeps=SWEEPS))})
+        row = {"phase": "kernel", "name": "tucker2_factors_batched",
+               "plan": extra_plan, "shape_LKOI": list(shape),
+               "ranks": [r0, r1], "z_rel_err": z_rel, "z_rel_tol": Z_REL_TOL,
+               "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
+               "max_abs_err": max_abs}
+        if extra_plan == "streamed":
+            row["kernel_ms"] = graph_ms(lambda: tk.tucker2_factors_batched(
+                x, r0, r1, sweeps=SWEEPS))
+        emit(row)
     return rows
 
 
@@ -373,11 +394,15 @@ def check_projection_quality(model, name: str, fmt: str, ratio: str):
 
 # per main path: the dense and compressed models, the ratio (the JAX
 # package's, to 2 decimals), the training set-up (`bench.py`'s tk3x, tt3x
-# and deit_tt2, with the depth cut), the kernel the Z-step must launch and
-# the one it must not
+# and deit_tt2, with the depth cut; DeiT-tiny TK@2x as deit_tt2), the kernel
+# the Z-step must launch and the one it must not
 RESNET = dict(dense="resnet32", ratio_arg="3", dataset="synthetic-cifar10",
               synthetic_size=None, batch_size=256, opt="momentum", lr=0.1,
               input=(3, 32, 32), classes=10, full_rank_check=True)
+DEIT = dict(dense="deit_tiny_patch16_224", ratio_arg="2",
+            dataset="synthetic-imagenet", synthetic_size=512, batch_size=128,
+            opt="adamw", lr=5e-4, input=(3, 224, 224), classes=1000,
+            full_rank_check=False)
 PATHS = {
     "tk": {**RESNET, "name": "resnet32 tk@3x", "fmt": "tk",
            "model": "tkc_resnet32", "ratio": 2.83,
@@ -387,15 +412,14 @@ PATHS = {
            "model": "ttm_resnet32", "ratio": 2.78,
            "kernel": sk.dominant_left_subspace_batched,
            "other": tk.tucker2_factors_batched},
-    "deit": {"name": "deit_tiny_patch16_224 tt@2x", "fmt": "tt",
-             "dense": "deit_tiny_patch16_224",
-             "model": "ttm_deit_tiny_patch16_224", "ratio_arg": "2",
-             "ratio": 1.88, "dataset": "synthetic-imagenet",
-             "synthetic_size": 512, "batch_size": 128, "opt": "adamw",
-             "lr": 5e-4, "input": (3, 224, 224), "classes": 1000,
-             "full_rank_check": False,
+    "deit": {**DEIT, "name": "deit_tiny_patch16_224 tt@2x", "fmt": "tt",
+             "model": "ttm_deit_tiny_patch16_224", "ratio": 1.88,
              "kernel": sk.dominant_left_subspace_batched,
              "other": tk.tucker2_factors_batched},
+    "deit_tk": {**DEIT, "name": "deit_tiny_patch16_224 tk@2x", "fmt": "tk",
+                "model": "tkc_deit_tiny_patch16_224", "ratio": 1.17,
+                "kernel": tk.tucker2_factors_batched,
+                "other": sk.dominant_left_subspace_batched},
 }
 # the depth of every main path: bench.py runs 24 epochs of 196 (ResNet) or
 # 128 (DeiT) steps and the JAX package's fine-tune as many again
@@ -543,21 +567,39 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # nvcc x 2 at once
-        infos = dict(zip(("tucker2_factors", "subspace"),
-                         pool.map(build.build, ("tucker2_factors", "subspace"))))
+    libraries = ("tucker2_factors", "tucker2_factors_ws", "subspace")
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # nvcc x 3 at once
+        infos = dict(zip(libraries, pool.map(build.build, libraries)))
     build_wall_s = time.perf_counter() - t0
-    tk_lib, sk_lib = tk._library(), sk._library()
+    tk_lib, tk_ws_lib = tk._library(), tk._ws_library()
+    sk_lib = sk._library()
     buckets = main_path_buckets()
-    for shape, r0, r1 in [*buckets, *NEAR_CAP_BUCKETS]:
-        planned = tk_lib.tucker2_factors_smem_bytes(*shape[1:], r0, r1)
-        if planned != tk.smem_bytes(*shape[1:], r0, r1):
-            raise AssertionError(f"shared-memory plans differ at {shape}")
+    buckets_deit_tk = main_path_buckets(deit_program("tk"))
+    if len(buckets_deit_tk) != 4:
+        raise AssertionError(f"{len(buckets_deit_tk)} DeiT TK buckets, not 4")
+    tk_shapes = [*buckets, *NEAR_CAP_BUCKETS, *buckets_deit_tk,
+                 *WS_EXTRA_BUCKETS]
+    for shape, r0, r1 in tk_shapes:
+        dims = (*shape[1:], r0, r1)
+        if tk.block_plan_fits(*dims):
+            planned = (tk_lib.tucker2_factors_smem_bytes(*dims), 0)
+            want = (tk.smem_bytes(*dims), 0)
+        else:  # the workspace plan
+            planned = (tk_ws_lib.tucker2_factors_ws_smem_bytes(*dims),
+                       tk_ws_lib.tucker2_factors_ws_floats(*dims))
+            ws = tk.ws_plan(*dims)
+            want = (4 * ws.smem_floats, ws.ws_floats)
+        if planned != want:
+            raise AssertionError(f"Tucker-2 plans differ at {shape} "
+                                 f"{r0}/{r1}: {planned} != {want}")
         if not tk.kernel_supported(shape, r0, r1):
             raise AssertionError(f"Tucker-2 bucket {shape} fails the gate")
     for shape, r0, r1 in buckets:
         if not tk.resident_plan(*shape[1:], r0, r1):
             raise AssertionError(f"main-path bucket {shape} does not hold X")
+    for shape, r0, r1 in [*buckets_deit_tk, *WS_EXTRA_BUCKETS]:
+        if tk.block_plan_fits(*shape[1:], r0, r1):
+            raise AssertionError(f"{shape} {r0}/{r1} fits a block")
     launches_tt = tt_launches()
     program_deit = deit_program()
     launches_deit = tt_launches(program_deit)
@@ -578,6 +620,15 @@ def main() -> int:
         if not sk.subspace_supported((l, rows, cols), r):
             raise AssertionError(f"TT launch {[l, rows, cols]} fails the gate")
 
+    def tk_plan_row(shape, r0, r1):
+        dims = (*shape[1:], r0, r1)
+        if tk.block_plan_fits(*dims):
+            return [list(shape), r0, r1, tk.plan_name(*dims),
+                    tk.smem_bytes(*dims)]
+        ws = tk.ws_plan(*dims)
+        return [list(shape), r0, r1, "workspace", 4 * ws.smem_floats,
+                4 * ws.ws_floats * shape[0], list(ws.in_ws)]
+
     def plan_row(shape, r):
         _, rows, cols = shape
         if sk.block_plan_fits(rows, cols, r):
@@ -591,13 +642,17 @@ def main() -> int:
           "kernels": {name: {"build_seconds": i["seconds"],
                              "compiler_output": i["compiler_output"].splitlines()}
                       for name, i in infos.items()},
-          "tk_buckets": [[list(s), r0, r1, tk.smem_bytes(*s[1:], r0, r1)]
-                         for s, r0, r1 in [*buckets, *NEAR_CAP_BUCKETS]],
+          "tk_buckets_shape_r0_r1_plan_smem_bytes_ws_bytes": [
+              tk_plan_row(*b) for b in tk_shapes],
           "tt_launches": [plan_row(s, r) for s, r in launches_tt],
           "deit_launches_shape_r_plan_smem_bytes_ws_bytes": [
               plan_row(s, r) for s, r in launches_deit]})
 
-    rows_tk = phase_kernel(args.seed, buckets)
+    rows_tk = phase_kernel(args.seed, buckets, "resnet32 tk@3x")
+    rows_deit_tk = phase_kernel(args.seed, buckets_deit_tk,
+                                "deit_tiny_patch16_224 tk@2x",
+                                extra=WS_EXTRA_BUCKETS,
+                                extra_plan="workspace", graph=DEIT_TK_GRAPH)
     rows_tt = phase_kernel_tt(args.seed, launches_tt, _program("tt"),
                               "resnet32 tt@3x")
     rows_deit = phase_kernel_tt(args.seed, launches_deit, program_deit,
@@ -609,6 +664,8 @@ def main() -> int:
                                       workdir)
         launches_deit_main = phase_main(args.seed, smi, "deit",
                                         len(launches_deit), workdir)
+        launches_deit_tk_main = phase_main(args.seed, smi, "deit_tk",
+                                           len(buckets_deit_tk), workdir)
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
@@ -616,13 +673,19 @@ def main() -> int:
     src = "dnn_compression_tensor_admm_tpu_torch/csrc/"
     ref = "dnn_compression_tensor_admm_tpu/ops/pallas/"
     # one entry per kernel and main path, each with that path's launches
-    # and its times per Z-step; the ResNet32 TT entry keeps the kernel's name
-    tucker = kernel_summary(
-        "tucker2_factors_batched", "resnet32 tk@3x", src + "tucker2_factors.cu",
-        ref + "tucker_kernel.py:142", launches_tk_main, rows_tk,
-        "library_ms_hosvd_only_svd_of_both_unfoldings")
-    tucker["hosvd_ms"] = sum(r["hosvd_ms"] for r in rows_tk)
-    entries = [tucker]
+    # and its times per Z-step; the ResNet32 entries keep the kernel's name
+    entries = []
+    # (every DeiT-TK bucket takes the workspace plan, its own source)
+    for name, path, n, rows, source in (
+            ("tucker2_factors_batched", "resnet32 tk@3x", launches_tk_main,
+             rows_tk, "tucker2_factors.cu"),
+            ("tucker2_factors_batched@deit_tk2", "deit_tiny_patch16_224 tk@2x",
+             launches_deit_tk_main, rows_deit_tk, "tucker2_factors_ws.cu")):
+        one = kernel_summary(name, path, src + source,
+                             ref + "tucker_kernel.py:142", n, rows,
+                             "library_ms_hosvd_only_svd_of_both_unfoldings")
+        one["hosvd_ms"] = sum(r["hosvd_ms"] for r in rows)
+        entries.append(one)
     for name, path, n, rows in (
             ("dominant_left_subspace_batched", "resnet32 tt@3x",
              launches_tt_main, rows_tt),

@@ -7,13 +7,13 @@
 
 The plan's layers are bucketed by (kind, spec, shape); each bucket is
 stacked into one [L, ...] tensor and projected at once. With
-method='kernel' a Tucker-2 bucket goes through the CUDA factor kernel
-(`ops/cuda/tucker_kernel.py`) and a TT bucket through the batched TT-SVD
-sweep on the CUDA subspace kernel (`ops/cuda/subspace_kernel.py`). On
-the card a bucket that a kernel's gate refuses raises; on the CPU (where
-the kernel wrappers run their plain versions) it goes layer by layer
-through `ops/tucker.py` or `ops/ttd.py`, as every bucket does with
-another method.
+method='kernel' a Tucker-2 bucket (conv, or linear as K = 1) goes through
+the CUDA factor kernel (`ops/cuda/tucker_kernel.py`) and a TT bucket
+through the batched TT-SVD sweep on the CUDA subspace kernel
+(`ops/cuda/subspace_kernel.py`). On the card a bucket that a kernel's
+gate refuses raises; on the CPU (where the kernel wrappers run their
+plain versions) it goes layer by layer through `ops/tucker.py` or
+`ops/ttd.py`, as every bucket does with another method.
 U and Z are stored in each parameter's own layout (OIHW for convs,
 [out, in] for linears); a TT projection works on the [O, kh*kw, I] view
 of a conv and on the weight itself for a linear.
@@ -66,6 +66,8 @@ def _classify(spec, w: torch.Tensor) -> str:
         return "tt_linear"
     if isinstance(spec, TKSpec) and w.dim() == 4:
         return "tk_conv"
+    if isinstance(spec, TKSpec) and w.dim() == 2:
+        return "tk_linear"
     raise NotImplementedError(f"{type(spec).__name__} on a {w.dim()}-d weight "
                               "is not ported yet")
 
@@ -114,14 +116,15 @@ def _project_one(g: _Group, w: torch.Tensor, *, method: str,
         t = w.permute(0, 2, 3, 1).reshape(o, kh * kw, i)
         z = tt_project(t, g.spec.tt_shapes, g.spec.tt_ranks, method=method)
         return z.reshape(o, kh, kw, i).permute(0, 3, 1, 2)
-    sp = g.spec.clamped(w.shape)
+    sp = g.spec.clamped(w.shape)  # tk_conv and tk_linear: [O, I, ...]
     return tucker2_project(w, sp.out_rank, sp.in_rank, n_iter=n_iter,
                            method=method)
 
 
 def _project_group_kernel(g: _Group, ts: torch.Tensor,
                           n_iter: int) -> Optional[torch.Tensor]:
-    """Kernel Z-step for one bucket ts [L, O, I, kh, kw] or [L, out, in].
+    """Kernel Z-step for one bucket ts [L, O, I, kh, kw] or [L, out, in]
+    (a Tucker-2 linear as K = 1).
     Where the kernel's gate refuses the bucket: None for CPU tensors (the
     caller goes layer by layer), and ValueError on any other device."""
     l = ts.shape[0]
@@ -133,6 +136,14 @@ def _project_group_kernel(g: _Group, ts: torch.Tensor,
             z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
                                         sweeps=max(1, n_iter // 3))
             return z.reshape(l, kh, kw, o, i).permute(0, 3, 4, 1, 2)
+    elif g.kind == "tk_linear":
+        _, o, i = ts.shape
+        sp = g.spec.clamped((o, i))
+        x = ts[:, None].contiguous()  # [L, 1, O, I]
+        if kernel_supported(x.shape, sp.out_rank, sp.in_rank):
+            z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
+                                        sweeps=max(1, n_iter // 3))
+            return z[:, 0]
     else:
         # the TT view: a linear's [out, in] weight itself, a conv's
         # [O, kh*kw, I]

@@ -1,6 +1,7 @@
 """Command line: the JAX package's `cli/main.py` surface for the port's
 slices (ResNet32 with Tucker-2 or Tensor-Train on synthetic CIFAR
-geometry; DeiT-tiny with Tensor-Train on synthetic ImageNet geometry).
+geometry; DeiT-tiny with Tensor-Train or Tucker-2 on synthetic ImageNet
+geometry).
 
 Pipeline modes:
   (default)     train (dense baseline, or ADMM with --admm)
@@ -25,7 +26,8 @@ def parse_args(argv=None):
         description="Tensor-decomposition ADMM compression (PyTorch/CUDA)")
     p.add_argument("--model", default="resnet32", type=str,
                    help="resnet32 | tkc_resnet32 | ttm_resnet32 | "
-                        "deit_tiny_patch16_224 | ttm_deit_tiny_patch16_224")
+                        "deit_tiny_patch16_224 | ttm_deit_tiny_patch16_224 | "
+                        "tkc_deit_tiny_patch16_224")
     p.add_argument("--dataset", default="synthetic-cifar10", type=str,
                    help="synthetic-cifar10 | synthetic-hard-cifar10 | "
                         "synthetic-imagenet")

@@ -1,8 +1,9 @@
 """Build RankPlans from the reference rank tables.
 
 `reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries, the
-ResNet32 Tensor-Train 3x entry and the DeiT-tiny Tensor-Train 2x entry of
-the JAX package's `configs/plans/reference_hp.json`. TK entries are
+DeiT-tiny Tucker-2 2x entry, the ResNet32 Tensor-Train 3x entry and the
+DeiT-tiny Tensor-Train 2x entry of the JAX package's
+`configs/plans/reference_hp.json`. TK entries are
 ``[out_rank, in_rank]``, TT entries a TT rank list beside their
 ``tt_shapes``; a rank list of length 1 means plain SVD.
 """

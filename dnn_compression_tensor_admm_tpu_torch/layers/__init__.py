@@ -1,6 +1,7 @@
 from .common import canonical_param_name, pair
 from .tk_conv import TKConv2d
+from .tk_linear import TKLinear
 from .tt_conv import TTConv2d
 from .tt_linear import TTLinear
 
-__all__ = ["TKConv2d", "TTConv2d", "TTLinear", "canonical_param_name", "pair"]
+__all__ = ["TKConv2d", "TKLinear", "TTConv2d", "TTLinear", "canonical_param_name", "pair"]

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..configs.hp import RankPlan, TKSpec, TTConvSpec, TTLinearSpec
-from ..layers import TKConv2d, TTConv2d, TTLinear
+from ..layers import TKConv2d, TKLinear, TTConv2d, TTLinear
 from ..ops.precision import full_f32
 
 
@@ -39,6 +39,9 @@ def decompose_params(state_dict: Dict[str, torch.Tensor], plan: RankPlan, *,
                                                    method=method)
             elif isinstance(spec, TKSpec) and w.dim() == 4:
                 factors = TKConv2d.factorize_dense(w.float(), spec,
+                                                   n_iter=n_iter, method=method)
+            elif isinstance(spec, TKSpec) and w.dim() == 2:
+                factors = TKLinear.factorize_dense(w.float(), spec,
                                                    n_iter=n_iter, method=method)
             else:
                 raise NotImplementedError(

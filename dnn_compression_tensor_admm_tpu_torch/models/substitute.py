@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from ..configs.hp import RankPlan, TKSpec, TTConvSpec, TTLinearSpec
-from ..layers import TKConv2d, TTConv2d, TTLinear
+from ..layers import TKConv2d, TKLinear, TTConv2d, TTLinear
 
 
 def kaiming_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -49,8 +49,9 @@ def make_conv(in_ch: int, out_ch: int, kernel_size: int, *, stride=1,
 def make_linear(in_f: int, out_f: int, *, plan: Optional[RankPlan], mode: str,
                 key: str, bias: bool = True,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    """A dense linear (He-normal on fan-in, zero bias), or the TT linear
-    the plan prescribes for `key` ('blocks.0.attn.qkv.weight')."""
+    """A dense linear (He-normal on fan-in, zero bias), or the TT or
+    Tucker-2 linear the plan prescribes for `key`
+    ('blocks.0.attn.qkv.weight')."""
     spec = plan.spec(key) if plan is not None else None
     if spec is None:
         linear = nn.Linear(in_f, out_f, bias=bias)
@@ -61,6 +62,10 @@ def make_linear(in_f: int, out_f: int, *, plan: Optional[RankPlan], mode: str,
     if isinstance(spec, TTLinearSpec):
         tt_mode = "reconstruct" if mode == "reconstruct" else "factorized"
         return TTLinear(in_f, out_f, spec, bias=bias, mode=tt_mode,
+                        generator=generator)
+    if isinstance(spec, TKSpec):
+        tk_mode = "reconstruct" if mode == "reconstruct" else "chain"
+        return TKLinear(in_f, out_f, spec, bias=bias, mode=tk_mode,
                         generator=generator)
     raise NotImplementedError(
         f"{type(spec).__name__} linears are not ported yet ({key})")

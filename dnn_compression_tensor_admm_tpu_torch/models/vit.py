@@ -1,12 +1,12 @@
-"""ViT / DeiT, dense and Tensor-Train compressed (counterpart of the JAX
-package's `models/vit.py`).
+"""ViT / DeiT, dense and Tensor-Train or Tucker-2 compressed (counterpart
+of the JAX package's `models/vit.py`).
 
 Patch embedding (a strided conv with a bias), a class token and learned
 position embeddings, `depth` pre-norm blocks (multi-head attention and a
 GELU MLP, each with a residual and drop path), a final LayerNorm and a
-linear head on the class token. Each block's qkv, proj, fc1 and fc2 are
-TT linears iff their canonical name ('blocks.0.attn.qkv.weight', ...) is
-in the plan; everything else stays dense. Numerics follow the JAX
+linear head on the class token. Each block's qkv, proj, fc1 and fc2 are TT
+or Tucker-2 linears iff their canonical name ('blocks.0.attn.qkv.weight',
+...) is in the plan; everything else stays dense. Numerics follow the JAX
 package: LayerNorm eps 1e-6, exact GELU, attention written out with its
 softmax in float32, and the head in float32 whatever the autocast type.
 Drop path draws from a generator the caller passes to `forward`, never
@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.hp import RankPlan
-from ..configs.plans import build_tt_linear_plan
+from ..configs.plans import build_tk_plan, build_tt_linear_plan
 from ..configs.resolver import get_rank_plan, register_plan
 from .registry import register_model
 from .substitute import make_linear
@@ -179,10 +179,12 @@ def _vit_out_features(embed_dim: int):
 
 
 # the JAX package registers tt and tk at ratios 2 and 3; the port's JSON
-# copy holds DeiT-tiny's TT 2 table alone
+# copy holds DeiT-tiny's TT 2 and TK 2 tables alone
 register_plan("deit_tiny_patch16_224", "tt", "2")(
     lambda: build_tt_linear_plan("deit_tiny_patch16_224", "2", "general",
                                  _vit_out_features(192)))
+register_plan("deit_tiny_patch16_224", "tk", "2")(
+    lambda: build_tk_plan("deit_tiny_patch16_224", "2"))
 
 
 def _build_vit(name: str, *, num_classes: int = 1000,

@@ -9,14 +9,18 @@ HOOI sweeps (SWEEP_ITERS steps each), orthonormalising by Newton-Schulz
 
 `tucker2_factors_batched` launches the CUDA kernel for a CUDA tensor and
 runs `tucker2_factors_plain`, the same iteration in batched torch
-matmuls, for a CPU tensor. `tucker2_project_batched` rebuilds
+matmuls, for a CPU tensor. A shape whose plan fits one block's shared
+memory takes a block plan (resident or streamed, `csrc/tucker2_factors.cu`);
+any other takes the workspace plan (`csrc/tucker2_factors_ws.cu`, a
+library of its own), which keeps what does not fit in a per-layer slab of
+device memory that `launch_ws` allocates. `tucker2_project_batched` rebuilds
 Z_k = U0 (U0^T X_k U1) U1^T from the factors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -74,7 +78,8 @@ def _plan(k: int, o: int, i: int, r0: int, r1: int):
 
 def smem_bytes(k: int, o: int, i: int, r0: int, r1: int) -> int:
     """Bytes of one block's plan for a [K, O, I] layer
-    (`tucker2_factors_smem_bytes`)."""
+    (`tucker2_factors_smem_bytes`); more than a block may have where the
+    shape takes the workspace plan."""
     return 4 * _plan(k, o, i, r0, r1)[0]
 
 
@@ -84,16 +89,103 @@ def resident_plan(k: int, o: int, i: int, r0: int, r1: int) -> bool:
     return _plan(k, o, i, r0, r1)[1]
 
 
+def block_plan_fits(k: int, o: int, i: int, r0: int, r1: int) -> bool:
+    """True if the shape takes a block plan, False if the workspace plan."""
+    return smem_bytes(k, o, i, r0, r1) <= MAX_SMEM_BYTES
+
+
+# Chunk length along a Gram of X's summed side that the workspace plan
+# grows for (kStageLen in the CUDA source).
+STAGE_LEN = 64
+
+# regions of the workspace plan, in the order they are taken into shared
+# memory (`make_ws_plan`)
+WS_REGIONS = ("ns", "g", "u", "y", "m")
+
+
+class WsPlan(NamedTuple):
+    smem_floats: int   # shared memory, the chunk buffers included
+    ws_floats: int     # device memory per layer
+    in_ws: Tuple[str, ...]  # regions in the workspace
+    stage: int         # floats of each chunk buffer
+    ldc: int           # the longer chunk row stride (G0's or G1's)
+    kg: int            # k per HOOI product phase
+
+
+def ws_plan(k: int, o: int, i: int, r0: int, r1: int) -> WsPlan:
+    """The workspace plan of a [K, O, I] layer, as `make_ws_plan` in the
+    CUDA source: the padded layout, its regions (the five Newton-Schulz
+    matrices [rp, rp], the Gram [np, np], U0 and U1, Y [np, rp], and HOOI
+    products M_k [op, r1p] / N_k [r0p, ip], as many k as fit, in groups of
+    equal size) taken into shared memory in that order while they fit, the
+    rest in the workspace. The Gram and the factors keep room for two
+    chunks of 16 rows of X beside them; the other shared regions lie under
+    the chunk buffers."""
+    op, ip, r0p, r1p = _up4(o), _up4(i), _up4(r0), _up4(r1)
+    npad, rp = max(op, ip), max(r0p, r1p)
+    ldc = max(op + 4, ip)
+    chunks_min = 2 * 16 * ldc
+    per_k = max(op * r1p, r0p * ip)
+    sizes = {"ns": 5 * rp * rp, "g": npad * npad, "u": op * r0p + ip * r1p,
+             "y": npad * rp}
+    persist = scratch = 0
+    in_ws = []
+    kg = k
+    for name in WS_REGIONS:
+        if name == "m":
+            room = MAX_SMEM_FLOATS - persist - scratch
+            fit = min(k, room // per_k) if room >= per_k else 0
+            kg = -(-k // -(-k // fit)) if fit > 0 else k
+            sizes["m"] = kg * per_k
+        keeps = name in ("g", "u")
+        ps = persist + (sizes[name] if keeps else 0)
+        sc = scratch + (0 if keeps else sizes[name])
+        if ps + max(sc, chunks_min) <= MAX_SMEM_FLOATS:
+            persist, scratch = ps, sc
+        else:
+            in_ws.append(name)
+    total = max(persist + scratch,
+                min(persist + 2 * ldc * STAGE_LEN, MAX_SMEM_FLOATS))
+    return WsPlan(total, sum(sizes[n] for n in in_ws), tuple(in_ws),
+                  ((total - persist) // 2) & ~3, ldc, kg)
+
+
+def plan_name(k: int, o: int, i: int, r0: int, r1: int) -> str:
+    """'resident' or 'streamed' (block plans) or 'workspace'."""
+    if not block_plan_fits(k, o, i, r0, r1):
+        return "workspace"
+    return "resident" if resident_plan(k, o, i, r0, r1) else "streamed"
+
+
+# The CUDA source indexes within a layer, and sizes and places its plans'
+# regions, in 32-bit int.
+INT_MAX = 2 ** 31 - 1
+
+
 def kernel_supported(shape, r0: int, r1: int) -> bool:
-    """True if an [L, K, O, I] bucket fits the kernel's shared-memory plan
-    (the role of the JAX package's `pallas_tk_supported`): every shape
-    whose first version's plan fits, and more where X is small."""
+    """True if the kernel takes an [L, K, O, I] bucket (the role of the
+    JAX package's `pallas_tk_supported`): a block plan fits, or the
+    workspace plan's chunk buffers hold at least one row of X_k (O + 4 and
+    I up to about 29,000). A shape whose layer (K O I) or padded regions
+    (all of them with every HOOI product, which bounds every offset and
+    the per-layer workspace) pass 2**31 - 1 floats is refused, since the
+    kernel's int arithmetic would overflow."""
     if len(shape) != 4:
         return False
     _, k, o, i = shape
     r0, r1 = min(r0, o), min(r1, i)
-    return (r0 >= 1 and r1 >= 1
-            and smem_bytes(k, o, i, r0, r1) <= MAX_SMEM_BYTES)
+    if r0 < 1 or r1 < 1:
+        return False
+    op, ip, r0p, r1p = _up4(o), _up4(i), _up4(r0), _up4(r1)
+    npad, rp = max(op, ip), max(r0p, r1p)
+    regions = (5 * rp * rp + npad * npad + op * r0p + ip * r1p + npad * rp
+               + k * max(op * r1p, r0p * ip))
+    if max(k * o * i, regions) > INT_MAX:
+        return False
+    if block_plan_fits(k, o, i, r0, r1):
+        return True
+    p = ws_plan(k, o, i, r0, r1)
+    return p.stage >= p.ldc
 
 
 def ns_flops(r: int) -> int:
@@ -209,15 +301,30 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_ws(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a loaded `tucker2_factors_ws` library."""
+    fn = lib.tucker2_factors_ws_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for name in ("tucker2_factors_ws_smem_bytes", "tucker2_factors_ws_floats"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 5
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     return bind(build.load("tucker2_factors"))
 
 
+def _ws_library() -> ctypes.CDLL:
+    return bind_ws(build.load("tucker2_factors_ws"))
+
+
 def launch(lib: ctypes.CDLL, x: torch.Tensor, r0: int, r1: int, *,
            sweeps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of `lib`'s kernel on x's device and current stream:
-    x [L, K, O, I] float32, contiguous, on a CUDA card -> (U0, U1); the
-    caller has checked the shape and clamped the ranks."""
+    """One launch of `lib`'s kernel (a block plan) on x's device and
+    current stream: x [L, K, O, I] float32, contiguous, on a CUDA card ->
+    (U0, U1); the caller has checked the shape and clamped the ranks."""
     l, k, o, i = x.shape
     u0 = torch.empty((l, o, r0), dtype=torch.float32, device=x.device)
     u1 = torch.empty((l, i, r1), dtype=torch.float32, device=x.device)
@@ -228,6 +335,28 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, r0: int, r1: int, *,
             sweeps, stream)
     if err != 0:
         raise RuntimeError(f"tucker2_factors kernel launch failed: CUDA error {err}")
+    return u0, u1
+
+
+def launch_ws(lib: ctypes.CDLL, x: torch.Tensor, r0: int, r1: int, *,
+              sweeps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`launch` for the workspace plan of a `tucker2_factors_ws` library,
+    with the per-layer slabs allocated here."""
+    l, k, o, i = x.shape
+    u0 = torch.empty((l, o, r0), dtype=torch.float32, device=x.device)
+    u1 = torch.empty((l, i, r1), dtype=torch.float32, device=x.device)
+    # torch's allocations are 512-byte aligned, and every slab is a
+    # multiple of 4 floats
+    ws = torch.empty(l * ws_plan(k, o, i, r0, r1).ws_floats,
+                     dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tucker2_factors_ws_launch(
+            x.data_ptr(), u0.data_ptr(), u1.data_ptr(), ws.data_ptr(), l, k,
+            o, i, r0, r1, sweeps, stream)
+    if err != 0:
+        raise RuntimeError("tucker2_factors workspace kernel launch failed: "
+                           f"CUDA error {err}")
     return u0, u1
 
 
@@ -256,8 +385,11 @@ def tucker2_factors_batched(x: torch.Tensor, r0: int, r1: int, *,
         raise ValueError(f"unsupported device {x.device}")
     if not kernel_supported(x.shape, r0, r1):
         raise ValueError(f"bucket {tuple(x.shape)} at ranks ({r0}, {r1}) "
-                         "exceeds the kernel's shared-memory plan")
-    u0, u1 = launch(_library(), x, r0, r1, sweeps=sweeps)
+                         "exceeds the kernel's plans")
+    if block_plan_fits(k, o, i, r0, r1):
+        u0, u1 = launch(_library(), x, r0, r1, sweeps=sweeps)
+    else:
+        u0, u1 = launch_ws(_ws_library(), x, r0, r1, sweeps=sweeps)
     tucker2_factors_batched.launches += 1
     return u0, u1
 

@@ -9,7 +9,8 @@ The JAX variables are given as nested dicts of numpy arrays
   ``running_mean``/``running_var`` (``num_batches_tracked`` is added as 0
   and dropped on the way back);
 * TK ``core_kernel`` HWIO <-> OIHW; ``first_factor`` and ``last_factor``
-  keep their layout;
+  keep their layout, as a TK linear's ``core`` [r_out, r_in] does (its
+  bias is a Dense-style ``bias``);
 * TT ``core_kernel`` (the middle core as a conv kernel, [r_outL, r_in0]
   as O and I) HWIO <-> OIHW by the same rule; ``out_core_i`` and
   ``in_core_i`` ([r_i, n_i, r_{i+1}]) keep their layout;

@@ -133,6 +133,26 @@ extern "C" int emu_run(const float* x, float* u0, float* u1, int l, int k,
   });
 }
 """,
+    "tucker2_factors_ws": r"""
+extern "C" int emu_run_ws(const float* x, float* u0, float* u1, float* ws,
+                          int l, int k, int o, int i, int r0, int r1,
+                          int sweeps, int late) {
+  emu_late = late;
+  blockDim.x = kThreads;
+  return emu_launch(l, make_ws_plan(k, o, i, r0, r1).total, [&] {
+    tucker2_factors_ws_kernel(x, u0, u1, ws, k, o, i, r0, r1, sweeps);
+  });
+}
+extern "C" int emu_ws_plan(int k, int o, int i, int r0, int r1, int* out) {
+  const WsPlan p = make_ws_plan(k, o, i, r0, r1);
+  out[0] = p.total;
+  out[1] = p.ws;
+  out[2] = static_cast<int>(p.in_ws);
+  out[3] = p.stage;
+  out[4] = p.kg;
+  return 0;
+}
+""",
 }
 
 
@@ -181,6 +201,10 @@ def libs(tmp_path_factory):
     out["subspace"].emu_ws_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     out["tucker2_factors"].emu_run.argtypes = ([ctypes.c_void_p] * 3
                                                + [ctypes.c_int] * 8)
+    out["tucker2_factors_ws"].emu_run_ws.argtypes = ([ctypes.c_void_p] * 4
+                                                     + [ctypes.c_int] * 8)
+    out["tucker2_factors_ws"].emu_ws_plan.argtypes = ([ctypes.c_int] * 5
+                                                      + [ctypes.c_void_p])
     return out
 
 
@@ -312,3 +336,57 @@ def test_tucker2_plans_match_plain(libs, shape, r0, r1, sweeps, resident, late):
     assert tk.kernel_supported(shape, r0, r1)
     assert tk.resident_plan(k, o, i, r0, r1) == resident
     _tucker2_against_plain(libs, shape, r0, r1, sweeps, late)
+
+
+@pytest.mark.parametrize("shape,r0,r1,in_ws,late", [
+    # DeiT fc1 and fc2: the Newton-Schulz matrices (r = 128), the Gram, the
+    # factors and Y in the workspace, one HOOI product shared
+    ((1, 1, 768, 192), 128, 72, "ns g u y", 1),
+    ((1, 1, 192, 768), 72, 128, "ns g u y", 0),
+    # DeiT proj: Newton-Schulz matrices and factors shared, chunks over them
+    ((2, 1, 192, 192), 72, 72, "g y m", 1),
+    # a shared Gram, the chunks streaming beside it; all 9 HOOI products
+    # in the workspace, copies landing early and late
+    ((1, 9, 128, 128), 64, 64, "y m", 0),
+    ((1, 9, 128, 128), 64, 64, "y m", 1),
+    # a shared Gram, HOOI products shared in groups of 2 (9 = 2+2+2+2+1)
+    ((1, 9, 208, 208), 20, 20, "u", 0),
+    ((1, 9, 208, 208), 20, 20, "u", 1),
+    # O and I not multiples of 4: scalar HOOI products, zero pads
+    ((1, 9, 150, 90), 70, 45, "u y", 1),
+    # mode 0 full rank (the identity), all 9 HOOI products shared
+    ((1, 9, 12, 400), 12, 8, "g", 0),
+])
+def test_tucker2_workspace_plan_matches_plain(libs, shape, r0, r1, in_ws,
+                                              late):
+    l, k, o, i = shape
+    assert not tk.block_plan_fits(k, o, i, r0, r1)
+    assert tk.kernel_supported(shape, r0, r1)
+    assert tk.plan_name(k, o, i, r0, r1) == "workspace"
+    plan = tk.ws_plan(k, o, i, r0, r1)
+    assert plan.in_ws == tuple(in_ws.split())
+    got = np.zeros(5, np.int32)
+    libs["tucker2_factors_ws"].emu_ws_plan(k, o, i, r0, r1, got.ctypes.data)
+    bits = {"ns": 1, "g": 2, "u": 4, "y": 8, "m": 16}
+    assert list(got) == [plan.smem_floats, plan.ws_floats,
+                         sum(bits[n] for n in plan.in_ws), plan.stage,
+                         plan.kg]
+    x = (np.random.RandomState(o * i).standard_normal(shape)
+         / np.sqrt(k * i)).astype(np.float32)
+    ws = np.full(l * plan.ws_floats + GUARD, np.nan, np.float32)
+    ws[-GUARD:] = 12345.0
+    assert ws.ctypes.data % 16 == 0
+    u0 = np.full((l, o, r0), np.nan, np.float32)
+    u1 = np.full((l, i, r1), np.nan, np.float32)
+    err = libs["tucker2_factors_ws"].emu_run_ws(
+        x.ctypes.data, u0.ctypes.data, u1.ctypes.data, ws.ctypes.data, l, k,
+        o, i, r0, r1, 2, late)
+    assert err == 0, f"emulation fault {err}"
+    assert (ws[-GUARD:] == 12345.0).all(), "written past the workspace"
+    xt = torch.from_numpy(x)
+    p0, p1 = tk.tucker2_factors_plain(xt, r0, r1, sweeps=2)
+    z = tk.tucker2_reconstruct(xt, torch.from_numpy(u0), torch.from_numpy(u1))
+    zp = tk.tucker2_reconstruct(xt, p0, p1)
+    # the same float32 iteration in another summation order
+    assert (torch.linalg.vector_norm(z - zp)
+            / torch.linalg.vector_norm(zp)).item() < 1e-5

@@ -77,28 +77,35 @@ def _tucker2_bucket(g):
     return (l, kh * kw, o, i), r0, r1
 
 
-@pytest.mark.parametrize("name,fmt,ratio,size,pallas,port,layers", [
-    ("deit_tiny_patch16_224", "tk", "2", 224, 48, 0, 48),
-    ("resnet50", "tk", "3", 224, 24, 3, 44),
-    ("resnet18", "tk", "2", 224, 12, 4, 16),
-    ("vgg16", "tk", "2", 224, 6, 1, 13),
-    ("mobilenetv2", "svd", "2", 224, 22, 7, 29),
-    ("densenet40", "tk", "2", 32, 38, 16, 38),
-    ("resnet56", "tk", "3", 32, 54, 54, 54),
+@pytest.mark.parametrize("name,fmt,ratio,size,pallas,port,workspace,layers", [
+    ("deit_tiny_patch16_224", "tk", "2", 224, 48, 48, 48, 48),
+    ("resnet50", "tk", "3", 224, 24, 44, 41, 44),
+    ("resnet18", "tk", "2", 224, 12, 16, 12, 16),
+    ("vgg16", "tk", "2", 224, 6, 13, 12, 13),
+    ("mobilenetv2", "svd", "2", 224, 22, 29, 22, 29),
+    ("densenet40", "tk", "2", 32, 38, 38, 22, 38),
+    ("resnet56", "tk", "3", 32, 54, 54, 0, 54),
 ])
 def test_tucker2_gate_on_the_tk_and_svd_plans(name, fmt, ratio, size, pallas,
-                                              port, layers):
-    # the Tucker-2 kernel has no plan past a block yet (ROADMAP Queue 2)
-    counts = {"pallas": 0, "port": 0, "layers": 0}
+                                              port, workspace, layers):
+    # the workspace plan takes every bucket past a block; the port's gate
+    # takes at least what the Pallas gate takes, bucket by bucket
+    counts = {"pallas": 0, "port": 0, "workspace": 0, "layers": 0}
     for g in _groups(name, fmt, ratio, "general", size):
         counts["layers"] += len(g.names)
         bucket = _tucker2_bucket(g)
         if bucket is None:
             continue
         shape, r0, r1 = bucket
-        counts["pallas"] += len(g.names) * pallas_tk_supported(shape)
-        counts["port"] += len(g.names) * tk.kernel_supported(shape, r0, r1)
-    assert counts == {"pallas": pallas, "port": port, "layers": layers}
+        ok_pallas = pallas_tk_supported(shape)
+        ok_port = tk.kernel_supported(shape, r0, r1)
+        assert ok_port or not ok_pallas, g.names
+        counts["pallas"] += len(g.names) * ok_pallas
+        counts["port"] += len(g.names) * ok_port
+        counts["workspace"] += len(g.names) * (
+            tk.plan_name(*shape[1:], r0, r1) == "workspace")
+    assert counts == {"pallas": pallas, "port": port, "workspace": workspace,
+                      "layers": layers}
 
 
 @pytest.mark.parametrize("shape,r", [
@@ -110,19 +117,49 @@ def test_subspace_gate_refuses_shapes_past_int32(shape, r):
     assert not sk.subspace_supported(shape, r)
 
 
-def _refused_tk_bucket(device):
-    # 3x3 convs 128 -> 128 at Tucker-2 ranks 64: past a block's shared memory
-    plan = RankPlan("tk", {f"c{j}": TKSpec(64, 64) for j in range(2)})
+@pytest.mark.parametrize("shape,r0,r1", [
+    ((1, 1, 4, 30000), 2, 2),        # a chunk row of X_k past half a block
+    ((1, 1, 29100, 4), 2, 2),        # the same along O (a transposed chunk)
+    ((1, 1, 50000, 64), 32, 32),     # both: the Gram (50,000^2) past 2**31
+    ((1, 40000, 256, 256), 8, 8),    # one layer past 2**31 floats
+])
+def test_tucker2_gate_refuses_shapes_past_a_chunk_row_or_int32(shape, r0, r1):
+    # the workspace plan streams at least one row of X_k per chunk buffer,
+    # and the CUDA source sizes its regions and indexes a layer in int
+    assert not tk.kernel_supported(shape, r0, r1)
+
+
+def test_tucker2_gate_takes_shapes_just_inside_those_limits():
+    for shape in ((1, 1, 4, 29000), (1, 1, 29000, 4)):
+        assert tk.plan_name(*shape[1:], 2, 2) == "workspace"
+        assert tk.kernel_supported(shape, 2, 2)
+        p = tk.ws_plan(*shape[1:], 2, 2)
+        assert p.stage >= p.ldc and p.smem_floats <= tk.MAX_SMEM_BYTES // 4
+
+
+def _refused_tk_bucket(device, monkeypatch):
+    """3x3 convs 128 -> 128 at Tucker-2 ranks 64 (the workspace plan) on
+    the CPU, with the gate made to refuse them: a bucket the gate really
+    refuses has a side past ~29,000, too large for the layer-by-layer
+    route on the CPU. Off the CPU (meta tensors), such a bucket: 1 x 1
+    convs 4 -> 30,000 at ranks 2."""
+    if device == "cpu":
+        monkeypatch.setattr(teng, "kernel_supported", lambda *a: False)
+        shape = (128, 128, 3, 3)
+        plan = RankPlan("tk", {f"c{j}": TKSpec(64, 64) for j in range(2)})
+    else:
+        shape = (30000, 4, 1, 1)
+        plan = RankPlan("tk", {f"c{j}": TKSpec(2, 2) for j in range(2)})
+        assert not tk.kernel_supported((2, 1, 30000, 4), 2, 2)
     g = torch.Generator().manual_seed(0)
-    params = {n: torch.randn(128, 128, 3, 3, generator=g).to(device)
+    params = {n: torch.randn(*shape, generator=g).to(device)
               for n in plan.layers}
     program = teng.build_program(params, plan)
-    assert not tk.kernel_supported((2, 9, 128, 128), 64, 64)
     return params, program
 
 
-def test_refused_bucket_goes_layer_by_layer_on_the_cpu():
-    params, program = _refused_tk_bucket("cpu")
+def test_refused_bucket_goes_layer_by_layer_on_the_cpu(monkeypatch):
+    params, program = _refused_tk_bucket("cpu", monkeypatch)
     state = teng.admm_init(params, program)
     kern, res_k = teng.admm_update(params, state, program, method="kernel",
                                    n_iter=3)
@@ -133,9 +170,9 @@ def test_refused_bucket_goes_layer_by_layer_on_the_cpu():
                                                                 res_s[n])
 
 
-def test_refused_bucket_raises_off_the_cpu():
+def test_refused_bucket_raises_off_the_cpu(monkeypatch):
     # no card here: a meta tensor stands in for one, the gate decides first
-    params, program = _refused_tk_bucket("meta")
+    params, program = _refused_tk_bucket("meta", monkeypatch)
     state = teng.admm_init(params, program)
     with pytest.raises(ValueError, match="gate refuses"):
         teng.admm_update(params, state, program, method="kernel", n_iter=3)

@@ -89,7 +89,10 @@ def test_shared_memory_gate_on_main_path_buckets():
     assert all(tk.kernel_supported(s, r0, r1) for s, r0, r1 in MAIN_PATH_BUCKETS)
     # four of them need more than the 48 KB default: the launcher opts in
     assert sum(b > 48 * 1024 for b in got) == 4
-    assert not tk.kernel_supported((4, 9, 256, 256), 64, 64)  # Gram alone 256 KiB
+    # the Gram alone is 256 KiB: past every block plan, so the workspace plan
+    assert not tk.block_plan_fits(9, 256, 256, 64, 64)
+    assert tk.plan_name(9, 256, 256, 64, 64) == "workspace"
+    assert tk.kernel_supported((4, 9, 256, 256), 64, 64)
     assert not tk.kernel_supported((4, 64, 64), 8, 8)         # not [L, K, O, I]
 
 
@@ -159,3 +162,43 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     p0, p1 = tk.tucker2_factors_plain(x, 3, 3)
     assert torch.equal(u0, p0) and torch.equal(u1, p1)
     assert tk.tucker2_factors_batched.launches == before
+
+
+# DeiT-tiny TK@2x's four buckets: [L, K, O, I], r0, r1
+DEIT_BUCKETS = [((12, 1, 192, 192), 72, 72), ((12, 1, 576, 192), 128, 72),
+                ((12, 1, 768, 192), 128, 72), ((12, 1, 192, 768), 72, 128)]
+
+
+def test_deit_buckets_take_the_workspace_plan():
+    # every block plan is past a block: 0.47 to 3.75 MB
+    assert [tk.smem_bytes(*s[1:], r0, r1) for s, r0, r1 in DEIT_BUCKETS] \
+        == [472_320, 2_465_792, 3_749_888, 3_749_888]
+    plans = [tk.ws_plan(*s[1:], r0, r1) for s, r0, r1 in DEIT_BUCKETS]
+    assert all(tk.kernel_supported(*b) for b in DEIT_BUCKETS)
+    # proj: the Newton-Schulz matrices (rp = 72) and the factors shared;
+    # at r = 128 the Newton-Schulz matrices alone (320 KiB) are past a
+    # block, and one HOOI product is what stays
+    assert [p.in_ws for p in plans] == [("g", "y", "m")] + [
+        ("ns", "g", "u", "y")] * 3
+    assert [4 * p.ws_floats for p in plans] == [
+        258_048, 2_299_904, 3_528_704, 3_528_704]
+    assert [4 * p.smem_floats for p in plans] == [214_272] + [232_448] * 3
+    # two chunk buffers of at least 16 rows of X_k (proj: over the shared
+    # Newton-Schulz matrices, after the factors)
+    assert all(p.stage >= 16 * p.ldc for p in plans)
+    # the work: 214 GFLOP per Z-step, 3.20 ms at 67 TFLOP/s float32
+    flops = sum(tk.factor_flops(*b) for b in DEIT_BUCKETS)
+    assert 214.2e9 < flops < 214.3e9
+
+
+def test_workspace_plan_regions_fit_and_are_aligned():
+    for shape, r0, r1 in [*DEIT_BUCKETS, ((6, 9, 256, 256), 64, 64),
+                          ((1, 9, 16, 328), 8, 75), ((1, 9, 208, 208), 20, 20),
+                          ((1, 9, 150, 90), 70, 45)]:
+        _, k, o, i = shape
+        p = tk.ws_plan(k, o, i, r0, r1)
+        assert p.smem_floats <= tk.MAX_SMEM_BYTES // 4
+        assert p.ws_floats % 4 == 0 and p.stage % 4 == 0 and p.stage >= p.ldc
+        # HOOI products in the workspace: all K in one phase; shared: as
+        # many as fit, in groups of equal size
+        assert 1 <= p.kg <= k and ("m" not in p.in_ws or p.kg == k)

@@ -12,9 +12,11 @@ It builds `subspace.cu` and `tucker2_factors.cu` of both checkouts with
 nvcc (all processes at once) and, at the shapes of the main paths
 (`chip_smoke.py`: the 24 subspace launches of a ResNet32-TT@3x Z-step,
 the 33 of a DeiT-tiny-TT@2x Z-step where the baseline has the workspace
-plan, and the 5 Tucker-2 buckets of ResNet32-TK@3x, inputs from --seed)
-and at chip_smoke.py's two near-cap Tucker-2 buckets, times baseline,
-this, this, baseline in device time (`chip_smoke.graph_ms`). The subspace
+plan, the 5 Tucker-2 buckets of ResNet32-TK@3x and the 4 of
+DeiT-tiny-TK@2x, inputs from --seed) and at chip_smoke.py's two near-cap
+Tucker-2 buckets, times baseline, this, this, baseline in device time
+(`chip_smoke.graph_ms`). A shape that takes a workspace plan the
+baseline does not have is timed in this build alone. The subspace
 kernel is timed at the Z-step's iteration count and at iters=0 (the
 Gram, the identity start and the lift), the Tucker-2 kernel at the
 Z-step's sweeps and at sweeps=0 (the Grams of X and the HOSVD init). It
@@ -64,7 +66,8 @@ def bind_subspace(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-BIND = {"subspace": bind_subspace, "tucker2_factors": tk.bind}
+BIND = {"subspace": bind_subspace, "tucker2_factors": tk.bind,
+        "tucker2_factors_ws": tk.bind_ws}
 
 
 def main() -> int:
@@ -74,8 +77,11 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=4,
                     help="replays of a graph of 25 launches per turn")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", nargs="+", choices=tuple(BIND),
-                    default=list(BIND))
+    ap.add_argument("--kernels", nargs="+",
+                    choices=("subspace", "tucker2_factors"),
+                    default=["subspace", "tucker2_factors"],
+                    help="tucker2_factors includes its workspace plan where a "
+                         "checkout has one")
     ap.add_argument("-D", "--define", action="append", default=[],
                     metavar="NAME=VALUE",
                     help="a macro for this checkout's build (repeatable)")
@@ -100,7 +106,12 @@ def main() -> int:
                 / "csrc")
     sides = {"baseline": (base_src, ()),
              "this": (build.SRC_DIR, tuple(args.define))}
-    items = [(side, name) for name in args.kernels for side in sides]
+    names = list(args.kernels)
+    if "tucker2_factors" in names:
+        names.append("tucker2_factors_ws")
+    # a checkout from before the workspace plan has no tucker2_factors_ws.cu
+    items = [(side, name) for name in names for side in sides
+             if (sides[side][0] / f"{name}.cu").exists()]
 
     def build_one(item):
         side, name = item
@@ -113,12 +124,17 @@ def main() -> int:
     emit({"card": smi, "defines": args.define,
           "builds_s": {f"{s} {n}": i["seconds"]
                        for (s, n), i in zip(items, infos)},
-          "ptxas": {f"{s} {n}": i["compiler_output"].splitlines()[-4:]
+          "ptxas": {f"{s} {n}": [ln for ln in
+                                 i["compiler_output"].splitlines()
+                                 if "registers" in ln or "spill" in ln]
                     for (s, n), i in zip(items, infos)}})
     order = ("baseline", "this", "this", "baseline")
 
-    def turns(fn):
-        ms = [cs.graph_ms(lambda s=s: fn(s), replays=args.reps) for s in order]
+    def turns(fn, sides=order, graph=None):
+        graph = graph or {"replays": args.reps}
+        ms = [cs.graph_ms(lambda s=s: fn(s), **graph) for s in sides]
+        if len(sides) == 2:  # this build alone
+            return {"this": (ms[0] + ms[1]) / 2}
         return {"baseline": (ms[0] + ms[3]) / 2, "this": (ms[1] + ms[2]) / 2}
 
     rng = np.random.RandomState(args.seed)
@@ -153,35 +169,50 @@ def main() -> int:
                 key = f"subspace {path} {side} iters={iters}"
                 total[key] = total.get(key, 0.0) + ms
         emit(row)
-    buckets = [(b, True) for b in cs.main_path_buckets()]
-    buckets += [(b, False) for b in cs.NEAR_CAP_BUCKETS]
-    for (shape, r0, r1), main in (buckets if "tucker2_factors" in args.kernels
+    buckets = [(b, "resnet32") for b in cs.main_path_buckets()]
+    buckets += [(b, None) for b in cs.NEAR_CAP_BUCKETS]
+    buckets += [(b, "deit") for b in
+                cs.main_path_buckets(cs.deit_program("tk"))]
+    base_ws = ("baseline", "tucker2_factors_ws") in libs
+    for (shape, r0, r1), path in (buckets if "tucker2_factors" in args.kernels
                                   else ()):
         x = torch.from_numpy((rng.standard_normal(shape) / np.sqrt(
             shape[1] * shape[3])).astype(np.float32)).cuda()
 
+        plan = tk.plan_name(*shape[1:], r0, r1)
+        if plan == "workspace" and ("this", "tucker2_factors_ws") not in libs:
+            continue  # this checkout has no workspace plan
+
         def tucker(side, sweeps=cs.SWEEPS):
+            if plan == "workspace":
+                return tk.launch_ws(libs[side, "tucker2_factors_ws"], x, r0,
+                                    r1, sweeps=sweeps)
             return tk.launch(libs[side, "tucker2_factors"], x, r0, r1,
                              sweeps=sweeps)
 
+        both = plan != "workspace" or base_ws
+        graph = None if path != "deit" else cs.DEIT_TK_GRAPH
         p0, p1 = tk.tucker2_factors_plain(x, r0, r1, sweeps=cs.SWEEPS)
-        row = {"kernel": "tucker2_factors", "shape": list(shape),
-               "ranks": [r0, r1],
-               "plan": "resident" if tk.resident_plan(*shape[1:], r0, r1)
-               else "streamed"}
+        row = {"kernel": "tucker2_factors", "path": path,
+               "shape": list(shape), "ranks": [r0, r1], "plan": plan}
         for sweeps in (cs.SWEEPS, 0):
-            (u0, u1), (b0, b1) = tucker("this", sweeps), tucker("baseline", sweeps)
-            row[f"max_abs_diff_vs_baseline_sweeps{sweeps}"] = max(
-                (u0 - b0).abs().max().item(), (u1 - b1).abs().max().item())
+            u0, u1 = tucker("this", sweeps)
+            if both:
+                b0, b1 = tucker("baseline", sweeps)
+                row[f"max_abs_diff_vs_baseline_sweeps{sweeps}"] = max(
+                    (u0 - b0).abs().max().item(),
+                    (u1 - b1).abs().max().item())
             if sweeps == cs.SWEEPS:
                 z = tk.tucker2_reconstruct(x, u0, u1)
                 zp = tk.tucker2_reconstruct(x, p0, p1)
                 row["z_rel_err"] = (torch.linalg.vector_norm(z - zp)
                                     / torch.linalg.vector_norm(zp)).item()
-            for side, ms in turns(lambda s: tucker(s, sweeps)).items():
+            sides = order if both else ("this", "this")
+            for side, ms in turns(lambda s: tucker(s, sweeps), sides,
+                                  graph).items():
                 row[f"{side}_ms_sweeps{sweeps}"] = ms
-                key = f"tucker2 {side} sweeps={sweeps}"
-                if main:
+                key = f"tucker2 {path} {side} sweeps={sweeps}"
+                if path is not None:
                     total[key] = total.get(key, 0.0) + ms
         emit(row)
     emit({"ms_per_z_step": total, "card": smi, "defines": args.define})
