@@ -9,13 +9,16 @@ prints one JSON line per phase:
 2. build   — compiles the CUDA kernels from `csrc/` (the Tucker-2 block
    plans, its workspace plan and the subspace kernel: three nvcc
    processes at once) and checks each compiled shared-memory plan (and
-   each workspace) against the Python gate at every main-path, near-cap
-   and extra workspace shape;
+   each workspace, and the Tucker-2 workspace plan's cluster size)
+   against the Python gate at every main-path, near-cap and extra
+   workspace shape;
 3. kernel  — each kernel at its main paths' shapes (inputs from --seed)
    against its plain PyTorch version on the card, with its time, the
    plain version's, a library yardstick's and the card's bound: the
    Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x and the 4 of
-   DeiT-tiny-TK@2x (all 4 in the workspace plan), each also at sweeps=0
+   DeiT-tiny-TK@2x (all 4 in the workspace plan, one thread-block
+   cluster per layer: its size and how many such clusters the card holds
+   at once are printed), each also at sweeps=0
    (`hosvd_ms`: the Grams of X and the HOSVD init), and untimed at two
    workspace-plan buckets of other plans (ResNet50 TK 3, DenseNet40 TK
    2), the
@@ -104,8 +107,8 @@ NEAR_CAP_BUCKETS = [((2, 9, 144, 144), 40, 40), ((2, 9, 160, 96), 40, 30)]
 # DenseNet40 TK 2's largest (a 3 x 3 conv of the last dense block); not
 # on a main path, so outside its per-Z-step sums.
 WS_EXTRA_BUCKETS = [((6, 9, 256, 256), 64, 64), ((1, 9, 16, 328), 8, 75)]
-# A DeiT-TK launch does 0.1 to 3 G FMA a layer on one SM, tens of ms:
-# fewer launches per graph keep its timing to seconds.
+# A DeiT-TK launch does 0.1 to 3 G FMA a layer on a cluster of 8 SMs,
+# 3 to 8 ms: fewer launches per graph keep its timing to seconds.
 DEIT_TK_GRAPH = {"launches": 5, "replays": 2}
 
 
@@ -224,6 +227,20 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
             torch.linalg.svd(unf0, full_matrices=False)
             torch.linalg.svd(unf1, full_matrices=False)
 
+        plan = tk.plan_name(k, o, i, r0, r1)
+        if plan == "workspace":  # one cluster per layer: its size, and how
+            # many the card holds at once (cudaOccupancyMaxActiveClusters)
+            lib = tk._ws_library()
+            cluster = {"cluster": lib.tucker2_factors_ws_cluster(k, o, i, r0,
+                                                                 r1),
+                       "max_active_clusters":
+                           lib.tucker2_factors_ws_max_clusters(k, o, i, r0,
+                                                               r1)}
+            if cluster["max_active_clusters"] < 1:
+                raise AssertionError(f"{shape}: no cluster of the workspace "
+                                     f"plan fits the card: {cluster}")
+        else:
+            cluster = {}
         kernel_ms = graph_ms(
             lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS),
             **graph)
@@ -239,7 +256,7 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
         row = {"phase": "kernel", "name": "tucker2_factors_batched",
                "path": path, "shape_LKOI": list(shape), "ranks": [r0, r1],
-               "plan": tk.plan_name(k, o, i, r0, r1),
+               "plan": plan, **cluster,
                "z_rel_err": z_rel, "z_rel_tol": Z_REL_TOL,
                "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
@@ -526,6 +543,8 @@ RECORDED_MS = {
     "first_version_ms_per_z_step": {"tucker2_factors_batched": 7.85,
                                     "dominant_left_subspace_batched": 15.13},
     "tucker2_before_its_redesign_ms_per_z_step": 3.97,
+    # DeiT-tiny TK@2x's Z-step in the one-block-per-layer workspace plan
+    "tucker2_workspace_plan_before_its_redesign_ms_per_z_step": 262.75,
 }
 
 
@@ -584,11 +603,12 @@ def main() -> int:
         if tk.block_plan_fits(*dims):
             planned = (tk_lib.tucker2_factors_smem_bytes(*dims), 0)
             want = (tk.smem_bytes(*dims), 0)
-        else:  # the workspace plan
+        else:  # the workspace plan, one cluster per layer
             planned = (tk_ws_lib.tucker2_factors_ws_smem_bytes(*dims),
-                       tk_ws_lib.tucker2_factors_ws_floats(*dims))
+                       tk_ws_lib.tucker2_factors_ws_floats(*dims),
+                       tk_ws_lib.tucker2_factors_ws_cluster(*dims))
             ws = tk.ws_plan(*dims)
-            want = (4 * ws.smem_floats, ws.ws_floats)
+            want = (4 * ws.smem_floats, ws.ws_floats, ws.cluster)
         if planned != want:
             raise AssertionError(f"Tucker-2 plans differ at {shape} "
                                  f"{r0}/{r1}: {planned} != {want}")
@@ -627,7 +647,7 @@ def main() -> int:
                     tk.smem_bytes(*dims)]
         ws = tk.ws_plan(*dims)
         return [list(shape), r0, r1, "workspace", 4 * ws.smem_floats,
-                4 * ws.ws_floats * shape[0], list(ws.in_ws)]
+                4 * ws.ws_floats * shape[0], list(ws.in_ws), ws.cluster]
 
     def plan_row(shape, r):
         _, rows, cols = shape
@@ -642,7 +662,7 @@ def main() -> int:
           "kernels": {name: {"build_seconds": i["seconds"],
                              "compiler_output": i["compiler_output"].splitlines()}
                       for name, i in infos.items()},
-          "tk_buckets_shape_r0_r1_plan_smem_bytes_ws_bytes": [
+          "tk_buckets_shape_r0_r1_plan_smem_bytes_ws_bytes_cluster": [
               tk_plan_row(*b) for b in tk_shapes],
           "tt_launches": [plan_row(s, r) for s, r in launches_tt],
           "deit_launches_shape_r_plan_smem_bytes_ws_bytes": [

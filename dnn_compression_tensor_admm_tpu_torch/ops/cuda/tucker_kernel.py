@@ -94,41 +94,76 @@ def block_plan_fits(k: int, o: int, i: int, r0: int, r1: int) -> bool:
     return smem_bytes(k, o, i, r0, r1) <= MAX_SMEM_BYTES
 
 
-# Chunk length along a Gram of X's summed side that the workspace plan
-# grows for (kStageLen in the CUDA source).
+# Chunk length along a Gram of X's summed side that the workspace plan's
+# stage buffers grow for (kStageLen in the CUDA source).
 STAGE_LEN = 64
 
 # regions of the workspace plan, in the order they are taken into shared
-# memory (`make_ws_plan`)
-WS_REGIONS = ("ns", "g", "u", "y", "m")
+# memory (`make_ws_plan`): the Newton-Schulz matrices, the partial S, the
+# Gram, Y, the factors, the HOOI products
+WS_REGIONS = ("ns", "sp", "g", "y", "u", "m")
 
 
 class WsPlan(NamedTuple):
-    smem_floats: int   # shared memory, the chunk buffers included
+    cluster: int       # blocks per layer (one thread-block cluster)
+    smem_floats: int   # shared memory of each block, the stage buffers included
     ws_floats: int     # device memory per layer
     in_ws: Tuple[str, ...]  # regions in the workspace
-    stage: int         # floats of each chunk buffer
+    stage: int         # floats of each of the two stage buffers
     ldc: int           # the longer chunk row stride (G0's or G1's)
     kg: int            # k per HOOI product phase
 
 
-def ws_plan(k: int, o: int, i: int, r0: int, r1: int) -> WsPlan:
+def ws_cluster(o: int, i: int) -> int:
+    """Blocks per layer of the workspace plan (`ws_cluster`): 8 from 192
+    padded rows of O or I, 4 from 96, 2 from 48, else 1."""
+    npad = max(_up4(o), _up4(i))
+    return 8 if npad >= 192 else 4 if npad >= 96 else 2 if npad >= 48 else 1
+
+
+def split_lo(n: int, q: int, c: int) -> int:
+    """First of the rows of an n-row matrix (n a multiple of 4) that block
+    q of a c-block cluster owns: groups of 4 rows spread evenly."""
+    return 4 * ((n // 4) * q // c)
+
+
+def _own_cap(n: int, c: int) -> int:
+    return 4 * -(-(n // 4) // c)
+
+
+def ws_plan(k: int, o: int, i: int, r0: int, r1: int,
+            cluster: int = 0) -> WsPlan:
     """The workspace plan of a [K, O, I] layer, as `make_ws_plan` in the
-    CUDA source: the padded layout, its regions (the five Newton-Schulz
-    matrices [rp, rp], the Gram [np, np], U0 and U1, Y [np, rp], and HOOI
-    products M_k [op, r1p] / N_k [r0p, ip], as many k as fit, in groups of
-    equal size) taken into shared memory in that order while they fit, the
-    rest in the workspace. The Gram and the factors keep room for two
-    chunks of 16 rows of X beside them; the other shared regions lie under
-    the chunk buffers."""
+    CUDA source, for `cluster` blocks per layer (default `ws_cluster`).
+
+    The padded layout; each block of the cluster owns rows (groups of 4,
+    spread evenly) of every region, in this order: the five Newton-Schulz
+    matrices [rp, rp], the partial S [rp, rp] (whole in each block, with
+    rp floats for the trace's diagonal), the Gram [np, np], Y [np, rp],
+    U0 and U1, and HOOI products M_k [op, r1p] / N_k^T [ip, r0p], as many
+    k as fit, in groups of equal size. A block takes its rows of each
+    region into shared memory in that order while they fit beside two
+    stage buffers of one row of X's Gram chunks (`ldc`) at least, and of
+    rp x rp where two fit a block; a region that does not fit lies whole
+    in the layer's slab (the partial S once per block). The partial S
+    shares the scratch region with the stage buffers."""
+    c = cluster or ws_cluster(o, i)
     op, ip, r0p, r1p = _up4(o), _up4(i), _up4(r0), _up4(r1)
     npad, rp = max(op, ip), max(r0p, r1p)
     ldc = max(op + 4, ip)
-    chunks_min = 2 * 16 * ldc
-    per_k = max(op * r1p, r0p * ip)
-    sizes = {"ns": 5 * rp * rp, "g": npad * npad, "u": op * r0p + ip * r1p,
-             "y": npad * rp}
-    persist = scratch = 0
+    rbn, rbr = _own_cap(npad, c), _own_cap(rp, c)
+    rb0, rb1 = _own_cap(op, c), _own_cap(ip, c)
+    per_k = max(rb0 * r1p, rb1 * r0p)
+    own = {"ns": 5 * rbr * rp, "sp": rp * rp + rp, "g": rbn * npad,
+           "u": rb0 * r0p + rb1 * r1p, "y": rbn * rp}
+    whole = {"ns": 5 * rp * rp, "sp": c * rp * rp, "g": npad * npad,
+             "u": op * r0p + ip * r1p, "y": npad * rp,
+             "m": k * max(op * r1p, ip * r0p)}
+    # two stage buffers of a chunk row at least, and of a whole
+    # Newton-Schulz matrix where two fit a block
+    rr = rp * rp
+    persist = 0
+    scratch = 2 * (ldc if ldc >= rr or 2 * rr > MAX_SMEM_FLOATS else rr)
     in_ws = []
     kg = k
     for name in WS_REGIONS:
@@ -136,18 +171,24 @@ def ws_plan(k: int, o: int, i: int, r0: int, r1: int) -> WsPlan:
             room = MAX_SMEM_FLOATS - persist - scratch
             fit = min(k, room // per_k) if room >= per_k else 0
             kg = -(-k // -(-k // fit)) if fit > 0 else k
-            sizes["m"] = kg * per_k
-        keeps = name in ("g", "u")
-        ps = persist + (sizes[name] if keeps else 0)
-        sc = scratch + (0 if keeps else sizes[name])
-        if ps + max(sc, chunks_min) <= MAX_SMEM_FLOATS:
-            persist, scratch = ps, sc
+            own["m"] = kg * per_k
+        if name == "sp":
+            fits = persist + max(scratch, own["sp"]) <= MAX_SMEM_FLOATS
+            if fits:
+                scratch = max(scratch, own["sp"])
         else:
+            fits = persist + own[name] + scratch <= MAX_SMEM_FLOATS
+            if fits:
+                persist += own[name]
+        if not fits:
             in_ws.append(name)
-    total = max(persist + scratch,
-                min(persist + 2 * ldc * STAGE_LEN, MAX_SMEM_FLOATS))
-    return WsPlan(total, sum(sizes[n] for n in in_ws), tuple(in_ws),
-                  ((total - persist) // 2) & ~3, ldc, kg)
+            if name == "m":
+                kg = k
+    want = max(STAGE_LEN * ldc, npad * rp)
+    stage = min((MAX_SMEM_FLOATS - persist) // 2, want) & ~3
+    total = persist + max(2 * stage, 0 if "sp" in in_ws else rp * rp + rp)
+    return WsPlan(c, total, sum(whole[n] for n in in_ws), tuple(in_ws),
+                  stage, ldc, kg)
 
 
 def plan_name(k: int, o: int, i: int, r0: int, r1: int) -> str:
@@ -306,9 +347,12 @@ def bind_ws(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.tucker2_factors_ws_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    for name in ("tucker2_factors_ws_smem_bytes", "tucker2_factors_ws_floats"):
+    for name, restype in (("tucker2_factors_ws_cluster", ctypes.c_int),
+                          ("tucker2_factors_ws_smem_bytes", ctypes.c_int),
+                          ("tucker2_factors_ws_floats", ctypes.c_longlong),
+                          ("tucker2_factors_ws_max_clusters", ctypes.c_int)):
         getattr(lib, name).argtypes = [ctypes.c_int] * 5
-        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).restype = restype
     return lib
 
 
@@ -340,14 +384,17 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, r0: int, r1: int, *,
 
 def launch_ws(lib: ctypes.CDLL, x: torch.Tensor, r0: int, r1: int, *,
               sweeps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`launch` for the workspace plan of a `tucker2_factors_ws` library,
-    with the per-layer slabs allocated here."""
+    """`launch` for the workspace plan of a `tucker2_factors_ws` library:
+    one thread-block cluster of `ws_cluster(O, I)` blocks per layer, the
+    per-layer slabs allocated here. A cluster the card cannot schedule
+    makes the launch fail, and this raise."""
     l, k, o, i = x.shape
     u0 = torch.empty((l, o, r0), dtype=torch.float32, device=x.device)
     u1 = torch.empty((l, i, r1), dtype=torch.float32, device=x.device)
-    # torch's allocations are 512-byte aligned, and every slab is a
-    # multiple of 4 floats
-    ws = torch.empty(l * ws_plan(k, o, i, r0, r1).ws_floats,
+    # the library's own slab size (`ws_plan` mirrors it); torch's
+    # allocations are 512-byte aligned, and every slab is a multiple of 4
+    # floats
+    ws = torch.empty(l * lib.tucker2_factors_ws_floats(k, o, i, r0, r1),
                      dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

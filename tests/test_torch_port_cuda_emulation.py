@@ -5,11 +5,14 @@ rewritten for g++ and run under a small emulation of the CUDA subset they
 use: a block is 256 host threads, `__syncthreads` a std::barrier, shared
 memory a buffer of exactly the kernel's planned size (with a guard band
 behind it), a cp.async copy a plain copy made either when it is issued or
-as late as the kernel's wait allows. That runs each kernel's own indexing,
-staging, padding and synchronisation, and catches a misaligned float4
-access, a copy never waited for, or a write past the shared-memory plan.
-It says nothing about speed or about what nvcc accepts: `chip_smoke.py`
-builds and checks the kernels on the card.
+as late as the kernel's wait allows. A thread-block cluster of C blocks
+runs its C x 256 threads at once, each block with its own buffer and
+guard band; the cluster barrier is one std::barrier over all of them and
+`cluster_map` points into another block's buffer. That runs each kernel's
+own indexing, staging, padding and synchronisation, and catches a
+misaligned float4 access, a copy never waited for, or a write past any
+block's shared-memory plan. It says nothing about speed or about what
+nvcc accepts: `chip_smoke.py` builds and checks the kernels on the card.
 """
 
 import ctypes
@@ -27,10 +30,12 @@ from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk
 
 SHIM = r"""
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <vector>
 #include <thread>
 struct Dim { unsigned x; };
@@ -38,9 +43,12 @@ struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline thread_local Dim threadIdx, blockIdx;
 inline Dim blockDim{256};
-inline std::barrier<>* emu_bar;
-inline float* emu_smem;
-inline int emu_error = 0;  // 1 misaligned float4, 2 copy not waited for
+inline thread_local std::barrier<>* emu_bar;   // this block's
+inline thread_local std::barrier<>* emu_cbar;  // this cluster's
+inline thread_local float* emu_smem;           // this block's shared memory
+inline thread_local float* const* emu_blocks;  // every block's of the cluster
+inline thread_local unsigned emu_rank, emu_csize;
+inline std::atomic<int> emu_error{0};  // 1 misaligned float4, 2 copy not waited for
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 #define __global__
 #define __device__
@@ -70,29 +78,47 @@ inline void emu_wait(int n) {
   }
 }
 constexpr int kGuard = 1024;  // floats behind the plan, filled with a sentinel
+// `clusters` clusters of c blocks, one cluster at a time, its c x blockDim
+// threads at once; block b of cluster l is blockIdx l * c + b.
 template <class Kernel>
-int emu_launch(int blocks, int floats, Kernel kernel) {
-  std::vector<float> smem(floats + kGuard);
-  emu_smem = smem.data();
+int emu_launch_clusters(int clusters, int c, int floats, Kernel kernel) {
+  std::vector<std::vector<float>> smem(c, std::vector<float>(floats + kGuard));
+  std::vector<float*> bases;
+  for (auto& s : smem) bases.push_back(s.data());
   emu_error = 0;
-  for (int b = 0; b < blocks; ++b) {
-    std::fill(smem.begin(), smem.end(), NAN);
-    std::fill(smem.begin() + floats, smem.end(), 12345.f);
-    std::barrier<> bar(blockDim.x);
-    emu_bar = &bar;
+  for (int l = 0; l < clusters; ++l) {
+    for (auto& s : smem) {
+      std::fill(s.begin(), s.end(), NAN);
+      std::fill(s.begin() + floats, s.end(), 12345.f);
+    }
+    std::barrier<> cbar(c * blockDim.x);
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    for (int b = 0; b < c; ++b) bars.emplace_back(new std::barrier<>(blockDim.x));
     std::vector<std::thread> threads;
-    for (unsigned i = 0; i < blockDim.x; ++i)
-      threads.emplace_back([&, i, b] {
-        threadIdx.x = i;
-        blockIdx.x = b;
-        kernel();
-        if (!emu_groups.empty() || !emu_open.empty()) emu_error = 2;
-      });
+    for (int b = 0; b < c; ++b)
+      for (unsigned i = 0; i < blockDim.x; ++i)
+        threads.emplace_back([&, i, b] {
+          threadIdx.x = i;
+          blockIdx.x = l * c + b;
+          emu_rank = b;
+          emu_csize = c;
+          emu_bar = bars[b].get();
+          emu_cbar = &cbar;
+          emu_smem = bases[b];
+          emu_blocks = bases.data();
+          kernel();
+          if (!emu_groups.empty() || !emu_open.empty()) emu_error = 2;
+        });
     for (auto& t : threads) t.join();
-    for (int i = floats; i < floats + kGuard; ++i)
-      if (smem[i] != 12345.f) return 3;  // written past the plan
+    for (auto& s : smem)
+      for (int i = floats; i < floats + kGuard; ++i)
+        if (s[i] != 12345.f) return 3;  // written past the plan
   }
   return emu_error;
+}
+template <class Kernel>
+int emu_launch(int blocks, int floats, Kernel kernel) {
+  return emu_launch_clusters(blocks, 1, floats, kernel);
 }
 """
 
@@ -136,20 +162,22 @@ extern "C" int emu_run(const float* x, float* u0, float* u1, int l, int k,
     "tucker2_factors_ws": r"""
 extern "C" int emu_run_ws(const float* x, float* u0, float* u1, float* ws,
                           int l, int k, int o, int i, int r0, int r1,
-                          int sweeps, int late) {
+                          int sweeps, int late, int c) {
   emu_late = late;
   blockDim.x = kThreads;
-  return emu_launch(l, make_ws_plan(k, o, i, r0, r1).total, [&] {
+  return emu_launch_clusters(l, c, make_ws_plan(k, o, i, r0, r1, c).total, [&] {
     tucker2_factors_ws_kernel(x, u0, u1, ws, k, o, i, r0, r1, sweeps);
   });
 }
-extern "C" int emu_ws_plan(int k, int o, int i, int r0, int r1, int* out) {
-  const WsPlan p = make_ws_plan(k, o, i, r0, r1);
+extern "C" int emu_ws_plan(int k, int o, int i, int r0, int r1, int c,
+                           long long* out) {
+  const WsPlan p = make_ws_plan(k, o, i, r0, r1, c);
   out[0] = p.total;
   out[1] = p.ws;
-  out[2] = static_cast<int>(p.in_ws);
+  out[2] = p.in_ws;
   out[3] = p.stage;
   out[4] = p.kg;
+  out[5] = ws_cluster(o, i);
   return 0;
 }
 """,
@@ -169,10 +197,21 @@ def _for_the_cpu(name: str) -> str:
     bodies = {"cp_async4": "emu_copy(dst, src, 1);",
               "cp_async16": "emu_copy(dst, src, 4);",
               "cp_async_commit": "emu_commit();",
-              "cp_async_wait": "emu_wait(N);"}
+              "cp_async_wait": "emu_wait(N);",
+              # cluster.cuh: the cluster barrier, pointers into and
+              # stores to the other blocks' buffers
+              "cluster_rank": "return emu_rank;",
+              "cluster_size": "return emu_csize;",
+              "cluster_sync": "emu_cbar->arrive_and_wait();",
+              "cluster_map": "return emu_blocks[rank] + (p - emu_smem);",
+              "st4_remote": "*emu_aligned(reinterpret_cast<float4*>("
+                            "emu_blocks[rank] + (p - emu_smem))) = v;",
+              "ld4_cg": "return *reinterpret_cast<const float4*>(p);",
+              "ld_cg": "return *p;"}
     for fn, body in bodies.items():
-        src = re.sub(rf"(void {fn}\([^)]*\) \{{).*?\n\}}", rf"\1 {body} }}",
-                     src, flags=re.S)
+        src = re.sub(rf"((?:void|unsigned|float\*|float4|float) {fn}"
+                     rf"\([^)]*\) \{{).*?\n\}}", rf"\1 {body} }}", src,
+                     flags=re.S)
     src = re.sub(r"\*reinterpret_cast<(const )?float4\*>\(([^;=]*?)\)( =|;)",
                  r"*emu_aligned(reinterpret_cast<\1float4*>(\2))\3", src)
     # the C interface launches on a stream; the emulation has its own runner
@@ -202,8 +241,8 @@ def libs(tmp_path_factory):
     out["tucker2_factors"].emu_run.argtypes = ([ctypes.c_void_p] * 3
                                                + [ctypes.c_int] * 8)
     out["tucker2_factors_ws"].emu_run_ws.argtypes = ([ctypes.c_void_p] * 4
-                                                     + [ctypes.c_int] * 8)
-    out["tucker2_factors_ws"].emu_ws_plan.argtypes = ([ctypes.c_int] * 5
+                                                     + [ctypes.c_int] * 9)
+    out["tucker2_factors_ws"].emu_ws_plan.argtypes = ([ctypes.c_int] * 6
                                                       + [ctypes.c_void_p])
     return out
 
@@ -338,39 +377,44 @@ def test_tucker2_plans_match_plain(libs, shape, r0, r1, sweeps, resident, late):
     _tucker2_against_plain(libs, shape, r0, r1, sweeps, late)
 
 
-@pytest.mark.parametrize("shape,r0,r1,in_ws,late", [
-    # DeiT fc1 and fc2: the Newton-Schulz matrices (r = 128), the Gram, the
-    # factors and Y in the workspace, one HOOI product shared
-    ((1, 1, 768, 192), 128, 72, "ns g u y", 1),
-    ((1, 1, 192, 768), 72, 128, "ns g u y", 0),
-    # DeiT proj: Newton-Schulz matrices and factors shared, chunks over them
-    ((2, 1, 192, 192), 72, 72, "g y m", 1),
-    # a shared Gram, the chunks streaming beside it; all 9 HOOI products
-    # in the workspace, copies landing early and late
-    ((1, 9, 128, 128), 64, 64, "y m", 0),
-    ((1, 9, 128, 128), 64, 64, "y m", 1),
-    # a shared Gram, HOOI products shared in groups of 2 (9 = 2+2+2+2+1)
-    ((1, 9, 208, 208), 20, 20, "u", 0),
-    ((1, 9, 208, 208), 20, 20, "u", 1),
-    # O and I not multiples of 4: scalar HOOI products, zero pads
-    ((1, 9, 150, 90), 70, 45, "u y", 1),
-    # mode 0 full rank (the identity), all 9 HOOI products shared
-    ((1, 9, 12, 400), 12, 8, "g", 0),
+@pytest.mark.parametrize("shape,r0,r1,cluster,in_ws,sweeps,late", [
+    # DeiT fc1, fc2 and qkv at C = 2: the Gram (its chunks of A staged by
+    # cp.async), Y, the factors and (fc1, fc2) the Newton-Schulz matrices and
+    # the HOOI product in the slab; one copy of Newton-Schulz's Y and Z
+    ((1, 1, 768, 192), 128, 72, 2, "ns g y u m", 2, 1),
+    ((1, 1, 192, 768), 72, 128, 2, "ns g y u m", 2, 0),
+    ((1, 1, 576, 192), 128, 72, 2, "ns g y u", 2, 0),
+    # DeiT proj, two layers: two clusters, the factors in the slab
+    ((2, 1, 192, 192), 72, 72, 2, "u", 2, 1),
+    # C = 4, all in shared memory: two copies of Y and Z
+    ((1, 9, 128, 128), 64, 64, 4, "", 2, 1),
+    # C = 2, then C = 8, where 3 blocks own no Newton-Schulz rows (rp = 20)
+    ((1, 9, 208, 208), 20, 20, 2, "", 2, 0),
+    ((1, 9, 208, 208), 20, 20, 8, "", 2, 1),
+    # O and I not multiples of 4: scalar HOOI products, zero pads; the 9
+    # HOOI products in 5 groups of 2
+    ((1, 9, 150, 90), 70, 45, 2, "", 2, 1),
+    # mode 0 full rank (the identity); the Gram in the slab; two layers
+    ((2, 9, 12, 400), 12, 8, 2, "g", 2, 0),
+    # r = 244: the Newton-Schulz matrices and the partial S in the slab,
+    # their products staged from the slab (no room for all of Y and Z)
+    ((1, 1, 248, 8), 244, 8, 2, "ns sp y u", 0, 1),
 ])
-def test_tucker2_workspace_plan_matches_plain(libs, shape, r0, r1, in_ws,
-                                              late):
+def test_tucker2_workspace_plan_matches_plain(libs, shape, r0, r1, cluster,
+                                              in_ws, sweeps, late):
     l, k, o, i = shape
     assert not tk.block_plan_fits(k, o, i, r0, r1)
     assert tk.kernel_supported(shape, r0, r1)
     assert tk.plan_name(k, o, i, r0, r1) == "workspace"
-    plan = tk.ws_plan(k, o, i, r0, r1)
+    plan = tk.ws_plan(k, o, i, r0, r1, cluster)
     assert plan.in_ws == tuple(in_ws.split())
-    got = np.zeros(5, np.int32)
-    libs["tucker2_factors_ws"].emu_ws_plan(k, o, i, r0, r1, got.ctypes.data)
-    bits = {"ns": 1, "g": 2, "u": 4, "y": 8, "m": 16}
+    got = np.zeros(6, np.int64)
+    libs["tucker2_factors_ws"].emu_ws_plan(k, o, i, r0, r1, cluster,
+                                           got.ctypes.data)
+    bits = {"ns": 1, "g": 2, "u": 4, "y": 8, "m": 16, "sp": 32}
     assert list(got) == [plan.smem_floats, plan.ws_floats,
                          sum(bits[n] for n in plan.in_ws), plan.stage,
-                         plan.kg]
+                         plan.kg, tk.ws_cluster(o, i)]
     x = (np.random.RandomState(o * i).standard_normal(shape)
          / np.sqrt(k * i)).astype(np.float32)
     ws = np.full(l * plan.ws_floats + GUARD, np.nan, np.float32)
@@ -380,13 +424,14 @@ def test_tucker2_workspace_plan_matches_plain(libs, shape, r0, r1, in_ws,
     u1 = np.full((l, i, r1), np.nan, np.float32)
     err = libs["tucker2_factors_ws"].emu_run_ws(
         x.ctypes.data, u0.ctypes.data, u1.ctypes.data, ws.ctypes.data, l, k,
-        o, i, r0, r1, 2, late)
+        o, i, r0, r1, sweeps, late, cluster)
     assert err == 0, f"emulation fault {err}"
     assert (ws[-GUARD:] == 12345.0).all(), "written past the workspace"
     xt = torch.from_numpy(x)
-    p0, p1 = tk.tucker2_factors_plain(xt, r0, r1, sweeps=2)
+    p0, p1 = tk.tucker2_factors_plain(xt, r0, r1, sweeps=sweeps)
+    # the same float32 iteration in another summation order: Y^T Y summed
+    # over the cluster's blocks, Newton-Schulz's Y W as W Y
     z = tk.tucker2_reconstruct(xt, torch.from_numpy(u0), torch.from_numpy(u1))
     zp = tk.tucker2_reconstruct(xt, p0, p1)
-    # the same float32 iteration in another summation order
     assert (torch.linalg.vector_norm(z - zp)
             / torch.linalg.vector_norm(zp)).item() < 1e-5

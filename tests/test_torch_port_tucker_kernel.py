@@ -175,30 +175,85 @@ def test_deit_buckets_take_the_workspace_plan():
         == [472_320, 2_465_792, 3_749_888, 3_749_888]
     plans = [tk.ws_plan(*s[1:], r0, r1) for s, r0, r1 in DEIT_BUCKETS]
     assert all(tk.kernel_supported(*b) for b in DEIT_BUCKETS)
-    # proj: the Newton-Schulz matrices (rp = 72) and the factors shared;
-    # at r = 128 the Newton-Schulz matrices alone (320 KiB) are past a
-    # block, and one HOOI product is what stays
-    assert [p.in_ws for p in plans] == [("g", "y", "m")] + [
-        ("ns", "g", "u", "y")] * 3
+    # one cluster of 8 blocks per layer: 96 of the card's SMs for 12 layers
+    assert [p.cluster for p in plans] == [8] * 4
+    # proj all in shared memory; at r = 128 the Gram's own rows (fc1: 96 x
+    # 768) and the factors (with fc1 and fc2's HOOI product) in the slab
+    assert [p.in_ws for p in plans] == [(), ("g", "u"), ("g", "u", "m"),
+                                        ("g", "u", "m")]
     assert [4 * p.ws_floats for p in plans] == [
-        258_048, 2_299_904, 3_528_704, 3_528_704]
-    assert [4 * p.smem_floats for p in plans] == [214_272] + [232_448] * 3
-    # two chunk buffers of at least 16 rows of X_k (proj: over the shared
-    # Newton-Schulz matrices, after the factors)
-    assert all(p.stage >= 16 * p.ldc for p in plans)
+        0, 1_677_312, 3_028_992, 3_028_992]
+    assert [4 * p.smem_floats for p in plans] == [173_952] + [232_448] * 3
+    # two stage buffers of 16 rows of X_k at least, each holding a whole
+    # Newton-Schulz matrix (proj: two, so two copies of Y and Z)
+    for p, (_, r0, r1) in zip(plans, DEIT_BUCKETS):
+        rp = max(tk._up4(r0), tk._up4(r1))
+        assert p.stage >= 16 * p.ldc and p.stage >= rp * rp
+    assert plans[0].stage >= 2 * 72 * 72
     # the work: 214 GFLOP per Z-step, 3.20 ms at 67 TFLOP/s float32
     flops = sum(tk.factor_flops(*b) for b in DEIT_BUCKETS)
     assert 214.2e9 < flops < 214.3e9
 
 
-def test_workspace_plan_regions_fit_and_are_aligned():
-    for shape, r0, r1 in [*DEIT_BUCKETS, ((6, 9, 256, 256), 64, 64),
-                          ((1, 9, 16, 328), 8, 75), ((1, 9, 208, 208), 20, 20),
-                          ((1, 9, 150, 90), 70, 45)]:
+WS_SHAPES = [*DEIT_BUCKETS, ((6, 9, 256, 256), 64, 64),
+             ((1, 9, 16, 328), 8, 75), ((1, 9, 208, 208), 20, 20),
+             ((1, 9, 150, 90), 70, 45), ((1, 1, 248, 8), 244, 8)]
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+def test_workspace_plan_regions_fit_and_are_aligned(cluster):
+    for shape, r0, r1 in WS_SHAPES:
         _, k, o, i = shape
-        p = tk.ws_plan(k, o, i, r0, r1)
+        p = tk.ws_plan(k, o, i, r0, r1, cluster)
+        assert p.cluster == (cluster or tk.ws_cluster(o, i))
         assert p.smem_floats <= tk.MAX_SMEM_BYTES // 4
         assert p.ws_floats % 4 == 0 and p.stage % 4 == 0 and p.stage >= p.ldc
+        assert 2 * p.stage <= p.smem_floats
         # HOOI products in the workspace: all K in one phase; shared: as
         # many as fit, in groups of equal size
         assert 1 <= p.kg <= k and ("m" not in p.in_ws or p.kg == k)
+
+
+@pytest.mark.parametrize("n", [4, 8, 20, 72, 128, 192, 768])
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_workspace_rows_split_over_the_cluster(n, c):
+    # groups of 4 rows, every row owned once, in block order, the blocks'
+    # shares at most one group apart (some blocks own none where n < 4 c)
+    los = [tk.split_lo(n, q, c) for q in range(c + 1)]
+    assert los[0] == 0 and los[-1] == n
+    sizes = [b - a for a, b in zip(los, los[1:])]
+    assert all(s >= 0 and s % 4 == 0 for s in sizes)
+    assert max(sizes) - min(sizes) <= 4
+    assert max(sizes) == tk._own_cap(n, c)
+
+
+def test_workspace_cluster_sizes():
+    assert [tk.ws_cluster(o, i) for o, i in [(192, 192), (576, 192),
+                                             (16, 328), (150, 90), (90, 40),
+                                             (40, 20)]] == [8, 8, 8, 4, 2, 1]
+
+
+def test_workspace_launch_raises_on_a_cluster_the_card_refuses(monkeypatch):
+    # no card here: a library that reports an error (a cluster the card
+    # cannot schedule) and a CPU tensor standing in; the wrapper raises and
+    # tries nothing else
+    import contextlib
+    import types
+
+    class Refusing:
+        calls = 0
+
+        def tucker2_factors_ws_floats(self, *dims):
+            return 4
+
+        def tucker2_factors_ws_launch(self, *args):
+            Refusing.calls += 1
+            return 201  # a CUDA error: the launch was refused
+
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros((2, 1, 192, 192))
+    with pytest.raises(RuntimeError, match="CUDA error 201"):
+        tk.launch_ws(Refusing(), x, 72, 72, sweeps=2)
+    assert Refusing.calls == 1

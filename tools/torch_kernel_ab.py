@@ -20,8 +20,10 @@ baseline does not have is timed in this build alone. The subspace
 kernel is timed at the Z-step's iteration count and at iters=0 (the
 Gram, the identity start and the lift), the Tucker-2 kernel at the
 Z-step's sweeps and at sweeps=0 (the Grams of X and the HOSVD init). It
-reports this checkout's errors against the plain versions and the
-largest difference between the two builds' outputs (at both counts),
+reports this checkout's errors against the plain versions, the
+Tucker-2 workspace plan's cluster size and how many such clusters the
+card holds at once, and the largest difference between the two builds'
+outputs (at both counts),
 one JSON line per shape and per-Z-step sums over the main-path shapes,
 also written to --out (default build/kernel_ab.jsonl).
 
@@ -66,8 +68,24 @@ def bind_subspace(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_tucker_ws(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`tucker_kernel.bind_ws`, or for a baseline from before the cluster
+    plan (no `tucker2_factors_ws_cluster`; its slab size is an int) the
+    launch and plan functions it has."""
+    if hasattr(lib, "tucker2_factors_ws_cluster"):
+        return tk.bind_ws(lib)
+    lib.tucker2_factors_ws_launch.argtypes = ([ctypes.c_void_p] * 4
+                                              + [ctypes.c_int] * 7
+                                              + [ctypes.c_void_p])
+    lib.tucker2_factors_ws_launch.restype = ctypes.c_int
+    for name in ("tucker2_factors_ws_smem_bytes", "tucker2_factors_ws_floats"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 5
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 BIND = {"subspace": bind_subspace, "tucker2_factors": tk.bind,
-        "tucker2_factors_ws": tk.bind_ws}
+        "tucker2_factors_ws": bind_tucker_ws}
 
 
 def main() -> int:
@@ -195,6 +213,11 @@ def main() -> int:
         p0, p1 = tk.tucker2_factors_plain(x, r0, r1, sweeps=cs.SWEEPS)
         row = {"kernel": "tucker2_factors", "path": path,
                "shape": list(shape), "ranks": [r0, r1], "plan": plan}
+        if plan == "workspace":  # this build's cluster and its occupancy
+            lib = libs["this", "tucker2_factors_ws"]
+            row["cluster"] = lib.tucker2_factors_ws_cluster(*shape[1:], r0, r1)
+            row["max_active_clusters"] = lib.tucker2_factors_ws_max_clusters(
+                *shape[1:], r0, r1)
         for sweeps in (cs.SWEEPS, 0):
             u0, u1 = tucker("this", sweeps)
             if both:
