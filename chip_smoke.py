@@ -7,11 +7,13 @@ prints one JSON line per phase:
 
 1. device  — the card's name, count and power limit;
 2. build   — compiles the CUDA kernels from `csrc/` (the Tucker-2 block
-   plans, its workspace plan and the subspace kernel: three nvcc
-   processes at once) and checks each compiled shared-memory plan (and
-   each workspace, and the Tucker-2 workspace plan's cluster size)
-   against the Python gate at every main-path, near-cap and extra
-   workspace shape;
+   plans and its workspace plan, the subspace block plans and its
+   workspace plan: four nvcc processes at once) and checks each compiled
+   shared-memory plan (and each workspace, and each workspace plan's
+   cluster size) against the Python gate at every main-path, near-cap and
+   extra workspace shape; it prints how many clusters of each DeiT TT
+   workspace launch the card holds at once and fails if a launch that
+   fits the card (L x C <= 132 SMs) cannot hold all its L;
 3. kernel  — each kernel at its main paths' shapes (inputs from --seed)
    against its plain PyTorch version on the card, with its time, the
    plain version's, a library yardstick's and the card's bound: the
@@ -24,7 +26,8 @@ prints one JSON line per phase:
    2), the
    subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step and at
    the 33 of a DeiT-tiny-TT@2x Z-step (13 of them in the workspace
-   plan), each also at iters=0 (`gram_ms`: the Gram, the identity start
+   plan, one thread-block cluster per layer, printed as for Tucker-2),
+   each also at iters=0 (`gram_ms`: the Gram, the identity start
    and the lift), and both kernels at two shapes near a block's
    shared-memory limit, which take the Tucker-2 kernel's streamed plan
    and the subspace kernel's unpadded plan; kernel times are device
@@ -317,6 +320,15 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
         t_np = rng.standard_normal(shape).astype(np.float32)
         t = torch.from_numpy(t_np / np.float32(np.sqrt(cols))).cuda()
         max_abs, proj, rel = check_subspace(t, r)
+        plan = sk.plan_name(rows, cols, r)
+        if plan == "workspace":  # one cluster per layer: its size, and how
+            # many the card holds at once (cudaOccupancyMaxActiveClusters)
+            lib = sk._ws_library()
+            cluster = {"cluster": lib.subspace_ws_cluster(),
+                       "max_active_clusters":
+                           lib.subspace_ws_max_clusters(rows, cols, r)}
+        else:
+            cluster = {}
         kernel_ms = graph_ms(
             lambda: sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS))
         # the same launch without the iteration: the Gram, the identity
@@ -331,7 +343,7 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
         nbytes = 4 * (l * rows * cols + l * rows * r)
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
         row = {"phase": "kernel", "name": "dominant_left_subspace_batched",
-               "path": path, "plan": sk.plan_name(rows, cols, r),
+               "path": path, "plan": plan, **cluster,
                "shape_L_rows_cols": list(shape), "rank": r,
                "projector_err": proj, "projector_tol": TT_PROJ_TOL,
                "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
@@ -545,6 +557,9 @@ RECORDED_MS = {
     "tucker2_before_its_redesign_ms_per_z_step": 3.97,
     # DeiT-tiny TK@2x's Z-step in the one-block-per-layer workspace plan
     "tucker2_workspace_plan_before_its_redesign_ms_per_z_step": 262.75,
+    # DeiT-tiny TT@2x's subspace kernel per Z-step with its 13 workspace
+    # launches on one block per layer
+    "subspace_workspace_plan_before_its_redesign_ms_per_z_step": 66.29,
 }
 
 
@@ -586,12 +601,13 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    libraries = ("tucker2_factors", "tucker2_factors_ws", "subspace")
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # nvcc x 3 at once
+    libraries = ("tucker2_factors", "tucker2_factors_ws", "subspace",
+                 "subspace_ws")
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:  # nvcc x 4 at once
         infos = dict(zip(libraries, pool.map(build.build, libraries)))
     build_wall_s = time.perf_counter() - t0
     tk_lib, tk_ws_lib = tk._library(), tk._ws_library()
-    sk_lib = sk._library()
+    sk_lib, sk_ws_lib = sk._library(), sk._ws_library()
     buckets = main_path_buckets()
     buckets_deit_tk = main_path_buckets(deit_program("tk"))
     if len(buckets_deit_tk) != 4:
@@ -629,11 +645,18 @@ def main() -> int:
         if sk.block_plan_fits(rows, cols, r):
             planned = (sk_lib.subspace_smem_bytes(rows, cols, r), 0)
             want = (sk.smem_bytes(rows, cols, r), 0)
-        else:  # the workspace plan
-            planned = (sk_lib.subspace_ws_smem_bytes(rows, cols, r),
-                       sk_lib.subspace_ws_floats(rows, cols, r))
+        else:  # the workspace plan, one cluster per layer
+            planned = (sk_ws_lib.subspace_ws_smem_bytes(rows, cols, r),
+                       sk_ws_lib.subspace_ws_floats(rows, cols, r),
+                       sk_ws_lib.subspace_ws_cluster())
             ws = sk.ws_plan(rows, cols, r)
-            want = (4 * ws.smem_floats, ws.ws_floats)
+            want = (4 * ws.smem_floats, ws.ws_floats, ws.cluster)
+            # every layer's cluster at once, where the launch fits the card
+            held = sk_ws_lib.subspace_ws_max_clusters(rows, cols, r)
+            if held < 1 or (l * ws.cluster <= 132 and held < l):
+                raise AssertionError(f"{[l, rows, cols]} r={r}: the card "
+                                     f"holds {held} clusters of "
+                                     f"{ws.cluster}, not {l}")
         if planned != want:
             raise AssertionError(f"plans differ at {[l, rows, cols]} r={r}: "
                                  f"{planned} != {want}")
@@ -656,7 +679,8 @@ def main() -> int:
                     sk.smem_bytes(rows, cols, r)]
         ws = sk.ws_plan(rows, cols, r)
         return [list(shape), r, "workspace", 4 * ws.smem_floats,
-                4 * ws.ws_floats * shape[0], list(ws.in_ws)]
+                4 * ws.ws_floats * shape[0], list(ws.in_ws), ws.cluster,
+                sk_ws_lib.subspace_ws_max_clusters(rows, cols, r)]
 
     emit({"phase": "build", "wall_s": build_wall_s,
           "kernels": {name: {"build_seconds": i["seconds"],
@@ -665,7 +689,8 @@ def main() -> int:
           "tk_buckets_shape_r0_r1_plan_smem_bytes_ws_bytes_cluster": [
               tk_plan_row(*b) for b in tk_shapes],
           "tt_launches": [plan_row(s, r) for s, r in launches_tt],
-          "deit_launches_shape_r_plan_smem_bytes_ws_bytes": [
+          "deit_launches_shape_r_plan_smem_bytes_ws_bytes_regions_"
+          "cluster_max_active_clusters": [
               plan_row(s, r) for s, r in launches_deit]})
 
     rows_tk = phase_kernel(args.seed, buckets, "resnet32 tk@3x")
@@ -706,12 +731,14 @@ def main() -> int:
                              "library_ms_hosvd_only_svd_of_both_unfoldings")
         one["hosvd_ms"] = sum(r["hosvd_ms"] for r in rows)
         entries.append(one)
-    for name, path, n, rows in (
+    # (13 DeiT-TT launches take the workspace plan, its own source)
+    for name, path, n, rows, source in (
             ("dominant_left_subspace_batched", "resnet32 tt@3x",
-             launches_tt_main, rows_tt),
+             launches_tt_main, rows_tt, src + "subspace.cu"),
             ("dominant_left_subspace_batched@deit_tt2",
-             "deit_tiny_patch16_224 tt@2x", launches_deit_main, rows_deit)):
-        one = kernel_summary(name, path, src + "subspace.cu",
+             "deit_tiny_patch16_224 tt@2x", launches_deit_main, rows_deit,
+             f"{src}subspace.cu, {src}subspace_ws.cu")):
+        one = kernel_summary(name, path, source,
                              ref + "subspace_kernel.py:85", n, rows,
                              "library_ms_batched_svd")
         one["gram_ms"] = sum(r["gram_ms"] for r in rows)

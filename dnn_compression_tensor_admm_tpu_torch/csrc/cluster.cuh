@@ -1,11 +1,12 @@
-// Thread-block cluster primitives of the Tucker-2 workspace plan
-// (tucker2_factors_ws.cu): this block's rank in its cluster, the cluster's
-// size, the cluster barrier, a pointer into and stores to another block's
-// shared memory, and loads that bypass L1 for a slab region another block
-// of the cluster wrote. Each is a small named function so that the CPU
-// emulation (tests/test_torch_port_cuda_emulation.py) can rewrite its
-// body, as it rewrites the cp.async copies of stage.cuh. Every block of a
-// cluster calls the barrier with all its threads.
+// Thread-block cluster primitives of the workspace plans
+// (tucker2_factors_ws.cu, subspace_ws.cu, through cluster_iter.cuh): this
+// block's rank in its cluster, the cluster's size, the cluster barrier, a
+// pointer into and stores to another block's shared memory, and loads that
+// bypass L1 for a slab region another block of the cluster wrote. Each is
+// a small named function so that the CPU emulation
+// (tests/test_torch_port_cuda_emulation.py) can rewrite its body, as it
+// rewrites the cp.async copies of stage.cuh. Every block of a cluster
+// calls the barrier with all its threads.
 
 #pragma once
 

@@ -63,25 +63,11 @@
 // The padded plan is used wherever it fits, the unpadded one where only it
 // fits (`subspace_kernel`, launched by `subspace_launch`).
 //
-// The workspace plan takes every shape whose unpadded plan does not fit a
-// block (`subspace_ws_kernel`, launched by `subspace_ws_launch`): DeiT-tiny
-// TT@2x's r = 96 launches (144 to 720 rows by 192 or 768 columns, 378 to
-// 682 KB in the block plans) and two of its 2304 x 32 ones (281 and 302 KB,
-// most of it Y). It keeps the padded layout and runs the padded block
-// plan's products in the same order. Its regions are taken into shared
-// memory in the order the iteration reads them most: the five Newton-Schulz
-// matrices (36 of the 39 products of an orthogonal-iteration step), then
-// the Gram, the iterate and Y, each while it fits; the rest lie in a
-// per-layer slab of device memory that the wrapper allocates
-// (`subspace_ws_floats` each, 16-byte aligned; 0.19 to 0.50 MB a layer on
-// DeiT-tiny, so a bucket's slabs stay in the 50 MB L2). The products take
-// generic pointers, so they read either memory; only the cp.async copies
-// need shared memory, so the Gram's chunks stream through shared memory
-// beside a shared Gram, and the tall lift stages t through a shared Gram's
-// room or else reads t from L2. One block per layer, as in the block plans:
-// a thread-block cluster or several blocks per layer are later work.
-// The Python gate (ops/cuda/subspace_kernel.py::smem_bytes, ws_plan)
-// repeats both formulas.
+// Every shape whose unpadded plan does not fit a block takes the workspace
+// plan, a library of its own (subspace_ws.cu), so that its code does not
+// change how nvcc compiles this one.
+// The Python gate (ops/cuda/subspace_kernel.py::smem_bytes) repeats the
+// formula.
 
 #include <cuda_runtime.h>
 
@@ -130,67 +116,6 @@ __host__ __device__ inline Plan make_plan(int rows, int cols, int r) {
   return p;
 }
 
-// Regions of the workspace plan, in the order they are taken into shared
-// memory; a bit of WsPlan::in_ws is set for each that lies in the workspace.
-enum : unsigned { kNs = 1, kG = 2, kQ = 4, kY = 8 };
-
-// The workspace plan (see the header comment).
-struct WsPlan {
-  int mp, rp, yp;    // m, r and rows rounded up to 4
-  unsigned in_ws;    // regions in the per-layer workspace
-  int g, q, y, ns;   // float offsets into shared memory or the workspace
-  int g_smem;        // floats of a shared Gram (0 if in the workspace)
-  int stage;         // floats of each Gram chunk buffer, after a shared Gram
-  int total;         // floats of shared memory
-  int ws;            // floats of workspace per layer (a multiple of 4)
-};
-
-__host__ __device__ inline WsPlan make_ws_plan(int rows, int cols, int r) {
-  const int m = rows < cols ? rows : cols;
-  WsPlan p;
-  p.mp = up4(m);
-  p.rp = up4(r);
-  p.yp = up4(rows);
-  const unsigned bits[4] = {kNs, kG, kQ, kY};
-  const int sizes[4] = {5 * p.rp * p.rp, p.mp * p.mp, p.mp * p.rp,
-                        p.yp * p.rp};
-  // a shared Gram leaves room for two chunks of at least 16 along t's long
-  // side, so that the Gram streams in few barriers
-  const int chunks_min = 2 * (p.mp + 4) * 16;
-  int smem = 0;
-  p.in_ws = 0;
-  for (int i = 0; i < 4; ++i) {
-    const bool fits =
-        smem + sizes[i] <= kMaxSmemFloats &&
-        (bits[i] != kG || sizes[i] + chunks_min <= kMaxSmemFloats);
-    if (fits)
-      smem += sizes[i];
-    else
-      p.in_ws |= bits[i];
-  }
-  // offsets: a shared Gram first, so that the chunk buffers after it may
-  // cover the other shared regions (all written after the Gram)
-  int s_off = 0, w_off = 0;
-  int offs[4];
-  const int order[4] = {1, 0, 2, 3};  // Gram, Newton-Schulz, iterate, Y
-  for (int j = 0; j < 4; ++j) {
-    const int i = order[j];
-    int& off = (p.in_ws & bits[i]) ? w_off : s_off;
-    offs[i] = off;
-    off += sizes[i];
-  }
-  p.ns = offs[0];
-  p.g = offs[1];
-  p.q = offs[2];
-  p.y = offs[3];
-  p.g_smem = (p.in_ws & kG) ? 0 : sizes[1];
-  p.total = imax(s_off, imin(p.g_smem + 2 * (p.mp + 4) * kStageLen,
-                             kMaxSmemFloats));
-  p.stage = ((p.total - p.g_smem) / 2) & ~3;
-  p.ws = w_off;
-  return p;
-}
-
 // g[mo, mo] (zero past m) = the Gram of the smaller side of
 // t [rows, cols] (device memory), streamed through two shared buffers of
 // `stage` floats at buf (float4 reads in the padded plan).
@@ -212,14 +137,13 @@ __device__ void gram_staged(float* __restrict__ g, int mo,
 // Padded tall lift: y[rows, rp] = t[rows, cols] v[mp, rp]. From
 // kLiftMinCols up, t streams in chunks of mp/2 rows (row stride mp, zero
 // pads) through two buffers in buf (the Gram's mp*mp floats of shared
-// memory, free now), read as float4; narrower slices, and every slice when
-// buf is null (the workspace plan's Gram in device memory), read t from
-// device memory (L2) with the scalar tiles, as chunks of fewer than 32 rows
-// cost more in barriers than they save.
+// memory, free now), read as float4; narrower slices read t from device
+// memory (L2) with the scalar tiles, as chunks of fewer than 32 rows cost
+// more in barriers than they save.
 __device__ void lift_padded(float* __restrict__ y, const float* t,
                             const float* v, int rows, int cols, int mp,
                             int rp, float* buf) {
-  if (cols < kLiftMinCols || buf == nullptr) {  // no shared room: from L2
+  if (cols < kLiftMinCols) {  // from L2
     matmul(y, rp, t, cols, 1, v, rp, 1, rows, rp, cols, false);
     return;
   }
@@ -291,38 +215,6 @@ subspace_kernel(const float* __restrict__ t, float* __restrict__ q_out,
   matmul(ql, r, y, rp, 1, z, rp, 1, rows, r, rp, false);
 }
 
-// The workspace plan's kernel: the padded path of subspace_kernel with each
-// region in shared memory or in this layer's slab of ws.
-__global__ void __launch_bounds__(kThreads)
-subspace_ws_kernel(const float* __restrict__ t, float* __restrict__ q_out,
-                   float* ws, int rows, int cols, int r, int iters) {
-  extern __shared__ float smem[];
-  const WsPlan p = make_ws_plan(rows, cols, r);
-  float* wl = ws + static_cast<size_t>(blockIdx.x) * p.ws;
-  float* g = ((p.in_ws & kG) ? wl : smem) + p.g;
-  float* q = ((p.in_ws & kQ) ? wl : smem) + p.q;
-  float* y = ((p.in_ws & kY) ? wl : smem) + p.y;
-  float* ns = ((p.in_ws & kNs) ? wl : smem) + p.ns;
-  const float* tl = t + static_cast<size_t>(blockIdx.x) * rows * cols;
-  float* ql = q_out + static_cast<size_t>(blockIdx.x) * rows * r;
-  const int mp = p.mp, rp = p.rp;
-
-  gram_staged(g, mp, tl, rows, cols, smem + p.g_smem, p.stage, true);
-  set_eye(q, mp, r, rp);
-  orth_iter4(g, q, mp, r, rp, iters, y, ns);  // Q, or V in the tall case
-  if (rows <= cols) {
-    for (int idx = threadIdx.x; idx < rows * r; idx += blockDim.x)
-      ql[idx] = q[(idx / r) * rp + idx % r];
-    return;
-  }
-  for (int idx = rows * rp + threadIdx.x; idx < p.yp * rp; idx += blockDim.x)
-    y[idx] = 0.f;                                          // pad rows of Y
-  lift_padded(y, tl, q, rows, cols, mp, rp,
-              (p.in_ws & kG) ? nullptr : g);               // Y = t V
-  const float* z = gram_inv_sqrt4(y, ns, r, rp, p.yp);     // (Y^T Y)^{-1/2}
-  matmul(ql, r, y, rp, 1, z, rp, 1, rows, r, rp, false);   // q = Y Z
-}
-
 }  // namespace
 
 extern "C" {
@@ -330,32 +222,6 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs for a [rows, cols] slice.
 int subspace_smem_bytes(int rows, int cols, int r) {
   return make_plan(rows, cols, r).total * static_cast<int>(sizeof(float));
-}
-
-// Bytes of dynamic shared memory, and floats of device memory per layer, of
-// the workspace plan for a [rows, cols] slice.
-int subspace_ws_smem_bytes(int rows, int cols, int r) {
-  return make_ws_plan(rows, cols, r).total * static_cast<int>(sizeof(float));
-}
-
-int subspace_ws_floats(int rows, int cols, int r) {
-  return make_ws_plan(rows, cols, r).ws;
-}
-
-// Launches the workspace plan on `stream`: ws holds l * subspace_ws_floats
-// floats, 16-byte aligned. Returns cudaGetLastError() (0 on success).
-// Requires 1 <= r <= min(rows, cols) and r < rows; the caller checks shapes.
-int subspace_ws_launch(const void* t, void* q, void* ws, int l, int rows,
-                       int cols, int r, int iters, void* stream) {
-  if (l == 0) return 0;
-  const int bytes = subspace_ws_smem_bytes(rows, cols, r);
-  cudaError_t err = cudaFuncSetAttribute(
-      subspace_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  subspace_ws_kernel<<<l, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(t), static_cast<float*>(q),
-      static_cast<float*>(ws), rows, cols, r, iters);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches the block plan on `stream`; returns cudaGetLastError() (0 on

@@ -5,14 +5,16 @@ Counterpart of the JAX package's Pallas kernel
 each layer of a t[L, rows, cols] stack it finds the top-r left singular
 subspace by orthogonal iteration on the Gram of the smaller side, with
 Newton-Schulz orthonormalisation, lifting a right subspace to the left
-one in the tall case; the CUDA source `csrc/subspace.cu` says how.
+one in the tall case; the CUDA sources `csrc/subspace.cu` (block plans)
+and `csrc/subspace_ws.cu` (workspace plan) say how.
 
 `dominant_left_subspace_batched` launches the CUDA kernel for a CUDA
 tensor and runs `dominant_left_subspace_plain`, the same iteration in
 batched torch matmuls, for a CPU tensor. A shape whose plan fits one
 block's shared memory takes the block plan; any other takes the
-workspace plan, which keeps what does not fit in a per-layer slab of
-device memory that `launch` allocates. `tt_project_batched` is the
+workspace plan (a library of its own: one thread-block cluster per
+layer), which keeps what does not fit in a per-layer slab of device
+memory that `launch_ws` allocates. `tt_project_batched` is the
 batched TT-SVD sweep built on it.
 """
 
@@ -27,12 +29,12 @@ import torch
 from ..precision import full_f32
 from ..ttd import clamp_tt_ranks
 from . import build
-from .tucker_kernel import (MAX_SMEM_BYTES, _eye, _ns_inv_sqrt, _orth_iter,
-                            ns_flops, orth_flops)
+from .tucker_kernel import (MAX_SMEM_BYTES, MAX_SMEM_FLOATS, _eye, _own_cap,
+                            _ns_inv_sqrt, _orth_iter, ns_flops, orth_flops)
 
 
-# Chunk length along the Gram's long side that the plan grows for
-# (kStageLen in the CUDA source).
+# Chunk length along the Gram's long side that the plans grow for
+# (kStageLen in both CUDA sources).
 STAGE_LEN = 64
 
 
@@ -76,40 +78,75 @@ def block_plan_fits(rows: int, cols: int, r: int) -> bool:
     return smem_bytes(rows, cols, r) <= MAX_SMEM_BYTES
 
 
+# Blocks per layer of the workspace plan, whatever the slice (`kCluster`
+# in csrc/subspace_ws.cu): 8, the most a portable cluster has. At
+# DeiT-tiny's r = 96 launches 8 blocks split the iteration's products; at
+# its 2304 x 32 ones, whose 32 x 32 iteration barely splits, they split the
+# Gram and the lift.
+WS_CLUSTER = 8
+
 # regions of the workspace plan, in the order they are taken into shared
-# memory (`make_ws_plan`)
-WS_REGIONS = ("ns", "g", "q", "y")
+# memory (`make_ws_plan`): the Newton-Schulz matrices, the partial S, the
+# Gram, Y, the iterate
+WS_REGIONS = ("ns", "sp", "g", "y", "q")
 
 
 class WsPlan(NamedTuple):
-    smem_floats: int   # shared memory, the Gram's chunk buffers included
+    cluster: int       # blocks per layer (one thread-block cluster)
+    smem_floats: int   # shared memory of each block, the stage buffers included
     ws_floats: int     # device memory per layer
     in_ws: Tuple[str, ...]  # regions in the workspace
-    stage: int         # floats of each Gram chunk buffer
-    mp: int
+    stage: int         # floats of each of the two stage buffers
+    ldc: int           # the Gram's chunk row stride
 
 
-def ws_plan(rows: int, cols: int, r: int) -> WsPlan:
+def ws_plan(rows: int, cols: int, r: int, cluster: int = 0) -> WsPlan:
     """The workspace plan of a [rows, cols] slice at rank r, as
-    `make_ws_plan` in the CUDA source: the padded layout, its regions (the
-    five Newton-Schulz matrices, the Gram, the iterate, Y) taken into
-    shared memory in that order while they fit, the rest in the
-    workspace; a shared Gram leaves room for two chunks of 16."""
+    `make_ws_plan` in csrc/subspace_ws.cu, for `cluster` blocks per layer
+    (default WS_CLUSTER, the library's).
+
+    The padded layout; each block of the cluster owns rows (groups of 4,
+    spread evenly) of every region, in this order: the five Newton-Schulz
+    matrices [rp, rp], the partial S [rp, rp] (whole in each block, with
+    rp floats for the trace's diagonal), the Gram [mp, mp], Y [yp, rp] and
+    the iterate [mp, rp] (m = min(rows, cols); mp, rp, yp = m, r, rows
+    rounded up to 4). A block takes its rows of each region into shared
+    memory in that order while they fit beside two stage buffers of one
+    Gram chunk row (`ldc`) at least, and of rp x rp where two fit a block;
+    a region that does not fit lies whole in the layer's slab (the partial
+    S once per block). The partial S shares the scratch region with the
+    stage buffers, which grow for 64 chunk rows, all of the iterate and,
+    tall, all of t's columns of a block's rows with V."""
+    c = cluster or WS_CLUSTER
+    wide = rows <= cols
     mp, rp, yp = _up4(min(rows, cols)), _up4(r), _up4(rows)
-    sizes = {"ns": 5 * rp * rp, "g": mp * mp, "q": mp * rp, "y": yp * rp}
-    cap = MAX_SMEM_BYTES // 4
-    smem, in_ws = 0, []
+    ldc = mp + 4 if wide else mp
+    rbn, rby, rbr = _own_cap(mp, c), _own_cap(yp, c), _own_cap(rp, c)
+    rr = rp * rp
+    own = {"ns": 5 * rbr * rp, "sp": rr + rp, "g": rbn * mp, "y": rby * rp,
+           "q": rbn * rp}
+    whole = {"ns": 5 * rr, "sp": c * rr, "g": mp * mp, "y": yp * rp,
+             "q": mp * rp}
+    persist = 0
+    scratch = 2 * (ldc if ldc >= rr or 2 * rr > MAX_SMEM_FLOATS else rr)
+    in_ws = []
     for name in WS_REGIONS:
-        size = sizes[name]
-        if smem + size <= cap and (name != "g"
-                                   or size + 2 * (mp + 4) * 16 <= cap):
-            smem += size
+        if name == "sp":
+            fits = persist + max(scratch, own["sp"]) <= MAX_SMEM_FLOATS
+            if fits:
+                scratch = max(scratch, own["sp"])
         else:
+            fits = persist + own[name] + scratch <= MAX_SMEM_FLOATS
+            if fits:
+                persist += own[name]
+        if not fits:
             in_ws.append(name)
-    g_smem = 0 if "g" in in_ws else sizes["g"]
-    total = max(smem, min(g_smem + 2 * (mp + 4) * STAGE_LEN, cap))
-    return WsPlan(total, sum(sizes[n] for n in in_ws), tuple(in_ws),
-                  ((total - g_smem) // 2) & ~3, mp)
+    want = max(STAGE_LEN * ldc, mp * rp,
+               0 if wide else (rp + rby) * _up4(cols))
+    stage = min((MAX_SMEM_FLOATS - persist) // 2, want) & ~3
+    total = persist + max(2 * stage, 0 if "sp" in in_ws else rr + rp)
+    return WsPlan(c, total, sum(whole[n] for n in in_ws), tuple(in_ws),
+                  stage, ldc)
 
 
 def plan_name(rows: int, cols: int, r: int) -> str:
@@ -127,11 +164,12 @@ INT_MAX = 2 ** 31 - 1
 def subspace_supported(shape, r: int) -> bool:
     """True if the kernel takes a [L, rows, cols] stack at rank r (the
     role of the JAX package's `pallas_subspace_supported`): a block plan
-    fits, or the workspace plan's Gram chunks hold at least one row of
-    t's long side (min(rows, cols) up to about 29,000). A shape whose
-    layer (rows x cols) or padded plan (all four regions, which bounds
-    every offset and the per-layer workspace) passes 2**31 - 1 floats is
-    refused, since the kernel's int arithmetic would overflow."""
+    fits, or the workspace plan's stage buffers hold at least one row of
+    the Gram's chunks (min(rows, cols) up to about 29,000). A shape whose
+    layer (rows x cols) or padded regions (all five whole, the partial S
+    once per block of the cluster, which bounds every offset and the
+    per-layer workspace) pass 2**31 - 1 floats is refused, since the
+    kernel's int arithmetic would overflow."""
     if len(shape) != 3:
         return False
     _, rows, cols = shape
@@ -139,12 +177,13 @@ def subspace_supported(shape, r: int) -> bool:
     if r < 1:
         return False
     mp, rp, yp = _up4(min(rows, cols)), _up4(r), _up4(rows)
-    if max(rows * cols, mp * mp + mp * rp + yp * rp + 5 * rp * rp) > INT_MAX:
+    regions = mp * mp + mp * rp + yp * rp + (5 + WS_CLUSTER) * rp * rp
+    if max(rows * cols, regions) > INT_MAX:
         return False
     if block_plan_fits(rows, cols, r):
         return True
     p = ws_plan(rows, cols, r)
-    return p.stage >= p.mp + 4
+    return p.stage >= p.ldc
 
 
 def sweep_steps(tt_shapes: Sequence[int], tt_ranks: Sequence[int]):
@@ -211,13 +250,22 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.subspace_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.subspace_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def bind_ws(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a loaded `subspace_ws` library."""
     fn = lib.subspace_ws_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    for name in ("subspace_ws_smem_bytes", "subspace_ws_floats"):
+    lib.subspace_ws_cluster.argtypes = []
+    lib.subspace_ws_cluster.restype = ctypes.c_int
+    for name, restype in (("subspace_ws_smem_bytes", ctypes.c_int),
+                          ("subspace_ws_floats", ctypes.c_longlong),
+                          ("subspace_ws_max_clusters", ctypes.c_int)):
         getattr(lib, name).argtypes = [ctypes.c_int] * 3
-        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).restype = restype
     return lib
 
 
@@ -225,30 +273,47 @@ def _library() -> ctypes.CDLL:
     return bind(build.load("subspace"))
 
 
+def _ws_library() -> ctypes.CDLL:
+    return bind_ws(build.load("subspace_ws"))
+
+
 def launch(lib: ctypes.CDLL, t: torch.Tensor, r: int, *,
            iters: int) -> torch.Tensor:
-    """One launch of `lib`'s kernel on t's device and current stream:
-    t [L, rows, cols] float32, contiguous, on a CUDA card -> q [L, rows, r];
-    the caller has checked the shape and clamped r. A shape whose block
-    plan does not fit takes the workspace plan, with its slab allocated
-    here."""
+    """One launch of `lib`'s kernel (a block plan) on t's device and
+    current stream: t [L, rows, cols] float32, contiguous, on a CUDA card
+    -> q [L, rows, r]; the caller has checked the shape and clamped r."""
     l, rows, cols = t.shape
     q = torch.empty((l, rows, r), dtype=torch.float32, device=t.device)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
-        if block_plan_fits(rows, cols, r):
-            err = lib.subspace_launch(t.data_ptr(), q.data_ptr(), l, rows,
-                                      cols, r, iters, stream)
-        else:
-            # torch's allocations are 512-byte aligned, and every slab is a
-            # multiple of 4 floats
-            ws = torch.empty(l * ws_plan(rows, cols, r).ws_floats,
-                             dtype=torch.float32, device=t.device)
-            err = lib.subspace_ws_launch(t.data_ptr(), q.data_ptr(),
-                                         ws.data_ptr(), l, rows, cols, r,
-                                         iters, stream)
+        err = lib.subspace_launch(t.data_ptr(), q.data_ptr(), l, rows, cols,
+                                  r, iters, stream)
     if err != 0:
         raise RuntimeError(f"subspace kernel launch failed: CUDA error {err}")
+    return q
+
+
+def launch_ws(lib: ctypes.CDLL, t: torch.Tensor, r: int, *,
+              iters: int) -> torch.Tensor:
+    """`launch` for the workspace plan of a `subspace_ws` library: one
+    thread-block cluster of WS_CLUSTER blocks per layer, the per-layer
+    slabs allocated here. A cluster the card cannot schedule makes the
+    launch fail, and this raise."""
+    l, rows, cols = t.shape
+    q = torch.empty((l, rows, r), dtype=torch.float32, device=t.device)
+    # the library's own slab size (`ws_plan` mirrors it); torch's
+    # allocations are 512-byte aligned, and every slab is a multiple of 4
+    # floats
+    ws = torch.empty(l * lib.subspace_ws_floats(rows, cols, r),
+                     dtype=torch.float32, device=t.device)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = lib.subspace_ws_launch(t.data_ptr(), q.data_ptr(),
+                                     ws.data_ptr(), l, rows, cols, r, iters,
+                                     stream)
+    if err != 0:
+        raise RuntimeError("subspace workspace kernel launch failed: "
+                           f"CUDA error {err}")
     return q
 
 
@@ -278,7 +343,10 @@ def dominant_left_subspace_batched(t: torch.Tensor, r: int, *,
     if not subspace_supported(t.shape, r):
         raise ValueError(f"stack {tuple(t.shape)} at rank {r} exceeds the "
                          "kernel's shared-memory plans")
-    q = launch(_library(), t, r, iters=iters)
+    if block_plan_fits(rows, cols, r):
+        q = launch(_library(), t, r, iters=iters)
+    else:
+        q = launch_ws(_ws_library(), t, r, iters=iters)
     dominant_left_subspace_batched.launches += 1
     return q
 

@@ -132,20 +132,24 @@ extern "C" int emu_run(const float* t, float* q, int l, int rows, int cols,
     subspace_kernel(t, q, rows, cols, r, iters);
   });
 }
+""",
+    "subspace_ws": r"""
 extern "C" int emu_run_ws(const float* t, float* q, float* ws, int l,
-                          int rows, int cols, int r, int iters, int late) {
+                          int rows, int cols, int r, int iters, int late,
+                          int c) {
   emu_late = late;
   blockDim.x = kThreads;
-  return emu_launch(l, make_ws_plan(rows, cols, r).total, [&] {
+  return emu_launch_clusters(l, c, make_ws_plan(rows, cols, r, c).total, [&] {
     subspace_ws_kernel(t, q, ws, rows, cols, r, iters);
   });
 }
-extern "C" int emu_ws_plan(int rows, int cols, int r, int* out) {
-  const WsPlan p = make_ws_plan(rows, cols, r);
+extern "C" int emu_ws_plan(int rows, int cols, int r, int c, long long* out) {
+  const WsPlan p = make_ws_plan(rows, cols, r, c);
   out[0] = p.total;
   out[1] = p.ws;
-  out[2] = static_cast<int>(p.in_ws);
+  out[2] = p.in_ws;
   out[3] = p.stage;
+  out[4] = kCluster;  // the library's cluster size, whatever c
   return 0;
 }
 """,
@@ -235,9 +239,10 @@ def libs(tmp_path_factory):
                        capture_output=True, stdin=subprocess.DEVNULL)
         out[name] = ctypes.CDLL(str(so))
     out["subspace"].emu_run.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-    out["subspace"].emu_run_ws.argtypes = ([ctypes.c_void_p] * 3
-                                           + [ctypes.c_int] * 6)
-    out["subspace"].emu_ws_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out["subspace_ws"].emu_run_ws.argtypes = ([ctypes.c_void_p] * 3
+                                              + [ctypes.c_int] * 7)
+    out["subspace_ws"].emu_ws_plan.argtypes = ([ctypes.c_int] * 4
+                                               + [ctypes.c_void_p])
     out["tucker2_factors"].emu_run.argtypes = ([ctypes.c_void_p] * 3
                                                + [ctypes.c_int] * 8)
     out["tucker2_factors_ws"].emu_run_ws.argtypes = ([ctypes.c_void_p] * 4
@@ -292,24 +297,39 @@ GUARD = 1024  # floats behind the workspace, filled with a sentinel
 
 
 @pytest.mark.parametrize("late", [0, 1])
-@pytest.mark.parametrize("L,rows,cols,r,in_ws", [
-    (1, 144, 192, 96, "g q y"),    # DeiT wide r = 96: Newton-Schulz shared
-    (1, 720, 192, 96, "g q y"),    # DeiT tall r = 96: lift from L2
-    (2, 2304, 32, 30, "y"),        # DeiT 2304 x 32: Y in the workspace
-    (1, 3600, 64, 16, "y"),        # tall, Gram shared: lift staged through it
-    (1, 300, 320, 106, "ns g y"),  # r > 104: the Newton-Schulz matrices too
+@pytest.mark.parametrize("L,rows,cols,r,cluster,in_ws", [
+    (1, 144, 192, 96, 8, ""),        # DeiT wide r = 96: all in shared memory
+    (1, 720, 192, 96, 8, ""),        # DeiT tall r = 96: the lift over 8 blocks
+    (2, 2304, 32, 30, 4, ""),        # DeiT 2304 x 32 at C = 4, two layers
+    (1, 3600, 64, 16, 8, ""),        # rp = 16: 4 of 8 blocks own no NS rows
+    (1, 300, 320, 106, 4, "g"),      # the Gram in the slab, its Y = G Q chunks
+                                     # by cp.async
+    # DeiT wide at C = 2: Y and the iterate in the slab
+    (1, 144, 192, 96, 2, "y q"),
+    # DeiT tall at C = 2: the Gram and Y (the lift's too) in the slab
+    (1, 720, 192, 96, 2, "g y"),
+    # DeiT 2304 x 32 at its C = 8: 288 rows of Y a block, 4 of the Gram
+    (1, 2304, 32, 28, 8, ""),
+    # rp = 176 (r = 174, not a multiple of 4): no room for all of Y and Z,
+    # so Newton-Schulz stages them from their owners and q = Y Z goes
+    # through the Gram's rows in pieces; Y and the iterate in the slab
+    (1, 260, 176, 174, 8, "y q"),
+    # the same at C = 4: the partial S in the slab
+    (1, 260, 176, 174, 4, "sp y"),
 ])
-def test_subspace_workspace_plan_matches_plain(libs, L, rows, cols, r, in_ws,
-                                               late):
+def test_subspace_workspace_plan_matches_plain(libs, L, rows, cols, r,
+                                               cluster, in_ws, late):
     assert not sk.block_plan_fits(rows, cols, r)
     assert sk.subspace_supported((L, rows, cols), r)
-    plan = sk.ws_plan(rows, cols, r)
+    assert sk.plan_name(rows, cols, r) == "workspace"
+    plan = sk.ws_plan(rows, cols, r, cluster)
     assert plan.in_ws == tuple(in_ws.split())
-    got = np.zeros(4, np.int32)
-    libs["subspace"].emu_ws_plan(rows, cols, r, got.ctypes.data)
-    bits = {"ns": 1, "g": 2, "q": 4, "y": 8}
+    got = np.zeros(5, np.int64)
+    libs["subspace_ws"].emu_ws_plan(rows, cols, r, cluster, got.ctypes.data)
+    bits = {"ns": 1, "g": 2, "q": 4, "y": 8, "sp": 16}
     assert list(got) == [plan.smem_floats, plan.ws_floats,
-                         sum(bits[n] for n in plan.in_ws), plan.stage]
+                         sum(bits[n] for n in plan.in_ws), plan.stage,
+                         sk.WS_CLUSTER]
     t = (np.random.RandomState(rows + cols).standard_normal((L, rows, cols))
          / np.sqrt(cols)).astype(np.float32)
     ws = np.full(L * plan.ws_floats + GUARD, np.nan, np.float32)
@@ -317,14 +337,16 @@ def test_subspace_workspace_plan_matches_plain(libs, L, rows, cols, r, in_ws,
     assert ws.ctypes.data % 16 == 0
     for iters in (8, 0):
         q = np.full((L, rows, r), np.nan, np.float32)
-        err = libs["subspace"].emu_run_ws(t.ctypes.data, q.ctypes.data,
-                                          ws.ctypes.data, L, rows, cols, r,
-                                          iters, late)
+        err = libs["subspace_ws"].emu_run_ws(t.ctypes.data, q.ctypes.data,
+                                             ws.ctypes.data, L, rows, cols,
+                                             r, iters, late, cluster)
         assert err == 0, f"emulation fault {err}"
         assert (ws[-GUARD:] == 12345.0).all(), "written past the workspace"
         p = sk.dominant_left_subspace_plain(torch.from_numpy(t), r,
                                             iters=iters).numpy()
-        # as the block plans: the same iteration summed in the same order
+        # the same float32 iteration in another summation order (Y^T Y
+        # summed over the cluster's blocks, Newton-Schulz's Y W as W Y):
+        # at most 6.7e-6 apart here
         assert np.abs(q - p).max() < 1e-5
         zq = q @ (q.transpose(0, 2, 1) @ t)
         zp = p @ (p.transpose(0, 2, 1) @ t)

@@ -208,3 +208,101 @@ def test_cpu_and_full_rank_calls_count_no_launch():
     eye = sk.dominant_left_subspace_batched(t, 12)
     assert torch.equal(eye, torch.eye(12).expand(2, 12, 12))
     assert sk.dominant_left_subspace_batched.launches == before
+
+
+# the 13 workspace launches of a DeiT-tiny TT@2x Z-step, in sweep order:
+# [L, rows, cols], r, and their plan (`ws_plan`): blocks per layer, shared
+# floats of each block, floats of each stage buffer; every region of every
+# one fits in shared memory, so none has a slab
+DEIT_WORKSPACE_LAUNCHES = [
+    ((1, 180, 192), 96, 8, 49248, 17280),
+    ((1, 528, 192), 96, 8, 58112, 19456),
+    ((1, 720, 192), 96, 8, 58112, 18304),
+    ((1, 180, 768), 96, 8, 49248, 17280),
+    ((1, 2304, 32), 30, 8, 30592, 10240),
+    ((11, 144, 192), 96, 8, 40128, 13824),
+    ((1, 480, 192), 96, 8, 58112, 19840),
+    ((1, 672, 192), 96, 8, 58112, 18688),
+    ((1, 144, 768), 96, 8, 40128, 13824),
+    ((1, 2304, 32), 28, 8, 29088, 10112),
+    ((10, 384, 192), 96, 8, 58112, 20416),
+    ((10, 528, 192), 96, 8, 58112, 19456),
+    ((10, 144, 768), 96, 8, 40128, 13824),
+]
+
+
+def test_deit_workspace_launches_take_the_cluster_plan():
+    from dnn_compression_tensor_admm_tpu_torch.admm import build_program
+    from dnn_compression_tensor_admm_tpu_torch.configs import get_rank_plan
+    from dnn_compression_tensor_admm_tpu_torch.models import create_model
+    name = "deit_tiny_patch16_224"
+    params = dict(create_model(name).named_parameters())
+    program = build_program(params, get_rank_plan(name, "tt", "2"))
+    launches = [((len(g.names), rows, cols), r) for g in program.groups
+                for rows, cols, r in sk.sweep_steps(g.spec.tt_shapes,
+                                                    g.spec.tt_ranks)
+                if r != rows]
+    assert len(launches) == 33
+    ws = [(s, r) for s, r in launches if sk.plan_name(s[1], s[2], r)
+          == "workspace"]
+    assert ws == [(s, r) for s, r, *_ in DEIT_WORKSPACE_LAUNCHES]
+    for (l, rows, cols), r, cluster, smem, stage in DEIT_WORKSPACE_LAUNCHES:
+        p = sk.ws_plan(rows, cols, r)
+        assert (p.cluster, p.smem_floats, p.ws_floats, p.in_ws, p.stage) == (
+            cluster, smem, 0, (), stage)
+        assert sk.subspace_supported((l, rows, cols), r)
+        # a launch fills l x C SMs (at most 88 of 132), one cluster a layer
+        assert l * cluster <= 132
+
+
+def _up4(x):
+    return (x + 3) // 4 * 4
+
+
+WS_SHAPES = [(144, 192, 96), (720, 192, 96), (2304, 32, 30), (3600, 64, 16),
+             (300, 320, 106), (260, 176, 174), (5120, 24, 22),
+             (2048, 512, 130), (1890, 512, 210), (352, 1536, 320),
+             (10240, 48, 42), (512, 4608, 250)]
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+def test_workspace_plan_regions_fit_and_are_aligned(cluster):
+    # the TT plans' widest workspace launches (DeiT-small, ResNet18 and 50)
+    # and the emulation's shapes
+    for rows, cols, r in WS_SHAPES:
+        assert not sk.block_plan_fits(rows, cols, r)
+        p = sk.ws_plan(rows, cols, r, cluster)
+        assert p.cluster == (cluster or sk.WS_CLUSTER)
+        assert p.smem_floats <= sk.MAX_SMEM_BYTES // 4
+        assert p.ws_floats % 4 == 0 and p.stage % 4 == 0 and p.stage >= p.ldc
+        assert 2 * p.stage <= p.smem_floats
+        assert set(p.in_ws) <= set(sk.WS_REGIONS)
+        # the partial S and the trace's diagonal share the scratch region
+        rp = _up4(r)
+        assert "sp" in p.in_ws or p.smem_floats >= rp * rp + rp
+
+
+def test_workspace_launch_raises_on_a_cluster_the_card_refuses(monkeypatch):
+    # no card here: a library that reports an error (a cluster the card
+    # cannot schedule) and a CPU tensor standing in; the wrapper raises and
+    # tries nothing else
+    import contextlib
+    import types
+
+    class Refusing:
+        calls = 0
+
+        def subspace_ws_floats(self, *dims):
+            return 4
+
+        def subspace_ws_launch(self, *args):
+            Refusing.calls += 1
+            return 201  # a CUDA error: the launch was refused
+
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    t = torch.zeros((2, 144, 192))
+    with pytest.raises(RuntimeError, match="CUDA error 201"):
+        sk.launch_ws(Refusing(), t, 96, iters=8)
+    assert Refusing.calls == 1

@@ -8,28 +8,32 @@ that .gitignore lists) as the baseline:
     python3 tools/torch_kernel_ab.py BASELINE_DIR [--out FILE] [--reps N]
         [--kernels subspace tucker2_factors] [-D NAME=VALUE ...]
 
-It builds `subspace.cu` and `tucker2_factors.cu` of both checkouts with
-nvcc (all processes at once) and, at the shapes of the main paths
-(`chip_smoke.py`: the 24 subspace launches of a ResNet32-TT@3x Z-step,
-the 33 of a DeiT-tiny-TT@2x Z-step where the baseline has the workspace
-plan, the 5 Tucker-2 buckets of ResNet32-TK@3x and the 4 of
-DeiT-tiny-TK@2x, inputs from --seed) and at chip_smoke.py's two near-cap
-Tucker-2 buckets, times baseline, this, this, baseline in device time
-(`chip_smoke.graph_ms`). A shape that takes a workspace plan the
-baseline does not have is timed in this build alone. The subspace
-kernel is timed at the Z-step's iteration count and at iters=0 (the
-Gram, the identity start and the lift), the Tucker-2 kernel at the
-Z-step's sweeps and at sweeps=0 (the Grams of X and the HOSVD init). It
-reports this checkout's errors against the plain versions, the
-Tucker-2 workspace plan's cluster size and how many such clusters the
-card holds at once, and the largest difference between the two builds'
-outputs (at both counts),
-one JSON line per shape and per-Z-step sums over the main-path shapes,
-also written to --out (default build/kernel_ab.jsonl).
+It builds the kernels' libraries of both checkouts with nvcc (all
+processes at once: `subspace.cu`, `subspace_ws.cu`, `tucker2_factors.cu`
+and `tucker2_factors_ws.cu` where a checkout has them; a baseline from
+before `subspace_ws.cu` keeps its workspace plan in `subspace.cu`) and,
+at the shapes of the main paths (`chip_smoke.py`: the 24 subspace
+launches of a ResNet32-TT@3x Z-step, the 33 of a DeiT-tiny-TT@2x Z-step,
+13 of them in the workspace plan, the 5 Tucker-2 buckets of
+ResNet32-TK@3x and the 4 of DeiT-tiny-TK@2x, inputs from --seed) and at
+chip_smoke.py's two near-cap Tucker-2 buckets, times baseline, this,
+this, baseline in device time (`chip_smoke.graph_ms`). A shape that
+takes a workspace plan the baseline does not have is timed in this build
+alone. The subspace kernel is timed at the Z-step's iteration count and
+at iters=0 (the Gram, the identity start and the lift), the Tucker-2
+kernel at the Z-step's sweeps and at sweeps=0 (the Grams of X and the
+HOSVD init). It reports this checkout's errors against the plain
+versions, each workspace plan's cluster size and how many such clusters
+the card holds at once (and at the subspace workspace launches the time
+of `torch.linalg.svd` of the same t), and the largest difference between
+the two builds' outputs (at both counts, and over the block-plan and the
+workspace-plan subspace launches), one JSON line per shape and
+per-Z-step sums over the main-path shapes, also written to --out
+(default build/kernel_ab.jsonl).
 
 `-D` builds this checkout's side with any macro of the CUDA sources set
-(ORTH_VEC_MIN_RP, ORTH_TILE_ROWS, SUBSPACE_LIFT_MIN_COLS), so with
-`.` as the baseline it measures a threshold against the default:
+(ORTH_VEC_MIN_RP, ORTH_TILE_ROWS, SUBSPACE_LIFT_MIN_COLS), so with `.`
+as the baseline it measures a threshold against the default:
 
     python3 tools/torch_kernel_ab.py . --kernels subspace -D ORTH_VEC_MIN_RP=4
 
@@ -58,13 +62,19 @@ from dnn_compression_tensor_admm_tpu_torch.ops.precision import full_f32  # noqa
 
 
 def bind_subspace(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """`subspace_kernel.bind`, or for a baseline built before the workspace
-    plan (it has no `subspace_ws_*` symbols) the block plans' launch alone."""
-    if hasattr(lib, "subspace_ws_launch"):
-        return sk.bind(lib)
+    """The block plans' launch of a `subspace` library and, for a baseline
+    whose `subspace.cu` also holds the one-block workspace plan (before
+    `subspace_ws.cu`), that plan's launch and int slab size."""
     lib.subspace_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                                     + [ctypes.c_void_p])
     lib.subspace_launch.restype = ctypes.c_int
+    if hasattr(lib, "subspace_ws_launch"):
+        lib.subspace_ws_launch.argtypes = ([ctypes.c_void_p] * 3
+                                           + [ctypes.c_int] * 5
+                                           + [ctypes.c_void_p])
+        lib.subspace_ws_launch.restype = ctypes.c_int
+        lib.subspace_ws_floats.argtypes = [ctypes.c_int] * 3
+        lib.subspace_ws_floats.restype = ctypes.c_int
     return lib
 
 
@@ -84,8 +94,8 @@ def bind_tucker_ws(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-BIND = {"subspace": bind_subspace, "tucker2_factors": tk.bind,
-        "tucker2_factors_ws": bind_tucker_ws}
+BIND = {"subspace": bind_subspace, "subspace_ws": sk.bind_ws,
+        "tucker2_factors": tk.bind, "tucker2_factors_ws": bind_tucker_ws}
 
 
 def main() -> int:
@@ -98,8 +108,8 @@ def main() -> int:
     ap.add_argument("--kernels", nargs="+",
                     choices=("subspace", "tucker2_factors"),
                     default=["subspace", "tucker2_factors"],
-                    help="tucker2_factors includes its workspace plan where a "
-                         "checkout has one")
+                    help="each includes its workspace plan where a checkout "
+                         "has one")
     ap.add_argument("-D", "--define", action="append", default=[],
                     metavar="NAME=VALUE",
                     help="a macro for this checkout's build (repeatable)")
@@ -125,9 +135,8 @@ def main() -> int:
     sides = {"baseline": (base_src, ()),
              "this": (build.SRC_DIR, tuple(args.define))}
     names = list(args.kernels)
-    if "tucker2_factors" in names:
-        names.append("tucker2_factors_ws")
-    # a checkout from before the workspace plan has no tucker2_factors_ws.cu
+    names += [f"{n}_ws" for n in args.kernels]
+    # a checkout from before a workspace plan's own library has no *_ws.cu
     items = [(side, name) for name in names for side in sides
              if (sides[side][0] / f"{name}.cu").exists()]
 
@@ -157,36 +166,69 @@ def main() -> int:
 
     rng = np.random.RandomState(args.seed)
     total = {}
+    diff = {}  # the largest difference between the builds, by subspace plan
+
+    def subspace_lib(side, plan):
+        """The library that launches `plan` on this side, or None. A
+        baseline from before `subspace_ws.cu` launches its workspace plan
+        from its `subspace` library, with the same C signature
+        (`bind_subspace`)."""
+        if plan != "workspace":
+            return libs[side, "subspace"]
+        if (side, "subspace_ws") in libs:
+            return libs[side, "subspace_ws"]
+        lib = libs[side, "subspace"]
+        return lib if hasattr(lib, "subspace_ws_launch") else None
+
     launches = []
     if "subspace" in args.kernels:
         launches = [("resnet32", s) for s in cs.tt_launches()]
-        if hasattr(libs["baseline", "subspace"], "subspace_ws_launch"):
-            launches += [("deit", s)
-                         for s in cs.tt_launches(cs.deit_program())]
+        launches += [("deit", s) for s in cs.tt_launches(cs.deit_program())]
     for path, (shape, r) in launches:
+        plan = sk.plan_name(shape[1], shape[2], r)
+        if subspace_lib("this", plan) is None:
+            continue  # this checkout has no workspace plan
+        both = subspace_lib("baseline", plan) is not None
         t = torch.from_numpy((rng.standard_normal(shape)
                               / np.sqrt(shape[2])).astype(np.float32)).cuda()
 
         def subspace(side, iters=cs.TT_ITERS):
-            return sk.launch(libs[side, "subspace"], t, r, iters=iters)
+            run = sk.launch_ws if plan == "workspace" else sk.launch
+            return run(subspace_lib(side, plan), t, r, iters=iters)
 
-        q, qb = subspace("this"), subspace("baseline")
+        q = subspace("this")
         p = sk.dominant_left_subspace_plain(t, r, iters=cs.TT_ITERS)
         with full_f32():
             proj = torch.linalg.matrix_norm(q @ q.mT - p @ p.mT).max().item()
             zq, zp = q @ (q.mT @ t), p @ (p.mT @ t)
         row = {"kernel": "subspace", "path": path, "shape": list(shape),
-               "r": r, "plan": sk.plan_name(shape[1], shape[2], r),
-               "projector_err": proj,
+               "r": r, "plan": plan, "projector_err": proj,
                "projected_rel_err": (torch.linalg.vector_norm(zq - zp)
-                                     / torch.linalg.vector_norm(zp)).item(),
-               "max_abs_diff_vs_baseline": (q - qb).abs().max().item()}
+                                     / torch.linalg.vector_norm(zp)).item()}
+        if plan == "workspace":  # the library yardstick, and this
+            # build's cluster
+            row["library_ms_batched_svd"] = cs.cuda_ms(
+                lambda: torch.linalg.svd(t, full_matrices=False), 5, 1)
+        if plan == "workspace" and ("this", "subspace_ws") in libs:
+            lib = libs["this", "subspace_ws"]
+            row["cluster"] = lib.subspace_ws_cluster()
+            row["max_active_clusters"] = lib.subspace_ws_max_clusters(
+                shape[1], shape[2], r)
         for iters in (cs.TT_ITERS, 0):
-            for side, ms in turns(lambda s: subspace(s, iters)).items():
+            if both:
+                d = (subspace("this", iters)
+                     - subspace("baseline", iters)).abs().max().item()
+                row[f"max_abs_diff_vs_baseline_iters{iters}"] = d
+                key = "block plans" if plan != "workspace" else plan
+                diff[key] = max(diff.get(key, 0.0), d)
+            for side, ms in turns(lambda s: subspace(s, iters),
+                                  order if both else ("this", "this")).items():
                 row[f"{side}_ms_iters{iters}"] = ms
                 key = f"subspace {path} {side} iters={iters}"
                 total[key] = total.get(key, 0.0) + ms
         emit(row)
+    if diff:
+        emit({"kernel": "subspace", "max_abs_diff_vs_baseline": diff})
     buckets = [(b, "resnet32") for b in cs.main_path_buckets()]
     buckets += [(b, None) for b in cs.NEAR_CAP_BUCKETS]
     buckets += [(b, "deit") for b in
