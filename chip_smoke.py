@@ -16,8 +16,9 @@ prints one JSON line per phase:
    fits the card (L x C <= 132 SMs) cannot hold all its L;
 3. kernel  — each kernel at its main paths' shapes (inputs from --seed)
    against its plain PyTorch version on the card, with its time, the
-   plain version's, a library yardstick's and the card's bound: the
-   Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x and the 4 of
+   plain version's, a library yardstick's and the card's bound (the
+   function's least work: a singular subspace's for a subspace launch or
+   a K = 1 Tucker-2 bucket, HOOI's for K > 1): the Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x and the 4 of
    DeiT-tiny-TK@2x (all 4 in the workspace plan, one thread-block
    cluster per layer: its size and how many such clusters the card holds
    at once are printed), each also at sweeps=0
@@ -28,14 +29,21 @@ prints one JSON line per phase:
    the 33 of a DeiT-tiny-TT@2x Z-step (13 of them in the workspace
    plan, one thread-block cluster per layer, printed as for Tucker-2),
    each also at iters=0 (`gram_ms`: the Gram, the identity start
-   and the lift), and both kernels at two shapes near a block's
+   and the lift), the Tucker-2 kernel at the 16 buckets of
+   MobileNetV2-CIFAR-SVD@2x (plain SVD of 1x1 convs as K = 1 at
+   r0 = r1: 4 resident, 1 streamed, 11 workspace), each beside
+   `torch.linalg.svd` of the same [L, O, I] stack and both rank-r fits,
+   and both kernels at two shapes near a block's
    shared-memory limit, which take the Tucker-2 kernel's streamed plan
    and the subspace kernel's unpadded plan; kernel times are device
    times (launches captured in a CUDA graph and replayed);
 4. main    — ResNet32 Tucker-2 @3x and ResNet32 Tensor-Train @3x, each at
    full width and batch 256, then DeiT-tiny Tensor-Train @2x and
    DeiT-tiny Tucker-2 @2x, each at full width (embed 192, depth 12,
-   224 x 224, 1000 classes) and batch 128 with AdamW: ADMM (first
+   224 x 224, 1000 classes) and batch 128 with AdamW, then
+   MobileNetV2-CIFAR plain SVD @2x at full width and batch 256 (its 28
+   1x1 convs in 16 Tucker-2 launches a Z-step; parameter counts
+   asserted), each path with its own wall time: ADMM (first
    projection + 2 epochs x 20 steps), decompose,
    fine-tune 20 steps, eval and runtime, counting both kernels' launches
    (on the card the Z-step raises where a kernel's gate refuses a
@@ -66,11 +74,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from dnn_compression_tensor_admm_tpu_torch.admm import (  # noqa: E402
-    admm_init, admm_update, build_program)
+    admm_init, admm_update, build_program, tk_ranks)
 from dnn_compression_tensor_admm_tpu_torch.configs import get_rank_plan  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.data.datasets import load_dataset  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.models import (  # noqa: E402
-    compression_ratio, create_model, decompose_params)
+    compression_ratio, count_params, create_model, decompose_params)
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  # noqa: E402
@@ -110,9 +118,14 @@ NEAR_CAP_BUCKETS = [((2, 9, 144, 144), 40, 40), ((2, 9, 160, 96), 40, 30)]
 # DenseNet40 TK 2's largest (a 3 x 3 conv of the last dense block); not
 # on a main path, so outside its per-Z-step sums.
 WS_EXTRA_BUCKETS = [((6, 9, 256, 256), 64, 64), ((1, 9, 16, 328), 8, 75)]
-# A DeiT-TK launch does 0.1 to 3 G FMA a layer on a cluster of 8 SMs,
-# 3 to 8 ms: fewer launches per graph keep its timing to seconds.
-DEIT_TK_GRAPH = {"launches": 5, "replays": 2}
+# A Tucker-2 workspace-plan launch does 0.1 to 10 G FMA a layer on a
+# cluster of 8 SMs, 2 to 26 ms (DeiT TK, MobileNetV2 SVD): fewer launches
+# per graph keep its timing to seconds. Block-plan launches take
+# graph_ms's default.
+TK_WS_GRAPH = {"launches": 5, "replays": 2}
+# MobileNetV2-CIFAR SVD@2x's parameter counts, dense and compressed (the
+# JAX package's)
+MBV2_PARAMS = (2_237_770, 1_289_754)
 
 
 def emit(obj) -> None:
@@ -159,12 +172,13 @@ def _program(fmt: str, model: str = "resnet32", ratio: str = "3"):
 
 
 def main_path_buckets(program=None):
-    """(shape [L, K, O, I], r0, r1) of every Z-step bucket of a TK path
-    (ResNet32-TK@3x's unless another program is given; a linear as K = 1)."""
+    """(shape [L, K, O, I], r0, r1) of every Z-step bucket of a TK or SVD
+    path (ResNet32-TK@3x's unless another program is given; a linear, and
+    an SVD 1x1 conv at r0 = r1, as K = 1)."""
     out = []
     for g in (program or _program("tk")).groups:
         o, i, kh, kw = (*g.param_shape, 1, 1)[:4]
-        sp = g.spec.clamped(g.param_shape)
+        sp = tk_ranks(g.spec, g.param_shape)
         out.append(((len(g.names), kh * kw, o, i), sp.out_rank, sp.in_rank))
     return out
 
@@ -182,6 +196,10 @@ def tt_launches(program=None):
 
 def deit_program(fmt: str = "tt"):
     return _program(fmt, "deit_tiny_patch16_224", "2")
+
+
+def mbv2_program(fmt: str = "svd"):
+    return _program(fmt, "mobilenetv2_cifar", "2")
 
 
 def tucker_input(rng, shape):
@@ -211,24 +229,74 @@ def check_tucker(x, r0, r1):
     return max_abs, z_rel, [sub0, sub1]
 
 
+def svd_fits(x, u0, u1, r):
+    """Rank-r fits ||X - Z|| / ||X|| of a K = 1 stack x [L, 1, O, I]: the
+    kernel's Z from (u0, u1) and the truncated SVD's (the optimum)."""
+    with full_f32():
+        u, s, vh = torch.linalg.svd(x[:, 0], full_matrices=False)
+        zs = (u[..., :r] * s[:, None, :r]) @ vh[:, :r]
+        zk = tk.tucker2_reconstruct(x, u0, u1)[:, 0]
+    norm = torch.linalg.vector_norm(x)
+    return ((torch.linalg.vector_norm(x[:, 0] - zk) / norm).item(),
+            (torch.linalg.vector_norm(x[:, 0] - zs) / norm).item())
+
+
+def k1_flops(shape, r0: int, r1: int) -> int:
+    """Least operations of the factors of a K = 1 stack [L, 1, O, I] (2 per
+    multiply-add). U0 and U1 are each layer's top-r0 left and top-r1 right
+    singular subspaces: the Gram of the smaller side gives one, its product
+    with X the other (U0 = X V or U1 = X^T U); the min(O, I)-square
+    eigensolve is left out. The bound of a K = 1 bucket (an SVD or a
+    Tucker-2 linear); `tk.factor_flops` counts the kernel's own iteration,
+    which is the function itself only where K > 1 (HOOI)."""
+    l, _, o, i = shape
+    return l * (2 * o * i * min(o, i) + 2 * o * i * (r0 if i <= o else r1))
+
+
+def subspace_least_flops(shape, r: int) -> int:
+    """Least operations of the top-r left singular subspace of each layer
+    of t [L, rows, cols]: the smaller side's Gram, and for a tall t the
+    lift t V; the eigensolve is left out. 0 for a full-rank request, which
+    does not launch; `sk.subspace_flops` counts the kernel's own
+    iteration."""
+    l, rows, cols = shape
+    r = min(r, rows, cols)
+    if r == rows:
+        return 0
+    lift = 2 * rows * cols * r if cols < rows else 0
+    return l * (2 * rows * cols * min(rows, cols) + lift)
+
+
 def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
-                 extra_plan: str = "streamed", graph=None):
+                 extra_plan: str = "streamed", svd=False):
     """The Tucker-2 kernel at every bucket of a TK path's Z-step, then
-    untimed at `extra`, which must take `extra_plan`; `graph` sets
-    graph_ms's launches and replays."""
-    graph = graph or {}
+    untimed at `extra`, which must take `extra_plan`; workspace-plan
+    buckets are timed with TK_WS_GRAPH's launches and replays. The
+    library yardstick is a batched SVD of both unfoldings (the HOSVD's),
+    or with `svd` (an SVD path: K = 1, r0 = r1) one `torch.linalg.svd` of
+    the [L, O, I] stack, whose rank-r fit is printed beside the kernel's."""
+    t_start = time.perf_counter()
     rng = np.random.RandomState(seed)
     rows = []
     for shape, r0, r1 in buckets:
         l, k, o, i = shape
         x = tucker_input(rng, shape)
         max_abs, z_rel, sub = check_tucker(x, r0, r1)
-        unf0 = x.permute(0, 2, 1, 3).reshape(l, o, k * i)
-        unf1 = x.permute(0, 3, 1, 2).reshape(l, i, k * o)
+        fits = {}
+        if svd:
+            u0, u1 = tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS)
+            fits = dict(zip(("kernel_fit_rel_err", "svd_fit_rel_err"),
+                            svd_fits(x, u0, u1, r0)))
 
-        def library():
-            torch.linalg.svd(unf0, full_matrices=False)
-            torch.linalg.svd(unf1, full_matrices=False)
+            def library():
+                torch.linalg.svd(x[:, 0], full_matrices=False)
+        else:
+            unf0 = x.permute(0, 2, 1, 3).reshape(l, o, k * i)
+            unf1 = x.permute(0, 3, 1, 2).reshape(l, i, k * o)
+
+            def library():
+                torch.linalg.svd(unf0, full_matrices=False)
+                torch.linalg.svd(unf1, full_matrices=False)
 
         plan = tk.plan_name(k, o, i, r0, r1)
         if plan == "workspace":  # one cluster per layer: its size, and how
@@ -244,19 +312,24 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
                                      f"plan fits the card: {cluster}")
         else:
             cluster = {}
+        per_plan = TK_WS_GRAPH if plan == "workspace" else {}
         kernel_ms = graph_ms(
             lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS),
-            **graph)
+            **per_plan)
         # the same launch without the HOOI sweeps: the Grams of X and the
         # HOSVD init
         hosvd_ms = graph_ms(
-            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=0), **graph)
+            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=0),
+            **per_plan)
         plain_ms = cuda_ms(
             lambda: tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS), 5, 1)
         library_ms = cuda_ms(library, 5, 1)
-        flops = tk.factor_flops(shape, r0, r1, sweeps=SWEEPS)
+        algorithm_flops = tk.factor_flops(shape, r0, r1, sweeps=SWEEPS)
+        flops = k1_flops(shape, r0, r1) if k == 1 else algorithm_flops
         nbytes = 4 * (l * k * o * i + l * o * r0 + l * i * r1)
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        library_key = ("library_ms_batched_svd" if svd else
+                       "library_ms_hosvd_only_svd_of_both_unfoldings")
         row = {"phase": "kernel", "name": "tucker2_factors_batched",
                "path": path, "shape_LKOI": list(shape), "ranks": [r0, r1],
                "plan": plan, **cluster,
@@ -264,8 +337,9 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
                "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
                "hosvd_ms": hosvd_ms, "plain_ms": plain_ms,
-               "library_ms_hosvd_only_svd_of_both_unfoldings": library_ms,
-               "flops": flops, "bytes": nbytes,
+               library_key: library_ms, **fits,
+               "flops": flops, "algorithm_flops": algorithm_flops,
+               "bytes": nbytes,
                "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
                "bytes_us": 1e6 * t_bytes,
                "bound_share": 1e3 * max(t_ops, t_bytes) / kernel_ms,
@@ -289,6 +363,9 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
             row["kernel_ms"] = graph_ms(lambda: tk.tucker2_factors_batched(
                 x, r0, r1, sweeps=SWEEPS))
         emit(row)
+    emit({"phase": "kernel_wall", "name": "tucker2_factors_batched",
+          "path": path, "buckets": len(buckets),
+          "wall_s": time.perf_counter() - t_start})
     return rows
 
 
@@ -339,7 +416,8 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
             lambda: sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS), 5, 1)
         library_ms = cuda_ms(
             lambda: torch.linalg.svd(t, full_matrices=False), 5, 1)
-        flops = sk.subspace_flops(shape, r, iters=TT_ITERS)
+        algorithm_flops = sk.subspace_flops(shape, r, iters=TT_ITERS)
+        flops = subspace_least_flops(shape, r)
         nbytes = 4 * (l * rows * cols + l * rows * r)
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
         row = {"phase": "kernel", "name": "dominant_left_subspace_batched",
@@ -350,7 +428,8 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
                "gram_ms": gram_ms, "plain_ms": plain_ms,
                "library_ms_batched_svd": library_ms,
-               "flops": flops, "bytes": nbytes,
+               "flops": flops, "algorithm_flops": algorithm_flops,
+               "bytes": nbytes,
                "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
                "bytes_us": 1e6 * t_bytes,
                "bound_share": 1e3 * max(t_ops, t_bytes) / kernel_ms,
@@ -423,8 +502,9 @@ def check_projection_quality(model, name: str, fmt: str, ratio: str):
 
 # per main path: the dense and compressed models, the ratio (the JAX
 # package's, to 2 decimals), the training set-up (`bench.py`'s tk3x, tt3x
-# and deit_tt2, with the depth cut; DeiT-tiny TK@2x as deit_tt2), the kernel
-# the Z-step must launch and the one it must not
+# and deit_tt2, with the depth cut; DeiT-tiny TK@2x as deit_tt2;
+# MobileNetV2-CIFAR SVD@2x as RESULTS.md's mbv2_svd_r03 run, lr 0.05), the
+# kernel the Z-step must launch and the one it must not
 RESNET = dict(dense="resnet32", ratio_arg="3", dataset="synthetic-cifar10",
               synthetic_size=None, batch_size=256, opt="momentum", lr=0.1,
               input=(3, 32, 32), classes=10, full_rank_check=True)
@@ -449,6 +529,13 @@ PATHS = {
                 "model": "tkc_deit_tiny_patch16_224", "ratio": 1.17,
                 "kernel": tk.tucker2_factors_batched,
                 "other": sk.dominant_left_subspace_batched},
+    "mbv2_svd": {**RESNET, "dense": "mobilenetv2_cifar", "ratio_arg": "2",
+                 "lr": 0.05, "full_rank_check": False,
+                 "name": "mobilenetv2_cifar svd@2x", "fmt": "svd",
+                 "model": "svdc_mobilenetv2_cifar", "ratio": 1.74,
+                 "params": MBV2_PARAMS,
+                 "kernel": tk.tucker2_factors_batched,
+                 "other": sk.dominant_left_subspace_batched},
 }
 # the depth of every main path: bench.py runs 24 epochs of 196 (ResNet) or
 # 128 (DeiT) steps and the JAX package's fine-tune as many again
@@ -461,7 +548,7 @@ def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
                workdir: str):
     path = PATHS[key]
     fmt = path["fmt"]
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     x_va, y_va, info = load_dataset(path["dataset"], False,
                                     path["synthetic_size"]
                                     and path["synthetic_size"] // 4)
@@ -502,6 +589,10 @@ def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
     if round(ratio, 2) != path["ratio"]:
         raise AssertionError(f"compression ratio {ratio}, expected "
                              f"{path['ratio']}")
+    counts = (count_params(dense), count_params(compressed))
+    if counts != path.get("params", counts):
+        raise AssertionError(f"parameter counts {counts}, expected "
+                             f"{path['params']}")
 
     ft_cfg = TrainConfig(model=path["model"], epochs=1,
                          ratio=path["ratio_arg"], **common)
@@ -539,12 +630,14 @@ def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
           "admm_train_loss": [h["train_loss"] for h in hist],
           "admm_residual_total": [h["admm_residual_total"] for h in hist],
           "decompose_s": decompose_s, "compression_ratio": ratio,
+          "params_dense_compressed": list(counts),
           "finetune_it_per_s": steps / ft_hist[-1]["epoch_time_s"],
           "finetune_train_loss": ft_hist[-1]["train_loss"],
           "eval": ev, "ms_per_image": rt["ms_per_image"],
           "images_per_s": rt["images_per_s"],
           "full_rank_layer_rel_err": full_rank_rel,
-          "projection_rel_err": proj})
+          "projection_rel_err": proj,
+          "wall_s": time.perf_counter() - t_start})
     return launches
 
 
@@ -612,8 +705,12 @@ def main() -> int:
     buckets_deit_tk = main_path_buckets(deit_program("tk"))
     if len(buckets_deit_tk) != 4:
         raise AssertionError(f"{len(buckets_deit_tk)} DeiT TK buckets, not 4")
+    buckets_mbv2 = main_path_buckets(mbv2_program())
+    mbv2_plans = sorted(tk.plan_name(*b[0][1:], *b[1:]) for b in buckets_mbv2)
+    if mbv2_plans != ["resident"] * 4 + ["streamed"] + ["workspace"] * 11:
+        raise AssertionError(f"MobileNetV2 SVD buckets' plans: {mbv2_plans}")
     tk_shapes = [*buckets, *NEAR_CAP_BUCKETS, *buckets_deit_tk,
-                 *WS_EXTRA_BUCKETS]
+                 *WS_EXTRA_BUCKETS, *buckets_mbv2]
     for shape, r0, r1 in tk_shapes:
         dims = (*shape[1:], r0, r1)
         if tk.block_plan_fits(*dims):
@@ -697,11 +794,14 @@ def main() -> int:
     rows_deit_tk = phase_kernel(args.seed, buckets_deit_tk,
                                 "deit_tiny_patch16_224 tk@2x",
                                 extra=WS_EXTRA_BUCKETS,
-                                extra_plan="workspace", graph=DEIT_TK_GRAPH)
+                                extra_plan="workspace")
     rows_tt = phase_kernel_tt(args.seed, launches_tt, _program("tt"),
                               "resnet32 tt@3x")
     rows_deit = phase_kernel_tt(args.seed, launches_deit, program_deit,
                                 "deit_tiny_patch16_224 tt@2x", near_cap=())
+    rows_mbv2 = phase_kernel(args.seed, buckets_mbv2,
+                             PATHS["mbv2_svd"]["name"], extra=(),
+                             svd=True)
     with tempfile.TemporaryDirectory() as workdir:
         launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
                                       workdir)
@@ -711,6 +811,8 @@ def main() -> int:
                                         len(launches_deit), workdir)
         launches_deit_tk_main = phase_main(args.seed, smi, "deit_tk",
                                            len(buckets_deit_tk), workdir)
+        launches_mbv2_main = phase_main(args.seed, smi, "mbv2_svd",
+                                        len(buckets_mbv2), workdir)
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
@@ -720,15 +822,22 @@ def main() -> int:
     # one entry per kernel and main path, each with that path's launches
     # and its times per Z-step; the ResNet32 entries keep the kernel's name
     entries = []
-    # (every DeiT-TK bucket takes the workspace plan, its own source)
-    for name, path, n, rows, source in (
+    # (every DeiT-TK bucket takes the workspace plan, its own source;
+    # MobileNetV2 SVD's take both, against one batched SVD of each stack)
+    hosvd_key = "library_ms_hosvd_only_svd_of_both_unfoldings"
+    for name, path, n, rows, source, library_key in (
             ("tucker2_factors_batched", "resnet32 tk@3x", launches_tk_main,
-             rows_tk, "tucker2_factors.cu"),
+             rows_tk, src + "tucker2_factors.cu", hosvd_key),
             ("tucker2_factors_batched@deit_tk2", "deit_tiny_patch16_224 tk@2x",
-             launches_deit_tk_main, rows_deit_tk, "tucker2_factors_ws.cu")):
-        one = kernel_summary(name, path, src + source,
+             launches_deit_tk_main, rows_deit_tk,
+             src + "tucker2_factors_ws.cu", hosvd_key),
+            ("tucker2_factors_batched@mbv2_svd2", PATHS["mbv2_svd"]["name"],
+             launches_mbv2_main, rows_mbv2,
+             f"{src}tucker2_factors.cu, {src}tucker2_factors_ws.cu",
+             "library_ms_batched_svd")):
+        one = kernel_summary(name, path, source,
                              ref + "tucker_kernel.py:142", n, rows,
-                             "library_ms_hosvd_only_svd_of_both_unfoldings")
+                             library_key)
         one["hosvd_ms"] = sum(r["hosvd_ms"] for r in rows)
         entries.append(one)
     # (13 DeiT-TT launches take the workspace plan, its own source)

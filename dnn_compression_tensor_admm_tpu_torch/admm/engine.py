@@ -7,16 +7,20 @@
 
 The plan's layers are bucketed by (kind, spec, shape); each bucket is
 stacked into one [L, ...] tensor and projected at once. With
-method='kernel' a Tucker-2 bucket (conv, or linear as K = 1) goes through
-the CUDA factor kernel (`ops/cuda/tucker_kernel.py`) and a TT bucket
-through the batched TT-SVD sweep on the CUDA subspace kernel
+method='kernel' a Tucker-2 bucket (conv, or linear as K = 1) and a plain
+SVD bucket of 1x1 convs (as K = 1 at r0 = r1 = min(rank, O, I): the
+top-r left and right singular subspaces give the truncated SVD) go
+through the CUDA factor kernel (`ops/cuda/tucker_kernel.py`), and a TT
+bucket through the batched TT-SVD sweep on the CUDA subspace kernel
 (`ops/cuda/subspace_kernel.py`). On the card a bucket that a kernel's
 gate refuses raises; on the CPU (where the kernel wrappers run their
-plain versions) it goes layer by layer through `ops/tucker.py` or
-`ops/ttd.py`, as every bucket does with another method.
+plain versions) it goes layer by layer through `ops/tucker.py`,
+`ops/ttd.py` or `ops/svd.py`, as every bucket does with another method
+(an SVD layer by exact SVD whatever the method, as the JAX package does).
 U and Z are stored in each parameter's own layout (OIHW for convs,
 [out, in] for linears); a TT projection works on the [O, kh*kw, I] view
-of a conv and on the weight itself for a linear.
+of a conv and on the weight itself for a linear, an SVD one on a 1x1
+conv's [O, I] view.
 """
 
 from __future__ import annotations
@@ -26,10 +30,11 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..configs.hp import RankPlan, TKSpec, TTConvSpec, TTLinearSpec
+from ..configs.hp import RankPlan, SVDSpec, TKSpec, TTConvSpec, TTLinearSpec
 from ..ops.cuda.subspace_kernel import tt_project_batched, tt_supported
 from ..ops.cuda.tucker_kernel import kernel_supported, tucker2_project_batched
 from ..ops.precision import full_f32
+from ..ops.svd import svd_project
 from ..ops.ttd import tt_project
 from ..ops.tucker import tucker2_project
 
@@ -68,6 +73,11 @@ def _classify(spec, w: torch.Tensor) -> str:
         return "tk_conv"
     if isinstance(spec, TKSpec) and w.dim() == 2:
         return "tk_linear"
+    if isinstance(spec, SVDSpec) and w.dim() == 4:
+        if tuple(w.shape[2:]) != (1, 1):
+            raise ValueError("an SVD projection targets 1x1 convs, not "
+                             f"{tuple(w.shape)}")
+        return "svd_conv"
     raise NotImplementedError(f"{type(spec).__name__} on a {w.dim()}-d weight "
                               "is not ported yet")
 
@@ -107,8 +117,8 @@ def admm_init(params: Mapping[str, torch.Tensor],
 
 def _project_one(g: _Group, w: torch.Tensor, *, method: str,
                  n_iter: int) -> torch.Tensor:
-    """Project one weight (OIHW, or [out, in]) onto the group's Tucker-2
-    or TT ranks."""
+    """Project one weight (OIHW, or [out, in]) onto the group's Tucker-2,
+    TT or SVD ranks."""
     if g.kind == "tt_linear":
         return tt_project(w, g.spec.tt_shapes, g.spec.tt_ranks, method=method)
     if g.kind == "tt_conv":
@@ -116,21 +126,33 @@ def _project_one(g: _Group, w: torch.Tensor, *, method: str,
         t = w.permute(0, 2, 3, 1).reshape(o, kh * kw, i)
         z = tt_project(t, g.spec.tt_shapes, g.spec.tt_ranks, method=method)
         return z.reshape(o, kh, kw, i).permute(0, 3, 1, 2)
+    if g.kind == "svd_conv":  # exact SVD whatever the method, as in JAX
+        return svd_project(w.reshape(w.shape[:2]), g.spec.rank).reshape(
+            w.shape)
     sp = g.spec.clamped(w.shape)  # tk_conv and tk_linear: [O, I, ...]
     return tucker2_project(w, sp.out_rank, sp.in_rank, n_iter=n_iter,
                            method=method)
 
 
+def tk_ranks(spec, shape) -> TKSpec:
+    """The Tucker-2 ranks (r0, r1) that the kernel route solves a layer of
+    logical shape [O, I, ...] at: a TKSpec clamped to the shape, and an
+    SVD 1x1 conv as K = 1 at r0 = r1 = min(rank, O, I)."""
+    if isinstance(spec, SVDSpec):
+        spec = TKSpec(spec.rank, spec.rank)
+    return spec.clamped(shape)
+
+
 def _project_group_kernel(g: _Group, ts: torch.Tensor,
                           n_iter: int) -> Optional[torch.Tensor]:
     """Kernel Z-step for one bucket ts [L, O, I, kh, kw] or [L, out, in]
-    (a Tucker-2 linear as K = 1).
+    (a Tucker-2 linear, and an SVD 1x1 conv at r0 = r1, as K = 1).
     Where the kernel's gate refuses the bucket: None for CPU tensors (the
     caller goes layer by layer), and ValueError on any other device."""
     l = ts.shape[0]
-    if g.kind == "tk_conv":
+    if g.kind in ("tk_conv", "svd_conv"):
         _, o, i, kh, kw = ts.shape
-        sp = g.spec.clamped((o, i, kh, kw))
+        sp = tk_ranks(g.spec, (o, i, kh, kw))
         x = ts.permute(0, 3, 4, 1, 2).reshape(l, kh * kw, o, i).contiguous()
         if kernel_supported(x.shape, sp.out_rank, sp.in_rank):
             z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
@@ -138,7 +160,7 @@ def _project_group_kernel(g: _Group, ts: torch.Tensor,
             return z.reshape(l, kh, kw, o, i).permute(0, 3, 4, 1, 2)
     elif g.kind == "tk_linear":
         _, o, i = ts.shape
-        sp = g.spec.clamped((o, i))
+        sp = tk_ranks(g.spec, (o, i))
         x = ts[:, None].contiguous()  # [L, 1, O, I]
         if kernel_supported(x.shape, sp.out_rank, sp.in_rank):
             z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,

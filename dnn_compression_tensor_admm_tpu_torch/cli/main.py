@@ -1,7 +1,7 @@
 """Command line: the JAX package's `cli/main.py` surface for the port's
-slices (ResNet32 with Tucker-2 or Tensor-Train on synthetic CIFAR
-geometry; DeiT-tiny with Tensor-Train or Tucker-2 on synthetic ImageNet
-geometry).
+slices (ResNet32 with Tucker-2 or Tensor-Train, and MobileNetV2-CIFAR with
+plain SVD or Tucker-2, on synthetic CIFAR geometry; DeiT-tiny with
+Tensor-Train or Tucker-2 on synthetic ImageNet geometry).
 
 Pipeline modes:
   (default)     train (dense baseline, or ADMM with --admm)
@@ -26,8 +26,9 @@ def parse_args(argv=None):
         description="Tensor-decomposition ADMM compression (PyTorch/CUDA)")
     p.add_argument("--model", default="resnet32", type=str,
                    help="resnet32 | tkc_resnet32 | ttm_resnet32 | "
-                        "deit_tiny_patch16_224 | ttm_deit_tiny_patch16_224 | "
-                        "tkc_deit_tiny_patch16_224")
+                        "mobilenetv2_cifar | svdc_mobilenetv2_cifar | "
+                        "tkc_mobilenetv2_cifar | deit_tiny_patch16_224 | "
+                        "ttm_deit_tiny_patch16_224 | tkc_deit_tiny_patch16_224")
     p.add_argument("--dataset", default="synthetic-cifar10", type=str,
                    help="synthetic-cifar10 | synthetic-hard-cifar10 | "
                         "synthetic-imagenet")
@@ -43,7 +44,8 @@ def parse_args(argv=None):
     p.add_argument("--smoothing", default=0.0, type=float)
     p.add_argument("--admm", action="store_true")
     p.add_argument("--rho", default=0.001, type=float)
-    p.add_argument("--format", dest="fmt", default="tk", choices=["tk", "tt"],
+    p.add_argument("--format", dest="fmt", default="tk",
+                   choices=["tk", "tt", "svd"],
                    help="rank format of the ADMM plan")
     p.add_argument("--ratio", default="2", type=str)
     p.add_argument("--tt-type", default="general",
@@ -51,8 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--admm-method", default="kernel",
                    choices=["kernel", "subspace", "svd"],
                    help="Z-step solver: 'kernel' is the CUDA Tucker-2 factor "
-                        "kernel for tk and the CUDA subspace kernel's TT-SVD "
-                        "sweep for tt (plain torch on the CPU)")
+                        "kernel for tk and svd and the CUDA subspace kernel's "
+                        "TT-SVD sweep for tt (plain torch on the CPU)")
     p.add_argument("--decompose", action="store_true")
     p.add_argument("--model-path", default=None, type=str)
     p.add_argument("--eval", action="store_true")

@@ -1,11 +1,13 @@
 """Build RankPlans from the reference rank tables.
 
 `reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries, the
-DeiT-tiny Tucker-2 2x entry, the ResNet32 Tensor-Train 3x entry and the
-DeiT-tiny Tensor-Train 2x entry of the JAX package's
+DeiT-tiny and MobileNetV2-CIFAR Tucker-2 2x entries, the ResNet32
+Tensor-Train 3x entry, the DeiT-tiny Tensor-Train 2x entry and the
+MobileNetV2-CIFAR plain-SVD 2x entry of the JAX package's
 `configs/plans/reference_hp.json`. TK entries are
 ``[out_rank, in_rank]``, TT entries a TT rank list beside their
-``tt_shapes``; a rank list of length 1 means plain SVD.
+``tt_shapes``, SVD entries one rank; a rank list of length 1 means plain
+SVD.
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ def build_tk_plan(model: str, ratio: str) -> RankPlan:
         else:
             layers[name] = TKSpec(int(r[0]), int(r[1]))
     return RankPlan("tk", layers)
+
+
+def build_svd_plan(model: str, ratio: str) -> RankPlan:
+    """Plain low-rank plan: one SVD rank per layer."""
+    return RankPlan("svd", {
+        name: SVDSpec(r if isinstance(r, int) else r[0])
+        for name, r in table_entry("svd", model, ratio)["ranks"].items()})
 
 
 def _build_tt_plan(spec_cls, model: str, ratio: str, tt_type: str,

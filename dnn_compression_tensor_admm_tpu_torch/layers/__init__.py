@@ -1,7 +1,9 @@
 from .common import canonical_param_name, pair
+from .svd_conv import SVDConv2d
 from .tk_conv import TKConv2d
 from .tk_linear import TKLinear
 from .tt_conv import TTConv2d
 from .tt_linear import TTLinear
 
-__all__ = ["TKConv2d", "TKLinear", "TTConv2d", "TTLinear", "canonical_param_name", "pair"]
+__all__ = ["SVDConv2d", "TKConv2d", "TKLinear", "TTConv2d", "TTLinear",
+           "canonical_param_name", "pair"]

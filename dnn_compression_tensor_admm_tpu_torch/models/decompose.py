@@ -12,8 +12,8 @@ from typing import Dict
 import torch
 from torch import nn
 
-from ..configs.hp import RankPlan, TKSpec, TTConvSpec, TTLinearSpec
-from ..layers import TKConv2d, TKLinear, TTConv2d, TTLinear
+from ..configs.hp import RankPlan, SVDSpec, TKSpec, TTConvSpec, TTLinearSpec
+from ..layers import SVDConv2d, TKConv2d, TKLinear, TTConv2d, TTLinear
 from ..ops.precision import full_f32
 
 
@@ -43,6 +43,8 @@ def decompose_params(state_dict: Dict[str, torch.Tensor], plan: RankPlan, *,
             elif isinstance(spec, TKSpec) and w.dim() == 2:
                 factors = TKLinear.factorize_dense(w.float(), spec,
                                                    n_iter=n_iter, method=method)
+            elif isinstance(spec, SVDSpec) and w.dim() == 4:
+                factors = SVDConv2d.factorize_dense(w.float(), spec)
             else:
                 raise NotImplementedError(
                     f"{type(spec).__name__} on a {w.dim()}-d weight is not "

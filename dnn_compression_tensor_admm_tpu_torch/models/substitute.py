@@ -1,5 +1,6 @@
 """Layer substitution: a dense conv or linear, or the factorized layer a
-RankPlan prescribes for its canonical parameter name."""
+RankPlan prescribes for its canonical parameter name (TT, Tucker-2, or for
+a conv plain SVD)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..configs.hp import RankPlan, TKSpec, TTConvSpec, TTLinearSpec
-from ..layers import TKConv2d, TKLinear, TTConv2d, TTLinear
+from ..configs.hp import RankPlan, SVDSpec, TKSpec, TTConvSpec, TTLinearSpec
+from ..layers import SVDConv2d, TKConv2d, TKLinear, TTConv2d, TTLinear
 
 
 def kaiming_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -42,8 +43,12 @@ def make_conv(in_ch: int, out_ch: int, kernel_size: int, *, stride=1,
         return TKConv2d(in_ch, out_ch, kernel_size, spec, stride=stride,
                         padding=padding, bias=bias, mode=tk_mode,
                         generator=generator)
-    raise NotImplementedError(
-        f"{type(spec).__name__} layers are not ported yet ({key})")
+    if isinstance(spec, SVDSpec):
+        svd_mode = "reconstruct" if mode == "reconstruct" else "chain"
+        return SVDConv2d(in_ch, out_ch, kernel_size, spec, stride=stride,
+                         padding=padding, bias=bias, mode=svd_mode,
+                         generator=generator)
+    raise TypeError(f"bad conv spec for {key}: {type(spec).__name__}")
 
 
 def make_linear(in_f: int, out_f: int, *, plan: Optional[RankPlan], mode: str,

@@ -49,7 +49,7 @@ class TrainConfig:
     # ADMM
     admm: bool = False
     rho: float = 0.001
-    fmt: str = "tk"  # rank format of the ADMM plan: tk | tt
+    fmt: str = "tk"  # rank format of the ADMM plan: tk | tt | svd
     ratio: str = "3"
     tt_type: str = "general"
     admm_method: str = "kernel"  # CUDA kernels (Tucker-2 factor, TT subspace);

@@ -3,14 +3,17 @@
 The JAX variables are given as nested dicts of numpy arrays
 ({'params': ..., 'batch_stats': ...}). Layouts:
 
-* conv ``kernel`` HWIO <-> ``weight`` OIHW; Dense ``kernel`` [in, out]
-  <-> Linear ``weight`` [out, in];
+* conv ``kernel`` HWIO <-> ``weight`` OIHW (a depthwise [3, 3, 1, C]
+  kernel is [C, 1, 3, 3]); Dense ``kernel`` [in, out] <-> Linear
+  ``weight`` [out, in];
 * BN ``scale``/``bias`` <-> ``weight``/``bias`` and ``mean``/``var`` <->
   ``running_mean``/``running_var`` (``num_batches_tracked`` is added as 0
   and dropped on the way back);
 * TK ``core_kernel`` HWIO <-> OIHW; ``first_factor`` and ``last_factor``
   keep their layout, as a TK linear's ``core`` [r_out, r_in] does (its
   bias is a Dense-style ``bias``);
+* SVD ``first_factor`` [r, I] and ``last_factor`` [O, r] keep their
+  layout;
 * TT ``core_kernel`` (the middle core as a conv kernel, [r_outL, r_in0]
   as O and I) HWIO <-> OIHW by the same rule; ``out_core_i`` and
   ``in_core_i`` ([r_i, n_i, r_{i+1}]) keep their layout;
@@ -18,9 +21,10 @@ The JAX variables are given as nested dicts of numpy arrays
   kernel HWIO <-> OIHW with its bias; ``cls_token``, ``pos_embed`` and a
   TT linear's ``core_i`` keep their layout.
 
-Flax module names may hold a dot ('layer1.0', 'patch_embed.proj',
-'mlp.fc1'); on the way back a purely numeric name part is joined to the
-part before it, and the ViT's dotted module names are joined whole.
+Flax module names may hold a dot ('layer1.0', 'bottlenecks.16',
+'patch_embed.proj', 'mlp.fc1'); on the way back a purely numeric name
+part is joined to the part before it, and the ViT's dotted module names
+are joined whole.
 """
 
 from __future__ import annotations

@@ -421,6 +421,13 @@ def test_tucker2_plans_match_plain(libs, shape, r0, r1, sweeps, resident, late):
     # r = 244: the Newton-Schulz matrices and the partial S in the slab,
     # their products staged from the slab (no room for all of Y and Z)
     ((1, 1, 248, 8), 244, 8, 2, "ns sp y u", 0, 1),
+    # MobileNetV2-CIFAR SVD's head (1280 x 320 at r = 160, as K = 1 with
+    # r0 = r1) cut to 328 x 168: rp = 160 at C = 8 with the same regions in
+    # the slab, the Newton-Schulz matrices among them
+    ((1, 1, 328, 168), 160, 160, 8, "ns g y u m", 2, 1),
+    # its tall 384 x 64 buckets at r = 36, two layers at C = 8: chunk rows
+    # of 388 floats (O + 4), 8 rows of U1 a block
+    ((2, 1, 384, 64), 36, 36, 8, "", 2, 0),
 ])
 def test_tucker2_workspace_plan_matches_plain(libs, shape, r0, r1, cluster,
                                               in_ws, sweeps, late):

@@ -85,6 +85,8 @@ def _tucker2_bucket(g):
     ("mobilenetv2", "svd", "2", 224, 22, 29, 22, 29),
     ("densenet40", "tk", "2", 32, 38, 38, 22, 38),
     ("resnet56", "tk", "3", 32, 54, 54, 0, 54),
+    ("mobilenetv2_cifar", "svd", "2", 32, 21, 28, 21, 28),
+    ("mobilenetv2_cifar", "tk", "2", 32, 21, 28, 21, 28),
 ])
 def test_tucker2_gate_on_the_tk_and_svd_plans(name, fmt, ratio, size, pallas,
                                               port, workspace, layers):

@@ -15,17 +15,20 @@ before `subspace_ws.cu` keeps its workspace plan in `subspace.cu`) and,
 at the shapes of the main paths (`chip_smoke.py`: the 24 subspace
 launches of a ResNet32-TT@3x Z-step, the 33 of a DeiT-tiny-TT@2x Z-step,
 13 of them in the workspace plan, the 5 Tucker-2 buckets of
-ResNet32-TK@3x and the 4 of DeiT-tiny-TK@2x, inputs from --seed) and at
-chip_smoke.py's two near-cap Tucker-2 buckets, times baseline, this,
-this, baseline in device time (`chip_smoke.graph_ms`). A shape that
+ResNet32-TK@3x, the 4 of DeiT-tiny-TK@2x and the 16 of
+MobileNetV2-CIFAR-SVD@2x, 11 of them in the workspace plan, inputs from
+--seed) and at chip_smoke.py's two near-cap Tucker-2 buckets, times
+baseline, this, this, baseline in device time (`chip_smoke.graph_ms`).
+A shape that
 takes a workspace plan the baseline does not have is timed in this build
 alone. The subspace kernel is timed at the Z-step's iteration count and
 at iters=0 (the Gram, the identity start and the lift), the Tucker-2
 kernel at the Z-step's sweeps and at sweeps=0 (the Grams of X and the
 HOSVD init). It reports this checkout's errors against the plain
 versions, each workspace plan's cluster size and how many such clusters
-the card holds at once (and at the subspace workspace launches the time
-of `torch.linalg.svd` of the same t), and the largest difference between
+the card holds at once (and at the subspace workspace launches and the
+MobileNetV2 SVD buckets the time of `torch.linalg.svd` of the same t or
+[L, O, I] stack), and the largest difference between
 the two builds' outputs (at both counts, and over the block-plan and the
 workspace-plan subspace launches), one JSON line per shape and
 per-Z-step sums over the main-path shapes, also written to --out
@@ -233,6 +236,8 @@ def main() -> int:
     buckets += [(b, None) for b in cs.NEAR_CAP_BUCKETS]
     buckets += [(b, "deit") for b in
                 cs.main_path_buckets(cs.deit_program("tk"))]
+    buckets += [(b, "mbv2_svd") for b in
+                cs.main_path_buckets(cs.mbv2_program())]
     base_ws = ("baseline", "tucker2_factors_ws") in libs
     for (shape, r0, r1), path in (buckets if "tucker2_factors" in args.kernels
                                   else ()):
@@ -251,7 +256,7 @@ def main() -> int:
                              sweeps=sweeps)
 
         both = plan != "workspace" or base_ws
-        graph = None if path != "deit" else cs.DEIT_TK_GRAPH
+        graph = cs.TK_WS_GRAPH if plan == "workspace" else None
         p0, p1 = tk.tucker2_factors_plain(x, r0, r1, sweeps=cs.SWEEPS)
         row = {"kernel": "tucker2_factors", "path": path,
                "shape": list(shape), "ranks": [r0, r1], "plan": plan}
@@ -260,6 +265,9 @@ def main() -> int:
             row["cluster"] = lib.tucker2_factors_ws_cluster(*shape[1:], r0, r1)
             row["max_active_clusters"] = lib.tucker2_factors_ws_max_clusters(
                 *shape[1:], r0, r1)
+        if path == "mbv2_svd":  # K = 1, r0 = r1: the truncated SVD
+            row["library_ms_batched_svd"] = cs.cuda_ms(
+                lambda: torch.linalg.svd(x[:, 0], full_matrices=False), 5, 1)
         for sweeps in (cs.SWEEPS, 0):
             u0, u1 = tucker("this", sweeps)
             if both:
