@@ -35,14 +35,25 @@ prints one JSON line per phase:
    `torch.linalg.svd` of the same [L, O, I] stack and both rank-r fits,
    and both kernels at two shapes near a block's
    shared-memory limit, which take the Tucker-2 kernel's streamed plan
-   and the subspace kernel's unpadded plan; kernel times are device
-   times (launches captured in a CUDA graph and replayed);
+   and the subspace kernel's unpadded plan; then both kernels at
+   ImageNet ResNet-50's shapes: the subspace kernel at the 27 launches of
+   a ResNet-50-TT@3x Z-step (14 in the workspace plan, up to r = 130; the
+   block plans up to 73,728 columns; the sweep's 9 full-rank steps launch
+   nothing) and the Tucker-2 kernel at the 15 buckets of ResNet-50-TK@3x
+   (K = 9 and K = 1; 13 in the workspace plan), then one whole Z/U step
+   of the TK@3x plan from a seeded dense init (15 launches asserted);
+   kernel times are device times (launches captured in a CUDA graph and
+   replayed);
 4. main    — ResNet32 Tucker-2 @3x and ResNet32 Tensor-Train @3x, each at
    full width and batch 256, then DeiT-tiny Tensor-Train @2x and
    DeiT-tiny Tucker-2 @2x, each at full width (embed 192, depth 12,
    224 x 224, 1000 classes) and batch 128 with AdamW, then
    MobileNetV2-CIFAR plain SVD @2x at full width and batch 256 (its 28
    1x1 convs in 16 Tucker-2 launches a Z-step; parameter counts
+   asserted), then ImageNet ResNet-50 Tensor-Train @3x (general) at full
+   width, 224 x 224, 1000 classes and batch 256 with SGD momentum, lr 0.1
+   after a one-epoch warmup and gradients clipped at global norm 1.0 (34
+   TT convs in 27 subspace launches a Z-step; parameter counts
    asserted), each path with its own wall time: ADMM (first
    projection + 2 epochs x 20 steps), decompose,
    fine-tune 20 steps, eval and runtime, counting both kernels' launches
@@ -126,6 +137,8 @@ TK_WS_GRAPH = {"launches": 5, "replays": 2}
 # MobileNetV2-CIFAR SVD@2x's parameter counts, dense and compressed (the
 # JAX package's)
 MBV2_PARAMS = (2_237_770, 1_289_754)
+# ImageNet ResNet-50 TT@3x (general)'s, the JAX package's too (2.509x)
+R50_TT_PARAMS = (25_557_032, 10_187_501)
 
 
 def emit(obj) -> None:
@@ -202,6 +215,10 @@ def mbv2_program(fmt: str = "svd"):
     return _program(fmt, "mobilenetv2_cifar", "2")
 
 
+def r50_program(fmt: str = "tt"):
+    return _program(fmt, "resnet50", "3")
+
+
 def tucker_input(rng, shape):
     l, k, o, i = shape
     x_np = rng.standard_normal(shape).astype(np.float32)
@@ -273,8 +290,10 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
     untimed at `extra`, which must take `extra_plan`; workspace-plan
     buckets are timed with TK_WS_GRAPH's launches and replays. The
     library yardstick is a batched SVD of both unfoldings (the HOSVD's),
-    or with `svd` (an SVD path: K = 1, r0 = r1) one `torch.linalg.svd` of
-    the [L, O, I] stack, whose rank-r fit is printed beside the kernel's."""
+    or with `svd` at a K = 1 bucket (an SVD 1x1 conv: r0 = r1) one
+    `torch.linalg.svd` of the [L, O, I] stack, whose rank-r fit is
+    printed beside the kernel's; each row also gives it as
+    `library_ms`."""
     t_start = time.perf_counter()
     rng = np.random.RandomState(seed)
     rows = []
@@ -283,7 +302,7 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
         x = tucker_input(rng, shape)
         max_abs, z_rel, sub = check_tucker(x, r0, r1)
         fits = {}
-        if svd:
+        if svd and k == 1:
             u0, u1 = tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS)
             fits = dict(zip(("kernel_fit_rel_err", "svd_fit_rel_err"),
                             svd_fits(x, u0, u1, r0)))
@@ -328,7 +347,7 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
         flops = k1_flops(shape, r0, r1) if k == 1 else algorithm_flops
         nbytes = 4 * (l * k * o * i + l * o * r0 + l * i * r1)
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-        library_key = ("library_ms_batched_svd" if svd else
+        library_key = ("library_ms_batched_svd" if svd and k == 1 else
                        "library_ms_hosvd_only_svd_of_both_unfoldings")
         row = {"phase": "kernel", "name": "tucker2_factors_batched",
                "path": path, "shape_LKOI": list(shape), "ranks": [r0, r1],
@@ -337,7 +356,7 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
                "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
                "hosvd_ms": hosvd_ms, "plain_ms": plain_ms,
-               library_key: library_ms, **fits,
+               library_key: library_ms, "library_ms": library_ms, **fits,
                "flops": flops, "algorithm_flops": algorithm_flops,
                "bytes": nbytes,
                "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
@@ -390,6 +409,7 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
                     near_cap=NEAR_CAP_LAUNCHES):
     """The subspace kernel at every launch of `program`'s Z-step, then at
     `near_cap`, then the whole TT sweep of one Z-step."""
+    t_start = time.perf_counter()
     rng = np.random.RandomState(seed)
     rows_out = []
     for shape, r in launches:
@@ -462,6 +482,9 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
         for x, sp in xs], 10)
     emit({"phase": "kernel", "name": "tt_project_batched", "path": path,
           "buckets": len(xs), "ms_per_z_step": sweep_ms})
+    emit({"phase": "kernel_wall", "name": "dominant_left_subspace_batched",
+          "path": path, "launches": len(launches),
+          "wall_s": time.perf_counter() - t_start})
     return rows_out
 
 
@@ -500,11 +523,52 @@ def check_projection_quality(model, name: str, fmt: str, ratio: str):
     return errs
 
 
+def phase_zstep(seed: int, model: str, fmt: str, ratio: str,
+                launches_per_z_step: int):
+    """One whole Z/U step of `model`'s plan on the card, kernel route,
+    from a seeded dense init: the Tucker-2 kernel must launch once a
+    bucket and the subspace kernel never; then the fit against the
+    'subspace' route's."""
+    t_start = time.perf_counter()
+    dense = create_model(model, generator=torch.Generator().manual_seed(seed))
+    dense.cuda()
+    params = dict(dense.named_parameters())
+    program = build_program(params, get_rank_plan(model, fmt, ratio))
+    state = admm_init(params, program)
+    tk.tucker2_factors_batched.launches = 0
+    sk.dominant_left_subspace_batched.launches = 0
+    t0 = time.perf_counter()
+    state, residuals = admm_update(params, state, program, update_u=True,
+                                   method="kernel", n_iter=6)
+    torch.cuda.synchronize()
+    z_step_ms = 1000 * (time.perf_counter() - t0)
+    launches = tk.tucker2_factors_batched.launches
+    other = sk.dominant_left_subspace_batched.launches
+    if launches != launches_per_z_step or other != 0:
+        raise AssertionError(f"{model} {fmt}@{ratio}x Z-step: Tucker-2 "
+                             f"kernel launched {launches} times (expected "
+                             f"{launches_per_z_step}), the subspace kernel "
+                             f"{other}")
+    if not all(bool(torch.isfinite(state.z[n]).all()) for n in program.names):
+        raise AssertionError(f"{model} Z-step: non-finite Z")
+    proj = check_projection_quality(dense, model, fmt, ratio)
+    emit({"phase": "zstep", "model": f"{model} {fmt}@{ratio}x",
+          "buckets": len(program.groups), "layers": len(program.names),
+          "kernel_launches": launches, "other_kernel_launches": other,
+          "z_step_ms_host_clock": z_step_ms,
+          "residual_total": float(sum(r.item() for r in residuals.values())),
+          "projection_rel_err": proj,
+          "wall_s": time.perf_counter() - t_start})
+    return launches
+
+
 # per main path: the dense and compressed models, the ratio (the JAX
 # package's, to 2 decimals), the training set-up (`bench.py`'s tk3x, tt3x
 # and deit_tt2, with the depth cut; DeiT-tiny TK@2x as deit_tt2;
-# MobileNetV2-CIFAR SVD@2x as RESULTS.md's mbv2_svd_r03 run, lr 0.05), the
-# kernel the Z-step must launch and the one it must not
+# MobileNetV2-CIFAR SVD@2x as RESULTS.md's mbv2_svd_r03 run, lr 0.05;
+# ResNet-50 TT@3x as `results/run_r50tt.sh`: ADMM at lr 0.1 with warmup
+# and clipping, fine-tune at lr 0.01), the kernel the Z-step must launch
+# and the one it must not
 RESNET = dict(dense="resnet32", ratio_arg="3", dataset="synthetic-cifar10",
               synthetic_size=None, batch_size=256, opt="momentum", lr=0.1,
               input=(3, 32, 32), classes=10, full_rank_check=True)
@@ -536,12 +600,23 @@ PATHS = {
                  "params": MBV2_PARAMS,
                  "kernel": tk.tucker2_factors_batched,
                  "other": sk.dominant_left_subspace_batched},
+    "r50_tt3": {**DEIT, "dense": "resnet50", "ratio_arg": "3",
+                "dataset": "synthetic-hard-imagenet", "batch_size": 256,
+                "opt": "momentum", "lr": 0.1, "ft_lr": 0.01,
+                "admm_extra": {"warmup_epochs": 1, "clip_grad": 1.0},
+                "name": "resnet50 tt@3x", "fmt": "tt",
+                "model": "ttm_resnet50", "ratio": 2.51,
+                "params": R50_TT_PARAMS,
+                "kernel": sk.dominant_left_subspace_batched,
+                "other": tk.tucker2_factors_batched},
 }
 # the depth of every main path: bench.py runs 24 epochs of 196 (ResNet) or
 # 128 (DeiT) steps and the JAX package's fine-tune as many again
 CUT = {"admm": "first projection + 2 epochs x 20 steps",
        "finetune": "1 epoch x 20 steps",
-       "bench_py": "24 epochs x 196 (resnet32) or 128 (deit) steps"}
+       "bench_py": "24 epochs x 196 (resnet32) or 128 (deit) steps",
+       "run_r50tt_sh": "150 ADMM epochs (warmup 5, here 1) + 105 fine-tune "
+                       "epochs of 50 steps"}
 
 
 def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
@@ -556,13 +631,15 @@ def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
     dataset_s = time.perf_counter() - t0  # train_model makes both again
     common = dict(dataset=path["dataset"], batch_size=path["batch_size"],
                   synthetic_size=path["synthetic_size"], steps_per_epoch=20,
-                  opt=path["opt"], lr=path["lr"], smoothing=0.1,
+                  opt=path["opt"], smoothing=0.1,
                   compute_dtype="bfloat16", seed=seed, device="cuda",
                   print_fn=log)  # per-epoch rows go to stderr
     admm_cfg = TrainConfig(model=path["dense"], epochs=2, admm=True,
-                           rho=1e-3, fmt=fmt, ratio=path["ratio_arg"],
-                           admm_method="kernel", admm_hooi_iters=6,
-                           log_path=f"{workdir}/admm_{key}.log", **common)
+                           lr=path["lr"], rho=1e-3, fmt=fmt,
+                           ratio=path["ratio_arg"], admm_method="kernel",
+                           admm_hooi_iters=6,
+                           log_path=f"{workdir}/admm_{key}.log",
+                           **path.get("admm_extra", {}), **common)
     tk.tucker2_factors_batched.launches = 0
     sk.dominant_left_subspace_batched.launches = 0
     t0 = time.perf_counter()
@@ -595,6 +672,7 @@ def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
                              f"{path['params']}")
 
     ft_cfg = TrainConfig(model=path["model"], epochs=1,
+                         lr=path.get("ft_lr", path["lr"]),
                          ratio=path["ratio_arg"], **common)
     ft, ft_hist = train_model(ft_cfg, init_state_dict=sd)
     ev = evaluate_model(ft, x_va, y_va, info, compute_dtype="bfloat16")
@@ -618,6 +696,9 @@ def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
     steps = admm_cfg.steps_per_epoch
     emit({"phase": "main", "card": card, "model": path["name"],
           "batch": path["batch_size"], "optimizer": path["opt"],
+          "lr": admm_cfg.lr, "finetune_lr": ft_cfg.lr,
+          "warmup_epochs": admm_cfg.warmup_epochs,
+          "clip_grad": admm_cfg.clip_grad,
           "depth_cut": CUT, "admm_epochs": admm_cfg.epochs,
           "steps_per_epoch": steps, "z_steps": z_steps,
           "kernel_launches": launches, "other_kernel_launches": other,
@@ -709,8 +790,12 @@ def main() -> int:
     mbv2_plans = sorted(tk.plan_name(*b[0][1:], *b[1:]) for b in buckets_mbv2)
     if mbv2_plans != ["resident"] * 4 + ["streamed"] + ["workspace"] * 11:
         raise AssertionError(f"MobileNetV2 SVD buckets' plans: {mbv2_plans}")
+    buckets_r50 = main_path_buckets(r50_program("tk"))
+    r50_plans = sorted(tk.plan_name(*b[0][1:], *b[1:]) for b in buckets_r50)
+    if r50_plans != ["resident", "streamed"] + ["workspace"] * 13:
+        raise AssertionError(f"ResNet-50 TK buckets' plans: {r50_plans}")
     tk_shapes = [*buckets, *NEAR_CAP_BUCKETS, *buckets_deit_tk,
-                 *WS_EXTRA_BUCKETS, *buckets_mbv2]
+                 *WS_EXTRA_BUCKETS, *buckets_mbv2, *buckets_r50]
     for shape, r0, r1 in tk_shapes:
         dims = (*shape[1:], r0, r1)
         if tk.block_plan_fits(*dims):
@@ -738,7 +823,11 @@ def main() -> int:
     launches_deit = tt_launches(program_deit)
     if len(launches_deit) != 33:
         raise AssertionError(f"{len(launches_deit)} DeiT launches, not 33")
-    for (l, rows, cols), r in [*launches_tt, *launches_deit]:
+    program_r50 = r50_program()
+    launches_r50 = tt_launches(program_r50)
+    if len(launches_r50) != 27:  # 36 sweep steps, 9 of them full rank
+        raise AssertionError(f"{len(launches_r50)} ResNet-50 launches, not 27")
+    for (l, rows, cols), r in [*launches_tt, *launches_deit, *launches_r50]:
         if sk.block_plan_fits(rows, cols, r):
             planned = (sk_lib.subspace_smem_bytes(rows, cols, r), 0)
             want = (sk.smem_bytes(rows, cols, r), 0)
@@ -788,7 +877,10 @@ def main() -> int:
           "tt_launches": [plan_row(s, r) for s, r in launches_tt],
           "deit_launches_shape_r_plan_smem_bytes_ws_bytes_regions_"
           "cluster_max_active_clusters": [
-              plan_row(s, r) for s, r in launches_deit]})
+              plan_row(s, r) for s, r in launches_deit],
+          "r50_launches_shape_r_plan_smem_bytes_ws_bytes_regions_"
+          "cluster_max_active_clusters": [
+              plan_row(s, r) for s, r in launches_r50]})
 
     rows_tk = phase_kernel(args.seed, buckets, "resnet32 tk@3x")
     rows_deit_tk = phase_kernel(args.seed, buckets_deit_tk,
@@ -802,6 +894,12 @@ def main() -> int:
     rows_mbv2 = phase_kernel(args.seed, buckets_mbv2,
                              PATHS["mbv2_svd"]["name"], extra=(),
                              svd=True)
+    rows_r50 = phase_kernel_tt(args.seed, launches_r50, program_r50,
+                               PATHS["r50_tt3"]["name"], near_cap=())
+    rows_r50_tk = phase_kernel(args.seed, buckets_r50, "resnet50 tk@3x",
+                               extra=(), svd=True)
+    launches_r50_tk = phase_zstep(args.seed, "resnet50", "tk", "3",
+                                  len(buckets_r50))
     with tempfile.TemporaryDirectory() as workdir:
         launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
                                       workdir)
@@ -813,6 +911,8 @@ def main() -> int:
                                            len(buckets_deit_tk), workdir)
         launches_mbv2_main = phase_main(args.seed, smi, "mbv2_svd",
                                         len(buckets_mbv2), workdir)
+        launches_r50_main = phase_main(args.seed, smi, "r50_tt3",
+                                       len(launches_r50), workdir)
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
@@ -823,7 +923,10 @@ def main() -> int:
     # and its times per Z-step; the ResNet32 entries keep the kernel's name
     entries = []
     # (every DeiT-TK bucket takes the workspace plan, its own source;
-    # MobileNetV2 SVD's take both, against one batched SVD of each stack)
+    # MobileNetV2 SVD's take both, against one batched SVD of each stack;
+    # ResNet-50 TK's both, its K = 1 buckets against one batched SVD of
+    # each stack and its K = 9 ones against the HOSVD yardstick; its
+    # launches are those of the one Z/U step of `phase_zstep`)
     hosvd_key = "library_ms_hosvd_only_svd_of_both_unfoldings"
     for name, path, n, rows, source, library_key in (
             ("tucker2_factors_batched", "resnet32 tk@3x", launches_tk_main,
@@ -834,7 +937,11 @@ def main() -> int:
             ("tucker2_factors_batched@mbv2_svd2", PATHS["mbv2_svd"]["name"],
              launches_mbv2_main, rows_mbv2,
              f"{src}tucker2_factors.cu, {src}tucker2_factors_ws.cu",
-             "library_ms_batched_svd")):
+             "library_ms_batched_svd"),
+            ("tucker2_factors_batched@r50_tk3", "resnet50 tk@3x",
+             launches_r50_tk, rows_r50_tk,
+             f"{src}tucker2_factors.cu, {src}tucker2_factors_ws.cu",
+             "library_ms")):
         one = kernel_summary(name, path, source,
                              ref + "tucker_kernel.py:142", n, rows,
                              library_key)
@@ -846,6 +953,9 @@ def main() -> int:
              launches_tt_main, rows_tt, src + "subspace.cu"),
             ("dominant_left_subspace_batched@deit_tt2",
              "deit_tiny_patch16_224 tt@2x", launches_deit_main, rows_deit,
+             f"{src}subspace.cu, {src}subspace_ws.cu"),
+            ("dominant_left_subspace_batched@r50_tt3",
+             PATHS["r50_tt3"]["name"], launches_r50_main, rows_r50,
              f"{src}subspace.cu, {src}subspace_ws.cu")):
         one = kernel_summary(name, path, source,
                              ref + "subspace_kernel.py:85", n, rows,

@@ -1,7 +1,8 @@
 """Command line: the JAX package's `cli/main.py` surface for the port's
 slices (ResNet32 with Tucker-2 or Tensor-Train, and MobileNetV2-CIFAR with
 plain SVD or Tucker-2, on synthetic CIFAR geometry; DeiT-tiny with
-Tensor-Train or Tucker-2 on synthetic ImageNet geometry).
+Tensor-Train or Tucker-2, and ImageNet ResNet-18/34/50 with Tensor-Train
+or Tucker-2, on synthetic ImageNet geometry).
 
 Pipeline modes:
   (default)     train (dense baseline, or ADMM with --admm)
@@ -28,10 +29,13 @@ def parse_args(argv=None):
                    help="resnet32 | tkc_resnet32 | ttm_resnet32 | "
                         "mobilenetv2_cifar | svdc_mobilenetv2_cifar | "
                         "tkc_mobilenetv2_cifar | deit_tiny_patch16_224 | "
-                        "ttm_deit_tiny_patch16_224 | tkc_deit_tiny_patch16_224")
+                        "ttm_deit_tiny_patch16_224 | tkc_deit_tiny_patch16_224 "
+                        "| resnet18 | resnet34 | resnet50 | ttm_resnet50 | "
+                        "tkc_resnet50 | ttm_resnet18 | tkc_resnet18 (the "
+                        "ImageNet ResNets)")
     p.add_argument("--dataset", default="synthetic-cifar10", type=str,
                    help="synthetic-cifar10 | synthetic-hard-cifar10 | "
-                        "synthetic-imagenet")
+                        "synthetic-imagenet | synthetic-hard-imagenet")
     p.add_argument("--batch-size", default=256, type=int)
     p.add_argument("--epochs", default=200, type=int)
     p.add_argument("--steps-per-epoch", default=None, type=int)
@@ -40,7 +44,11 @@ def parse_args(argv=None):
     p.add_argument("--lr", default=0.1, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--weight-decay", default=1e-4, type=float)
+    p.add_argument("--warmup-epochs", default=0, type=int,
+                   help="linear warmup from 1e-6 to --lr before the cosine")
     p.add_argument("--min-lr", default=1e-5, type=float)
+    p.add_argument("--clip-grad", default=None, type=float,
+                   help="clip the gradients by this global norm")
     p.add_argument("--smoothing", default=0.0, type=float)
     p.add_argument("--admm", action="store_true")
     p.add_argument("--rho", default=0.001, type=float)
@@ -130,7 +138,8 @@ def main(argv=None):
         epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
         opt=args.opt, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
-        min_lr=args.min_lr, smoothing=args.smoothing, admm=args.admm,
+        min_lr=args.min_lr, warmup_epochs=args.warmup_epochs,
+        clip_grad=args.clip_grad, smoothing=args.smoothing, admm=args.admm,
         rho=args.rho, fmt=args.fmt, ratio=args.ratio, tt_type=args.tt_type,
         admm_method=args.admm_method,
         seed=args.seed, compute_dtype=compute_dtype,

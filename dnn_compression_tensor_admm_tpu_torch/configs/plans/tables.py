@@ -2,8 +2,10 @@
 
 `reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries, the
 DeiT-tiny and MobileNetV2-CIFAR Tucker-2 2x entries, the ResNet32
-Tensor-Train 3x entry, the DeiT-tiny Tensor-Train 2x entry and the
-MobileNetV2-CIFAR plain-SVD 2x entry of the JAX package's
+Tensor-Train 3x entry, the DeiT-tiny Tensor-Train 2x entry, the
+MobileNetV2-CIFAR plain-SVD 2x entry, and the ImageNet ResNet entries
+(ResNet-50 Tucker-2 3x and Tensor-Train 3x general and special, ResNet-18
+Tucker-2 2x and Tensor-Train 2x general and special) of the JAX package's
 `configs/plans/reference_hp.json`. TK entries are
 ``[out_rank, in_rank]``, TT entries a TT rank list beside their
 ``tt_shapes``, SVD entries one rank; a rank list of length 1 means plain

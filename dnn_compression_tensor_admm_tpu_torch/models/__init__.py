@@ -1,5 +1,5 @@
 from .registry import create_model, list_models, parse_compressed_name, register_model
-from . import mobilenetv2_cifar, resnet_cifar, vit  # noqa: F401  (register builders and plans)
+from . import mobilenetv2_cifar, resnet_cifar, resnet_inet, vit  # noqa: F401  (register builders and plans)
 from .decompose import compression_ratio, count_params, decompose_params
 
 __all__ = ["compression_ratio", "count_params", "create_model",

@@ -45,6 +45,8 @@ class TrainConfig:
     momentum: float = 0.9
     weight_decay: float = 1e-4
     min_lr: float = 1e-5
+    warmup_epochs: int = 0  # linear warmup from 1e-6 before the cosine
+    clip_grad: Optional[float] = None  # clip by global norm before the step
     smoothing: float = 0.0
     # ADMM
     admm: bool = False
@@ -192,7 +194,7 @@ def train_model(cfg: TrainConfig, *,
                               std=info.std)
             for group in opt.param_groups:
                 group["lr"] = cosine_lr(step, cfg.lr, cfg.epochs * steps,
-                                        cfg.min_lr)
+                                        cfg.min_lr, cfg.warmup_epochs * steps)
             with _autocast(device, cfg.compute_dtype):
                 logits = model(x, generator=gen)
             loss = cross_entropy(logits, yb, cfg.smoothing)
@@ -200,6 +202,9 @@ def train_model(cfg: TrainConfig, *,
                 loss = loss + admm_penalty(params, admm, program, cfg.rho)
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if cfg.clip_grad is not None:
+                torch.nn.utils.clip_grad_norm_(model.parameters(),
+                                               cfg.clip_grad)
             opt.step()
             step += 1
             loss_sum += loss.detach()

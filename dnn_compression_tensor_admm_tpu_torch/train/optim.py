@@ -1,10 +1,16 @@
-"""Optimizers and the per-step cosine schedule.
+"""Optimizers and the per-step cosine schedule with its optional linear
+warmup.
 
 `momentum` matches the JAX package's optax chain `add_decayed_weights(wd)`
 + `sgd(momentum)`: the decay is added to every parameter's gradient (L2),
 and the momentum buffer starts at the first gradient. `adamw` matches
 `optax.adamw(schedule, weight_decay=wd)`: b1 0.9, b2 0.999, eps 1e-8 and
 the decay lr * wd * p decoupled from the gradient, on every parameter.
+With a clip, optax's chain starts with `clip_by_global_norm`, so the clip
+sees the gradient of the loss (penalty included) before any decay: the
+train loop runs torch's `clip_grad_norm_` on every parameter before
+`opt.step()`, which adds the decay (torch divides by the norm + 1e-6,
+optax by the norm).
 """
 
 from __future__ import annotations
@@ -17,11 +23,30 @@ import torch
 OPTIMIZERS = ("momentum", "adamw")
 
 
-def cosine_lr(step: int, base_lr: float, total_steps: int,
-              min_lr: float) -> float:
-    """optax.cosine_decay_schedule(base_lr, total_steps, alpha=min_lr/base_lr)."""
-    total = max(1, total_steps)
+WARMUP_INIT_LR = 1e-6  # the JAX package's warmup start
+
+
+def cosine_lr(step: int, base_lr: float, total_steps: int, min_lr: float,
+              warmup_steps: int = 0) -> float:
+    """The JAX package's cosine schedule at `step` (from 0):
+    optax.cosine_decay_schedule(base_lr, total_steps,
+    alpha=min_lr/base_lr), or with `warmup_steps` > 0
+    optax.warmup_cosine_decay_schedule(1e-6, base_lr, warmup_steps,
+    total_steps, min_lr): linear from 1e-6 to base_lr over the warmup, then
+    a cosine over the remaining total_steps - warmup_steps that ends at
+    min_lr."""
     alpha = min_lr / base_lr
+    if warmup_steps > 0:
+        if step < warmup_steps:
+            return (WARMUP_INIT_LR
+                    + (base_lr - WARMUP_INIT_LR) * step / warmup_steps)
+        step -= warmup_steps
+        total = total_steps - warmup_steps
+        if total <= 0:  # optax refuses the schedule too
+            raise ValueError(f"{warmup_steps} warmup steps leave no cosine "
+                             f"steps of {total_steps}")
+    else:
+        total = max(1, total_steps)
     t = min(step, total) / total
     return base_lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t)) + alpha)
 

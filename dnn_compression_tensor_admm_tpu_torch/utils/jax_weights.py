@@ -22,9 +22,10 @@ The JAX variables are given as nested dicts of numpy arrays
   TT linear's ``core_i`` keep their layout.
 
 Flax module names may hold a dot ('layer1.0', 'bottlenecks.16',
-'patch_embed.proj', 'mlp.fc1'); on the way back a purely numeric name
-part is joined to the part before it, and the ViT's dotted module names
-are joined whole.
+'patch_embed.proj', 'mlp.fc1', and inside an ImageNet ResNet block
+'downsample.0' (its conv) and 'downsample.1' (its BN)); on the way back a
+purely numeric name part is joined to the part before it, and the ViT's
+dotted module names are joined whole.
 """
 
 from __future__ import annotations

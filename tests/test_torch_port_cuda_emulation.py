@@ -273,6 +273,9 @@ def _one_torch_thread():
     (1, 70, 130, 20),   # wide, Gram of 70 rows in two 64 x 64 blocks
     (1, 193, 197, 33),  # near a block's limit: the unpadded plan
     (1, 197, 193, 33),  # the same, tall: scalar products, lift from L2
+    # ResNet-50 TT@3x's longest rows: [32, 73728] at r = 30 streams its
+    # Gram through 1,152 stages of 64 columns
+    (1, 32, 73728, 30),
 ])
 def test_subspace_source_matches_plain(libs, L, rows, cols, r, late):
     t = (np.random.RandomState(rows + cols).standard_normal((L, rows, cols))
@@ -316,6 +319,9 @@ GUARD = 1024  # floats behind the workspace, filled with a sentinel
     (1, 260, 176, 174, 8, "y q"),
     # the same at C = 4: the partial S in the slab
     (1, 260, 176, 174, 4, "sp y"),
+    # ResNet-50 TT@3x's [2048, 512] at r = 130 (padded to 132) cut to
+    # 612 x 284: the same C = 8 with the Gram and Y in the slab
+    (1, 612, 284, 130, 8, "g y"),
 ])
 def test_subspace_workspace_plan_matches_plain(libs, L, rows, cols, r,
                                                cluster, in_ws, late):
@@ -428,6 +434,9 @@ def test_tucker2_plans_match_plain(libs, shape, r0, r1, sweeps, resident, late):
     # its tall 384 x 64 buckets at r = 36, two layers at C = 8: chunk rows
     # of 388 floats (O + 4), 8 rows of U1 a block
     ((2, 1, 384, 64), 36, 36, 8, "", 2, 0),
+    # ResNet-50 TK@3x's [3, 9, 512, 512] at 64/96 cut to 476 x 128: K = 9
+    # at C = 8 with Y, the factors and the HOOI products in the slab
+    ((1, 9, 476, 128), 64, 96, 8, "y u m", 2, 1),
 ])
 def test_tucker2_workspace_plan_matches_plain(libs, shape, r0, r1, cluster,
                                               in_ws, sweeps, late):
