@@ -42,6 +42,9 @@ prints one JSON line per phase:
    nothing) and the Tucker-2 kernel at the 15 buckets of ResNet-50-TK@3x
    (K = 9 and K = 1; 13 in the workspace plan), then one whole Z/U step
    of the TK@3x plan from a seeded dense init (15 launches asserted);
+   then the subspace kernel at the 24 launches of a DeiT-small-TT@2x
+   Z-step (16 in the workspace plan, r = 256 and 320 among them, at 89
+   to 91% of full rank);
    kernel times are device times (launches captured in a CUDA graph and
    replayed);
 4. main    — ResNet32 Tucker-2 @3x and ResNet32 Tensor-Train @3x, each at
@@ -58,7 +61,14 @@ prints one JSON line per phase:
    projection + 2 epochs x 20 steps), decompose,
    fine-tune 20 steps, eval and runtime, counting both kernels' launches
    (on the card the Z-step raises where a kernel's gate refuses a
-   bucket, so every bucket goes through a kernel).
+   bucket, so every bucket goes through a kernel); last DeiT-small
+   Tensor-Train @2x (embed 384, 6 heads) as `results/run_deit_small.sh`
+   runs it, cut to 7 ADMM epochs x 10 steps with the late rho boost at the
+   last (192 launches asserted), the dense model written to a msgpack,
+   then the CLI's `--decompose` from that file with hard distillation from
+   the dense teacher read from it too (1.53x and the parameter counts
+   asserted), eval, and the subspace kernel against its plain version at
+   every launch of a Z-step on the trained weights.
 
 Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
@@ -76,7 +86,9 @@ if __name__ == "__main__":
 
 import argparse  # noqa: E402
 import concurrent.futures  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
@@ -86,6 +98,7 @@ import torch  # noqa: E402
 
 from dnn_compression_tensor_admm_tpu_torch.admm import (  # noqa: E402
     admm_init, admm_update, build_program, tk_ranks)
+from dnn_compression_tensor_admm_tpu_torch.cli.main import main as cli_main  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.configs import get_rank_plan  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.data.datasets import load_dataset  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.models import (  # noqa: E402
@@ -94,8 +107,13 @@ from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.precision import full_f32  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.ttd import clamp_tt_ranks  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.train import (  # noqa: E402
     TrainConfig, eval_runtime, evaluate_model, train_model)
+from dnn_compression_tensor_admm_tpu_torch.utils.checkpoint import (  # noqa: E402
+    load_any_variables, save_variables)
+from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import (  # noqa: E402
+    state_dict_to_jax)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -139,6 +157,19 @@ TK_WS_GRAPH = {"launches": 5, "replays": 2}
 MBV2_PARAMS = (2_237_770, 1_289_754)
 # ImageNet ResNet-50 TT@3x (general)'s, the JAX package's too (2.509x)
 R50_TT_PARAMS = (25_557_032, 10_187_501)
+# DeiT-small TT@2x's, the JAX package's `ttm_deit_small_patch16_224` too
+# (1.5322x)
+DEIT_S_PARAMS = (22_050_664, 14_391_736)
+# DeiT-small TT@2x's launches near full rank (r = 256 and 320 at 89 to 91%
+# of min(rows, cols), gaps sigma_r - sigma_r+1 of 1e-4 to 1e-3 of sigma_1
+# on N(0, 1/cols) inputs) are held to TT_PROJ_TOL and TT_REL_TOL like every
+# other launch, on those inputs and on the ADMM run's trained weights: the
+# plain version summed in another order moves such a projector by 1e-4,
+# and the kernel's stayed within 1.2e-4 on the H100.
+# A subspace launch at r >= 256 does ~10 G FMA of Newton-Schulz a layer on
+# one cluster of 8 SMs: its graphs hold 5 launches, not 25.
+TT_BIG_RANK = 256
+TT_BIG_GRAPH = {"launches": 5, "replays": 2}
 
 
 def emit(obj) -> None:
@@ -209,6 +240,10 @@ def tt_launches(program=None):
 
 def deit_program(fmt: str = "tt"):
     return _program(fmt, "deit_tiny_patch16_224", "2")
+
+
+def deit_small_program():
+    return _program("tt", "deit_small_patch16_224", "2")
 
 
 def mbv2_program(fmt: str = "svd"):
@@ -426,12 +461,15 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
                            lib.subspace_ws_max_clusters(rows, cols, r)}
         else:
             cluster = {}
+        per_rank = TT_BIG_GRAPH if r >= TT_BIG_RANK else {}
         kernel_ms = graph_ms(
-            lambda: sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS))
+            lambda: sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS),
+            **per_rank)
         # the same launch without the iteration: the Gram, the identity
         # start and, in the tall case, the lift
         gram_ms = graph_ms(
-            lambda: sk.dominant_left_subspace_batched(t, r, iters=0))
+            lambda: sk.dominant_left_subspace_batched(t, r, iters=0),
+            **per_rank)
         plain_ms = cuda_ms(
             lambda: sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS), 5, 1)
         library_ms = cuda_ms(
@@ -445,6 +483,7 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
                "shape_L_rows_cols": list(shape), "rank": r,
                "projector_err": proj, "projector_tol": TT_PROJ_TOL,
                "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
+               "graph_launches": per_rank.get("launches", 25),
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
                "gram_ms": gram_ms, "plain_ms": plain_ms,
                "library_ms_batched_svd": library_ms,
@@ -722,6 +761,205 @@ def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
     return launches
 
 
+# DeiT-small TT@2x: `results/run_deit_small.sh`'s recipe (AdamW lr 5e-4,
+# warmup, clip 1.0, smoothing 0.1, the late rho boost; fine-tune at lr
+# 1e-4) at DEIT's geometry on `synthetic-hard-imagenet`, with its depth cut
+# to the least number of epochs at which the boost fires: int(0.85 * 7) =
+# 5, so epoch index 6 runs at 5 rho. The fine-tune distils from the dense
+# teacher (hard), both read from the msgpack the ADMM phase writes.
+DEIT_S = dict(dense="deit_small_patch16_224", model="ttm_deit_small_patch16_224",
+              name="deit_small_patch16_224 tt@2x", ratio_arg="2", ratio=1.53,
+              params=DEIT_S_PARAMS, dataset="synthetic-hard-imagenet",
+              synthetic_size=512, batch_size=128, lr=5e-4, ft_lr=1e-4,
+              epochs=7, steps_per_epoch=10, ft_steps=20, plain_ft_steps=5,
+              rho=1e-3, input=(3, 224, 224), classes=1000)
+CUT["deit_s_tt2"] = ("first projection + 7 epochs x 10 steps (warmup 1), "
+                     "then 1 fine-tune epoch x 20 steps")
+CUT["run_deit_small_sh"] = ("300 ADMM epochs of 32 steps (warmup 5), then 60 "
+                            "fine-tune epochs, at 4096 images")
+
+
+@full_f32()
+def sweep_launch_inputs(x, tt_shapes, tt_ranks):
+    """(t, r) of every launch of the TT sweep of x [L, numel], the residual
+    carried on by the plain version, as `tt_project_batched` carries it."""
+    l = x.shape[0]
+    ranks = clamp_tt_ranks(list(tt_shapes), tt_ranks)
+    t, out = x, []
+    for i in range(len(tt_shapes) - 1):
+        t = t.reshape(l, ranks[i] * tt_shapes[i], -1).contiguous()
+        r = min(ranks[i + 1], *t.shape[1:])
+        if r != t.shape[1]:
+            out.append((t, r))
+        u = sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS)
+        t = torch.einsum("lrc,lrk->lkc", t, u)
+    return out
+
+
+def phase_kernel_trained(model, name: str, fmt: str, ratio: str, path: str):
+    """The subspace kernel against its plain version at every launch of a
+    Z-step on `model`'s trained weights (the W + U of the path's own fit
+    check, U = 0): a trained spectrum beside the kernel phase's random
+    one."""
+    params = dict(model.named_parameters())
+    program = build_program(params, get_rank_plan(name, fmt, ratio))
+    rows_out = []
+    for g in program.groups:
+        x = torch.stack([params[n].detach().float() for n in g.names])
+        for t, r in sweep_launch_inputs(x.reshape(len(g.names), -1),
+                                        g.spec.tt_shapes, g.spec.tt_ranks):
+            max_abs, proj, rel = check_subspace(t, r)
+            row = {"phase": "kernel_trained_w",
+                   "name": "dominant_left_subspace_batched", "path": path,
+                   "shape_L_rows_cols": list(t.shape), "rank": r,
+                   "plan": sk.plan_name(*t.shape[1:], r),
+                   "projector_err": proj, "projector_tol": TT_PROJ_TOL,
+                   "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
+                   "max_abs_err": max_abs}
+            emit(row)
+            rows_out.append(row)
+    return rows_out
+
+
+def phase_deit_small(seed: int, card: str, launches_per_z_step: int,
+                     workdir: str):
+    """DeiT-small TT@2x through the port's entry points: ADMM with the
+    late rho boost (`train_model`), the dense model to a msgpack, then
+    `cli_main` decomposing it and fine-tuning with hard distillation from
+    the dense teacher read back from the same file, then eval; one extra
+    undistilled fine-tune of `plain_ft_steps` steps for its step time."""
+    path = DEIT_S
+    t_start = t0 = time.perf_counter()
+    x_va, y_va, info = load_dataset(path["dataset"], False,
+                                    path["synthetic_size"] // 4)
+    dataset_s = time.perf_counter() - t0  # the validation set alone
+    common = dict(dataset=path["dataset"], batch_size=path["batch_size"],
+                  synthetic_size=path["synthetic_size"], opt="adamw",
+                  smoothing=0.1, compute_dtype="bfloat16", seed=seed,
+                  device="cuda", print_fn=log)
+    admm_cfg = TrainConfig(model=path["dense"], epochs=path["epochs"],
+                           steps_per_epoch=path["steps_per_epoch"],
+                           lr=path["lr"], warmup_epochs=1, clip_grad=1.0,
+                           admm=True, rho=path["rho"], adjust_rho_late=True,
+                           fmt="tt", ratio=path["ratio_arg"],
+                           admm_method="kernel", admm_hooi_iters=6,
+                           eval_every=path["epochs"],
+                           log_path=f"{workdir}/admm_deit_s.log", **common)
+    tk.tucker2_factors_batched.launches = 0
+    sk.dominant_left_subspace_batched.launches = 0
+    t0 = time.perf_counter()
+    dense, hist = train_model(admm_cfg)
+    torch.cuda.synchronize()
+    admm_s = time.perf_counter() - t0
+    launches = sk.dominant_left_subspace_batched.launches
+    other = tk.tucker2_factors_batched.launches
+    z_steps = 1 + admm_cfg.epochs
+    if launches != z_steps * launches_per_z_step or other != 0:
+        raise AssertionError(
+            f"deit_s_tt2: subspace kernel launched {launches} times "
+            f"(expected {z_steps} Z-steps x {launches_per_z_step}), the "
+            f"Tucker-2 kernel {other}")
+    rhos = [h["rho"] for h in hist]
+    boosted = [5 * path["rho"] if e > int(0.85 * admm_cfg.epochs)
+               else path["rho"] for e in range(admm_cfg.epochs)]
+    if rhos != boosted or rhos[-1] != 5 * path["rho"]:
+        raise AssertionError(f"rho by epoch {rhos}, expected {boosted}")
+    evaluated = [h["epoch"] for h in hist if "test_loss" in h]
+    if evaluated != [admm_cfg.epochs]:
+        raise AssertionError(f"evaluated after epochs {evaluated}")
+
+    ckpt = os.path.join(workdir, "deit_small_admm.msgpack")
+    t0 = time.perf_counter()
+    save_variables(ckpt, state_dict_to_jax(dense.state_dict()))
+    back = load_any_variables(ckpt, dense.state_dict)
+    if not all(torch.equal(back[k], v.cpu())
+               for k, v in dense.state_dict().items()):
+        raise AssertionError("the msgpack does not read back the dense model")
+    msgpack_s = time.perf_counter() - t0
+
+    argv = ["--model", path["model"], "--ratio", path["ratio_arg"],
+            "--decompose", "--model-path", ckpt, "--distillation-type",
+            "hard", "--teacher-model", path["dense"], "--teacher-path", ckpt,
+            "--epochs", "1", "--steps-per-epoch", str(path["ft_steps"]),
+            "--lr", str(path["ft_lr"]), "--opt", "adamw", "--smoothing",
+            "0.1", "--dataset", path["dataset"], "--synthetic-size",
+            str(path["synthetic_size"]), "--batch-size",
+            str(path["batch_size"]), "--seed", str(seed)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # its rows, as the others'
+        ft, ft_hist = cli_main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    ratio = compression_ratio(dense, ft)
+    counts = (count_params(dense), count_params(ft))
+    if round(ratio, 2) != path["ratio"] or counts != path["params"]:
+        raise AssertionError(f"compression {ratio}, parameters {counts}; "
+                             f"expected {path['ratio']}, {path['params']}")
+
+    # the same fine-tune without the teacher, for its step time
+    plain_cfg = TrainConfig(model=path["model"], epochs=1,
+                            steps_per_epoch=path["plain_ft_steps"],
+                            lr=path["ft_lr"], ratio=path["ratio_arg"],
+                            **{**common, "synthetic_size": path["batch_size"]})
+    _, plain_hist = train_model(plain_cfg, init_state_dict=ft.state_dict())
+
+    ev = evaluate_model(ft, x_va, y_va, info, compute_dtype="bfloat16")
+    rt = eval_runtime(ft, info, batch_size=path["batch_size"],
+                      compute_dtype="bfloat16")
+    with torch.no_grad():
+        logits = ft.eval()(torch.zeros(4, *path["input"], device="cuda"))
+    if (tuple(logits.shape) != (4, path["classes"])
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    losses = ([h["train_loss"] for h in hist + ft_hist + plain_hist]
+              + [h["test_loss"] for h in hist + ft_hist if "test_loss" in h]
+              + [ev["loss"]])
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss in {losses}")
+    proj = check_projection_quality(dense, path["dense"], "tt",
+                                    path["ratio_arg"])
+    trained_rows = phase_kernel_trained(dense, path["dense"], "tt",
+                                        path["ratio_arg"], path["name"])
+    last = hist[-1]
+    steps = admm_cfg.steps_per_epoch
+    emit({"phase": "main", "card": card, "model": path["name"],
+          "batch": path["batch_size"], "optimizer": "adamw",
+          "lr": admm_cfg.lr, "finetune_lr": path["ft_lr"],
+          "warmup_epochs": admm_cfg.warmup_epochs,
+          "clip_grad": admm_cfg.clip_grad, "depth_cut": CUT,
+          "admm_epochs": admm_cfg.epochs, "steps_per_epoch": steps,
+          "z_steps": z_steps, "kernel_launches": launches,
+          "other_kernel_launches": other,
+          "launches_per_z_step": launches_per_z_step,
+          "rho_by_epoch": rhos, "evaluated_after_epochs": evaluated,
+          "admm_nonfinite_layers": [h["admm_nonfinite_layers"] for h in hist],
+          "dataset_s_validation": dataset_s,
+          "admm_it_per_s": steps / last["epoch_time_s"],
+          "admm_x_step_it_per_s": steps / last["x_step_s"],
+          "z_step_ms": 1000 * last["z_step_s"],
+          "z_step_ms_by_epoch": [1000 * h["z_step_s"] for h in hist],
+          "admm_wall_s": admm_s,
+          "admm_train_loss": [h["train_loss"] for h in hist],
+          "admm_residual_total": [h["admm_residual_total"] for h in hist],
+          "msgpack_bytes": os.path.getsize(ckpt), "msgpack_s": msgpack_s,
+          "cli_decompose_finetune_s": cli_s, "compression_ratio": ratio,
+          "params_dense_compressed": list(counts),
+          "distillation": "hard",
+          "finetune_distilled_it_per_s": (path["ft_steps"]
+                                          / ft_hist[-1]["x_step_s"]),
+          "finetune_undistilled_it_per_s": (path["plain_ft_steps"]
+                                            / plain_hist[-1]["x_step_s"]),
+          "finetune_train_loss": ft_hist[-1]["train_loss"],
+          "eval": ev, "ms_per_image": rt["ms_per_image"],
+          "images_per_s": rt["images_per_s"],
+          "projection_rel_err": proj,
+          "trained_w_launches_checked": len(trained_rows),
+          "trained_w_max_projector_err": max(r["projector_err"]
+                                             for r in trained_rows),
+          "wall_s": time.perf_counter() - t_start})
+    return launches
+
+
 # ms per Z-step of earlier CUDA versions of each kernel, as PERF.md
 # records them (NVIDIA H100 80GB HBM3, 700 W): printed on a line of their
 # own, labelled as recorded, apart from this run's measurements
@@ -827,7 +1065,14 @@ def main() -> int:
     launches_r50 = tt_launches(program_r50)
     if len(launches_r50) != 27:  # 36 sweep steps, 9 of them full rank
         raise AssertionError(f"{len(launches_r50)} ResNet-50 launches, not 27")
-    for (l, rows, cols), r in [*launches_tt, *launches_deit, *launches_r50]:
+    program_deit_s = deit_small_program()
+    launches_deit_s = tt_launches(program_deit_s)
+    deit_s_plans = [sk.plan_name(*shape[1:], r) for shape, r in launches_deit_s]
+    if (len(launches_deit_s) != 24
+            or deit_s_plans.count("workspace") != 16):
+        raise AssertionError(f"DeiT-small launches' plans: {deit_s_plans}")
+    for (l, rows, cols), r in [*launches_tt, *launches_deit, *launches_r50,
+                               *launches_deit_s]:
         if sk.block_plan_fits(rows, cols, r):
             planned = (sk_lib.subspace_smem_bytes(rows, cols, r), 0)
             want = (sk.smem_bytes(rows, cols, r), 0)
@@ -880,7 +1125,10 @@ def main() -> int:
               plan_row(s, r) for s, r in launches_deit],
           "r50_launches_shape_r_plan_smem_bytes_ws_bytes_regions_"
           "cluster_max_active_clusters": [
-              plan_row(s, r) for s, r in launches_r50]})
+              plan_row(s, r) for s, r in launches_r50],
+          "deit_s_launches_shape_r_plan_smem_bytes_ws_bytes_regions_"
+          "cluster_max_active_clusters": [
+              plan_row(s, r) for s, r in launches_deit_s]})
 
     rows_tk = phase_kernel(args.seed, buckets, "resnet32 tk@3x")
     rows_deit_tk = phase_kernel(args.seed, buckets_deit_tk,
@@ -900,6 +1148,8 @@ def main() -> int:
                                extra=(), svd=True)
     launches_r50_tk = phase_zstep(args.seed, "resnet50", "tk", "3",
                                   len(buckets_r50))
+    rows_deit_s = phase_kernel_tt(args.seed, launches_deit_s, program_deit_s,
+                                  DEIT_S["name"], near_cap=())
     with tempfile.TemporaryDirectory() as workdir:
         launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
                                       workdir)
@@ -913,6 +1163,8 @@ def main() -> int:
                                         len(buckets_mbv2), workdir)
         launches_r50_main = phase_main(args.seed, smi, "r50_tt3",
                                        len(launches_r50), workdir)
+        launches_deit_s_main = phase_deit_small(args.seed, smi,
+                                                len(launches_deit_s), workdir)
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
@@ -956,6 +1208,9 @@ def main() -> int:
              f"{src}subspace.cu, {src}subspace_ws.cu"),
             ("dominant_left_subspace_batched@r50_tt3",
              PATHS["r50_tt3"]["name"], launches_r50_main, rows_r50,
+             f"{src}subspace.cu, {src}subspace_ws.cu"),
+            ("dominant_left_subspace_batched@deit_s_tt2", DEIT_S["name"],
+             launches_deit_s_main, rows_deit_s,
              f"{src}subspace.cu, {src}subspace_ws.cu")):
         one = kernel_summary(name, path, source,
                              ref + "subspace_kernel.py:85", n, rows,

@@ -43,9 +43,12 @@ METHODS = ("kernel", "subspace", "svd")
 
 @dataclasses.dataclass
 class AdmmState:
-    """Flat name -> tensor maps for the duals U and the targets Z."""
+    """Flat name -> tensor maps for the duals U and the targets Z;
+    `nonfinite` counts the layers whose last projection was not finite
+    and kept their previous Z (a 0-d tensor, None before any step)."""
     u: Dict[str, torch.Tensor]
     z: Dict[str, torch.Tensor]
+    nonfinite: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,11 +186,16 @@ def _project_group_kernel(g: _Group, ts: torch.Tensor,
     return None
 
 
+def _finite_layers(z: torch.Tensor) -> torch.Tensor:
+    """[L] bool: which layers of a stack are finite throughout."""
+    return torch.isfinite(z.reshape(z.shape[0], -1)).all(dim=1)
+
+
 def _finite_or_prev(z: torch.Tensor, z_prev: torch.Tensor) -> torch.Tensor:
     """Per layer, replace a non-finite projection by the previous Z (skip
     this update): late in training the solvers' Gram steps can go
     singular, and one poisoned layer would NaN the penalty."""
-    ok = torch.isfinite(z.reshape(z.shape[0], -1)).all(dim=1)
+    ok = _finite_layers(z)
     return torch.where(ok.reshape((-1,) + (1,) * (z.dim() - 1)), z, z_prev)
 
 
@@ -204,6 +212,7 @@ def admm_update(params: Mapping[str, torch.Tensor], state: AdmmState,
         raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
     new_u, new_z = dict(state.u), dict(state.z)
     residuals: Dict[str, torch.Tensor] = {}
+    nonfinite = 0
     for g in program.groups:
         ws = torch.stack([params[n].detach().float() for n in g.names])
         us = torch.stack([state.u[n] for n in g.names])
@@ -214,6 +223,7 @@ def admm_update(params: Mapping[str, torch.Tensor], state: AdmmState,
             eff = "subspace" if method == "kernel" else method
             zs = torch.stack([_project_one(g, t, method=eff, n_iter=n_iter)
                               for t in x])
+        nonfinite = nonfinite + (~_finite_layers(zs)).sum()
         zs = _finite_or_prev(zs, zs_prev)
         diffs = ws - zs
         norms = torch.linalg.vector_norm(diffs.reshape(len(g.names), -1), dim=1)
@@ -222,7 +232,7 @@ def admm_update(params: Mapping[str, torch.Tensor], state: AdmmState,
             if update_u:
                 new_u[n] = state.u[n] + diffs[j]
             residuals[n] = norms[j]
-    return AdmmState(u=new_u, z=new_z), residuals
+    return AdmmState(u=new_u, z=new_z, nonfinite=nonfinite), residuals
 
 
 def admm_penalty(params: Mapping[str, torch.Tensor], state: AdmmState,
@@ -237,5 +247,6 @@ def admm_penalty(params: Mapping[str, torch.Tensor], state: AdmmState,
 
 def adjust_rho(epoch: int, epochs: int, init_rho: float,
                factor: float = 5.0) -> float:
-    """Late-training rho boost (off by default in the reference)."""
+    """Late-training rho boost (off by default in the reference): rho x 5
+    in every epoch index past int(0.85 * epochs)."""
     return factor * init_rho if epoch > int(0.85 * epochs) else init_rho

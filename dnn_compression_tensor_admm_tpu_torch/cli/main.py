@@ -1,17 +1,21 @@
 """Command line: the JAX package's `cli/main.py` surface for the port's
 slices (ResNet32 with Tucker-2 or Tensor-Train, and MobileNetV2-CIFAR with
 plain SVD or Tucker-2, on synthetic CIFAR geometry; DeiT-tiny with
-Tensor-Train or Tucker-2, and ImageNet ResNet-18/34/50 with Tensor-Train
-or Tucker-2, on synthetic ImageNet geometry).
+Tensor-Train or Tucker-2, DeiT-small and ViT-small with Tensor-Train, and
+ImageNet ResNet-18/34/50 with Tensor-Train or Tucker-2, on synthetic
+ImageNet geometry).
 
 Pipeline modes:
   (default)     train (dense baseline, or ADMM with --admm)
   --decompose   factorize a dense checkpoint (--model-path) and fine-tune
+  --pretrained  load an already-factorized checkpoint (--model-path)
   --eval        evaluate a checkpoint (or the freshly decomposed model)
   --runtime     latency benchmark
 
 Run as `python -m dnn_compression_tensor_admm_tpu_torch ...`; it runs on
-the card unless given `--device cpu`. Checkpoints are torch state dicts.
+the card unless given `--device cpu`. `--model-path` and `--teacher-path`
+read the JAX package's `.msgpack` checkpoints and the port's torch state
+dicts (`.pt`); `--save-model` writes a `.pt`.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ def parse_args(argv=None):
                         "mobilenetv2_cifar | svdc_mobilenetv2_cifar | "
                         "tkc_mobilenetv2_cifar | deit_tiny_patch16_224 | "
                         "ttm_deit_tiny_patch16_224 | tkc_deit_tiny_patch16_224 "
+                        "| deit_small_patch16_224 | ttm_deit_small_patch16_224 "
+                        "| vit_small_patch16_224 | ttm_vit_small_patch16_224 "
                         "| resnet18 | resnet34 | resnet50 | ttm_resnet50 | "
                         "tkc_resnet50 | ttm_resnet18 | tkc_resnet18 (the "
                         "ImageNet ResNets)")
@@ -63,15 +69,32 @@ def parse_args(argv=None):
                    help="Z-step solver: 'kernel' is the CUDA Tucker-2 factor "
                         "kernel for tk and svd and the CUDA subspace kernel's "
                         "TT-SVD sweep for tt (plain torch on the CPU)")
+    p.add_argument("--adjust-rho", action="store_true",
+                   help="5x rho boost after 85%% of epochs (reference "
+                        "admm.py:87-89; off by default)")
     p.add_argument("--decompose", action="store_true")
-    p.add_argument("--model-path", default=None, type=str)
+    p.add_argument("--pretrained", action="store_true",
+                   help="load an already-factorized checkpoint "
+                        "(--model-path) and fine-tune it")
+    p.add_argument("--model-path", default=None, type=str,
+                   help="a .msgpack (the JAX package's layout) or .pt")
     p.add_argument("--eval", action="store_true")
     p.add_argument("--runtime", action="store_true")
+    p.add_argument("--distillation-type", default="none",
+                   choices=["none", "soft", "hard"])
+    p.add_argument("--distillation-alpha", default=0.5, type=float)
+    p.add_argument("--distillation-tau", default=1.0, type=float)
+    p.add_argument("--teacher-model", default=None, type=str)
+    p.add_argument("--teacher-path", default=None, type=str,
+                   help="the teacher's weights, a .msgpack or .pt")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
     p.add_argument("--output-dir", default="saved_models", type=str)
     p.add_argument("--save-model", action="store_true")
     p.add_argument("--save-log", action="store_true")
+    p.add_argument("--eval-every", default=1, type=int)
+    p.add_argument("--verbose", action="store_true",
+                   help="per-layer ADMM residual rows (reference --verbose)")
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -87,6 +110,7 @@ def main(argv=None):
     from ..models import (compression_ratio, create_model, decompose_params,
                           parse_compressed_name)
     from ..train import TrainConfig, eval_runtime, evaluate_model, train_model
+    from ..utils.checkpoint import load_any_variables
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -97,9 +121,6 @@ def main(argv=None):
     compute_dtype = None if args.fp32 else "bfloat16"
     kw = {"ratio": args.ratio, "tt_type": args.tt_type} if compressed else {}
 
-    def load(path):
-        return torch.load(path, map_location="cpu", weights_only=True)
-
     init_state = None
     if args.decompose:
         if compressed is None:
@@ -108,20 +129,24 @@ def main(argv=None):
             raise SystemExit("ERROR: --decompose needs --model-path (dense ckpt)")
         base, fmt, _ = compressed
         dense = create_model(base, num_classes=info.num_classes)
-        dense.load_state_dict(load(args.model_path))
+        dense.load_state_dict(load_any_variables(args.model_path))
         plan = get_rank_plan(args.model, fmt, args.ratio, args.tt_type)
         init_state = decompose_params(dense.to(device).state_dict(), plan)
         model = create_model(args.model, num_classes=info.num_classes, **kw)
         model.load_state_dict(init_state)
         print(f"decomposed {args.model_path}: compression "
               f"{compression_ratio(dense, model):.2f}x")
+    elif args.pretrained:
+        if not args.model_path:
+            raise SystemExit("ERROR: --pretrained needs --model-path")
+        init_state = load_any_variables(args.model_path)
 
     if args.eval or args.runtime:
         model = create_model(args.model, num_classes=info.num_classes, **kw)
         if init_state is None:
             if not args.model_path:
                 raise SystemExit("ERROR: --eval/--runtime need --model-path")
-            init_state = load(args.model_path)
+            init_state = load_any_variables(args.model_path)
         model.load_state_dict(init_state)
         model.to(device)
         if args.runtime:
@@ -141,8 +166,17 @@ def main(argv=None):
         min_lr=args.min_lr, warmup_epochs=args.warmup_epochs,
         clip_grad=args.clip_grad, smoothing=args.smoothing, admm=args.admm,
         rho=args.rho, fmt=args.fmt, ratio=args.ratio, tt_type=args.tt_type,
-        admm_method=args.admm_method,
-        seed=args.seed, compute_dtype=compute_dtype,
+        admm_method=args.admm_method, adjust_rho_late=args.adjust_rho,
+        verbose_admm=args.verbose,
+        distillation_type=args.distillation_type,
+        distillation_alpha=args.distillation_alpha,
+        distillation_tau=args.distillation_tau,
+        teacher_model=args.teacher_model,
+        teacher_state_dict=(load_any_variables(args.teacher_path)
+                            if args.distillation_type != "none"
+                            and args.teacher_path else None),
+        eval_every=args.eval_every, seed=args.seed,
+        compute_dtype=compute_dtype,
         synthetic_size=args.synthetic_size, device=str(device))
     ts = time.strftime("%m%d-%H%M%S")
     tag = f"{args.model}_{args.dataset}"

@@ -163,9 +163,10 @@ class VisionTransformer(nn.Module):
             return self.head(y[:, 0].float())
 
 
-# name: (embed_dim, depth, heads); DeiT-small and ViT-small wait for
-# their slice
-_VIT_CFGS = {"deit_tiny_patch16_224": (192, 12, 3)}
+# name: (embed_dim, depth, heads)
+_VIT_CFGS = {"deit_tiny_patch16_224": (192, 12, 3),
+             "deit_small_patch16_224": (384, 12, 6),
+             "vit_small_patch16_224": (384, 12, 6)}
 
 
 def _vit_out_features(embed_dim: int):
@@ -178,13 +179,19 @@ def _vit_out_features(embed_dim: int):
     return fn
 
 
-# the JAX package registers tt and tk at ratios 2 and 3; the port's JSON
-# copy holds DeiT-tiny's TT 2 and TK 2 tables alone
-register_plan("deit_tiny_patch16_224", "tt", "2")(
-    lambda: build_tt_linear_plan("deit_tiny_patch16_224", "2", "general",
-                                 _vit_out_features(192)))
-register_plan("deit_tiny_patch16_224", "tk", "2")(
-    lambda: build_tk_plan("deit_tiny_patch16_224", "2"))
+def _register_vit_plans() -> None:
+    """The JAX package registers tt and tk at ratios 2 and 3 for every ViT,
+    but its JSON holds only TT 2 for all three and TK 2 for DeiT-tiny: the
+    port registers those alone, so that every registered plan resolves."""
+    for model, (dim, _, _) in _VIT_CFGS.items():
+        register_plan(model, "tt", "2")(
+            lambda m=model, d=dim: build_tt_linear_plan(
+                m, "2", "general", _vit_out_features(d)))
+    register_plan("deit_tiny_patch16_224", "tk", "2")(
+        lambda: build_tk_plan("deit_tiny_patch16_224", "2"))
+
+
+_register_vit_plans()
 
 
 def _build_vit(name: str, *, num_classes: int = 1000,
@@ -206,3 +213,13 @@ def _build_vit(name: str, *, num_classes: int = 1000,
 @register_model
 def deit_tiny_patch16_224(**kw) -> VisionTransformer:
     return _build_vit("deit_tiny_patch16_224", **kw)
+
+
+@register_model
+def deit_small_patch16_224(**kw) -> VisionTransformer:
+    return _build_vit("deit_small_patch16_224", **kw)
+
+
+@register_model
+def vit_small_patch16_224(**kw) -> VisionTransformer:
+    return _build_vit("vit_small_patch16_224", **kw)

@@ -2,7 +2,9 @@
 `train/engine.py`).
 
 One ADMM epoch is the Z/U step (`admm_update`) followed by
-`steps_per_epoch` X-steps, each with the in-loss penalty. Batches come
+`steps_per_epoch` X-steps, each with the in-loss penalty (at 5 rho in the
+epochs past 85% with `adjust_rho_late`). A fine-tune may distil from a
+frozen dense teacher, run in the same autocast. Batches come
 from the device-resident dataset: an epoch permutation drawn on the
 device, a contiguous slice of it per step, then crop, flip and
 normalise on the device. The host reads back a few scalars per epoch.
@@ -22,14 +24,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..admm import admm_init, admm_penalty, admm_update, build_program
+from ..admm import (admm_init, admm_penalty, admm_update, adjust_rho,
+                    build_program)
 from ..configs.resolver import get_rank_plan
 from ..data.datasets import DatasetInfo, load_dataset
 from ..data.device_pipeline import (augment_batch, batch_at, normalize,
                                     random_crop_flip)
 from ..models import create_model, parse_compressed_name
 from ..utils.device import resolve_device
-from .losses import cross_entropy
+from .losses import DISTILLATION_TYPES, cross_entropy, distillation_loss
 from .optim import cosine_lr, make_optimizer
 
 
@@ -57,7 +60,16 @@ class TrainConfig:
     admm_method: str = "kernel"  # CUDA kernels (Tucker-2 factor, TT subspace);
                                  # gate-refused buckets take 'subspace'
     admm_hooi_iters: int = 6
+    adjust_rho_late: bool = False  # rho x 5 past 85% of the epochs
+    verbose_admm: bool = False  # one per-layer residual row per epoch
+    # distillation from a frozen teacher (its weights are required)
+    distillation_type: str = "none"  # none | soft | hard
+    distillation_alpha: float = 0.5
+    distillation_tau: float = 1.0
+    teacher_model: Optional[str] = None
+    teacher_state_dict: Optional[Dict[str, torch.Tensor]] = None
     # misc
+    eval_every: int = 1  # evaluate every N epochs and after the last
     seed: int = 0
     compute_dtype: Optional[str] = "bfloat16"  # X-step forward/backward
     synthetic_size: Optional[int] = None
@@ -129,6 +141,25 @@ def eval_runtime(model: torch.nn.Module, info: DatasetInfo,
             "images_per_s": iters * batch_size / dt}
 
 
+def _make_teacher(cfg: TrainConfig, num_classes: int,
+                  device: torch.device) -> Optional[torch.nn.Module]:
+    """The frozen teacher of a distilled run (None without distillation):
+    `cfg.teacher_model` with `cfg.teacher_state_dict`, in eval mode and
+    outside the optimizer's parameters."""
+    if cfg.distillation_type not in DISTILLATION_TYPES:
+        raise ValueError(f"unknown distillation type "
+                         f"{cfg.distillation_type!r}; choose from "
+                         f"{DISTILLATION_TYPES}")
+    if cfg.distillation_type == "none":
+        return None
+    if cfg.teacher_model is None or cfg.teacher_state_dict is None:
+        raise ValueError("distillation needs a teacher model and its weights "
+                         "(--teacher-model, --teacher-path)")
+    teacher = create_model(cfg.teacher_model, num_classes=num_classes)
+    teacher.load_state_dict(cfg.teacher_state_dict)
+    return teacher.to(device).eval().requires_grad_(False)
+
+
 def train_model(cfg: TrainConfig, *,
                 init_state_dict: Optional[Dict[str, torch.Tensor]] = None):
     """Train `cfg.model` (ADMM with `cfg.admm`) -> (model, history).
@@ -157,6 +188,7 @@ def train_model(cfg: TrainConfig, *,
     opt = make_optimizer(model.parameters(), cfg.lr, opt=cfg.opt,
                          momentum=cfg.momentum, weight_decay=cfg.weight_decay)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    teacher = _make_teacher(cfg, info.num_classes, device)
 
     program = admm = None
     if cfg.admm:
@@ -172,6 +204,8 @@ def train_model(cfg: TrainConfig, *,
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
         row = {"epoch": epoch + 1}
+        rho = (adjust_rho(epoch, cfg.epochs, cfg.rho) if cfg.adjust_rho_late
+               else cfg.rho)
         if cfg.admm:
             admm, residuals = admm_update(params, admm, program, update_u=True,
                                           method=cfg.admm_method,
@@ -179,8 +213,13 @@ def train_model(cfg: TrainConfig, *,
             names = sorted(residuals)
             vals = torch.stack([residuals[n] for n in names]).tolist()
             row["z_step_s"] = time.perf_counter() - t0
+            row["rho"] = rho
+            row["admm_nonfinite_layers"] = int(admm.nonfinite)
             row["admm_residual_total"] = float(sum(vals))
             row["admm_residuals"] = dict(zip(names, vals))
+            if cfg.verbose_admm:
+                log(json.dumps({"admm_residuals": {
+                    n: round(v, 5) for n, v in row["admm_residuals"].items()}}))
         t_x = time.perf_counter()
         model.train()
         perm = torch.randperm(images.shape[0], device=device, generator=gen)
@@ -198,8 +237,15 @@ def train_model(cfg: TrainConfig, *,
             with _autocast(device, cfg.compute_dtype):
                 logits = model(x, generator=gen)
             loss = cross_entropy(logits, yb, cfg.smoothing)
+            if teacher is not None:
+                with torch.no_grad(), _autocast(device, cfg.compute_dtype):
+                    t_logits = teacher(x)
+                loss = distillation_loss(loss, logits, t_logits,
+                                         cfg.distillation_type,
+                                         cfg.distillation_alpha,
+                                         cfg.distillation_tau)
             if program is not None:
-                loss = loss + admm_penalty(params, admm, program, cfg.rho)
+                loss = loss + admm_penalty(params, admm, program, rho)
             opt.zero_grad(set_to_none=True)
             loss.backward()
             if cfg.clip_grad is not None:
@@ -215,9 +261,10 @@ def train_model(cfg: TrainConfig, *,
             raise FloatingPointError(f"loss is {train_loss}, stopping")
         row.update(train_loss=train_loss, train_acc=acc_sum.item() / steps,
                    epoch_time_s=time.perf_counter() - t0)
-        ev = evaluate_model(model, x_va, y_va, info,
-                            compute_dtype=cfg.compute_dtype)
-        row.update({f"test_{k}": v for k, v in ev.items()})
+        if (epoch + 1) % cfg.eval_every == 0 or epoch + 1 == cfg.epochs:
+            ev = evaluate_model(model, x_va, y_va, info,
+                                compute_dtype=cfg.compute_dtype)
+            row.update({f"test_{k}": v for k, v in ev.items()})
         history.append(row)
         log(json.dumps(row))
         if cfg.log_path:

@@ -45,8 +45,17 @@ def _walk(tree, path=()):
     for k, v in tree.items():
         if isinstance(v, dict):
             yield from _walk(v, path + (str(k),))
+        elif isinstance(v, torch.Tensor):  # a bfloat16 msgpack leaf
+            yield path + (str(k),), v
         else:
             yield path + (str(k),), np.asarray(v)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A tensor of its own (never a view of a checkpoint's buffer)."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().clone()
+    return torch.from_numpy(np.array(a))
 
 
 def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
@@ -58,10 +67,10 @@ def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
             a = a.T
         elif leaf in ("kernel", "core_kernel") and a.ndim == 4:
             a = hwio_to_oihw(a)
-        out[canonical_param_name(path)] = torch.from_numpy(np.array(a))
+        out[canonical_param_name(path)] = _tensor(a)
     for path, a in _walk(variables.get("batch_stats", {})):
         prefix = ".".join(path[:-1])
-        out[f"{prefix}.{_STATS[path[-1]]}"] = torch.from_numpy(np.array(a))
+        out[f"{prefix}.{_STATS[path[-1]]}"] = _tensor(a)
         out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     return out
 

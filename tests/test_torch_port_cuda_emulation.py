@@ -359,6 +359,42 @@ def test_subspace_workspace_plan_matches_plain(libs, L, rows, cols, r,
         assert np.linalg.norm(zq - zp) / np.linalg.norm(zp) < 1e-5
 
 
+@pytest.mark.parametrize("L,rows,cols,r,in_ws,late", [
+    # DeiT-small TT@2x's blocks.0.attn.proj step at r = 320: the five
+    # Newton-Schulz matrices and the partial S in the slab
+    (1, 352, 384, 320, "ns sp", 0),
+    # its fc1 step at r = 256: the partial S, the Gram and Y in the slab
+    (1, 800, 384, 256, "sp g y", 1),
+    # its fc2 tall step: 10,240 rows at r = 42, Y in the slab
+    (1, 10240, 48, 42, "y", 0),
+])
+def test_subspace_workspace_plan_at_deit_small_shapes(libs, L, rows, cols, r,
+                                                      in_ws, late):
+    """The workspace plan at DeiT-small's real sizes and the library's
+    cluster of 8, over one iteration step (each runs the same code as the
+    Z-step's 8: the Gram, Y = G Q, 12 Newton-Schulz steps, the lift; the
+    real sizes cost 2 to 4 s a step here)."""
+    plan = sk.ws_plan(rows, cols, r)
+    assert plan.in_ws == tuple(in_ws.split())
+    t = (np.random.RandomState(rows + cols).standard_normal((L, rows, cols))
+         / np.sqrt(cols)).astype(np.float32)
+    ws = np.full(L * plan.ws_floats + GUARD, np.nan, np.float32)
+    ws[-GUARD:] = 12345.0
+    q = np.full((L, rows, r), np.nan, np.float32)
+    err = libs["subspace_ws"].emu_run_ws(t.ctypes.data, q.ctypes.data,
+                                         ws.ctypes.data, L, rows, cols, r, 1,
+                                         late, sk.WS_CLUSTER)
+    assert err == 0, f"emulation fault {err}"
+    assert (ws[-GUARD:] == 12345.0).all(), "written past the workspace"
+    p = sk.dominant_left_subspace_plain(torch.from_numpy(t), r,
+                                        iters=1).numpy()
+    # summation order only (6.4e-6 seen at r = 320)
+    assert np.abs(q - p).max() < 1e-5
+    zq = q @ (q.transpose(0, 2, 1) @ t)
+    zp = p @ (p.transpose(0, 2, 1) @ t)
+    assert np.linalg.norm(zq - zp) / np.linalg.norm(zp) < 1e-5
+
+
 def _tucker2_against_plain(libs, shape, r0, r1, sweeps, late):
     l, k, o, i = shape
     x = (np.random.RandomState(o * i).standard_normal(shape)

@@ -5,6 +5,9 @@ ResNet-18 TT@2x special, both trained on `synthetic-hard-imagenet` by
 package's `load_variables`, carried across with the port's
 `jax_to_state_dict`, and both packages' eval-mode logits compared on
 images of the same synthetic validation set at 224 x 224, in float32.
+The committed DeiT-small TT@2x checkpoint (`results/run_deit_small.sh`)
+is read by each package with its own reader: the port's
+`utils/checkpoint.py`, without flax.
 """
 
 import os
@@ -19,6 +22,8 @@ from dnn_compression_tensor_admm_tpu.utils.checkpoint import load_variables
 from dnn_compression_tensor_admm_tpu_torch.data.datasets import load_dataset
 from dnn_compression_tensor_admm_tpu_torch.data.device_pipeline import normalize
 from dnn_compression_tensor_admm_tpu_torch.models import count_params, create_model
+from dnn_compression_tensor_admm_tpu_torch.utils.checkpoint import (
+    load_variables as port_load_variables)
 from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import jax_to_state_dict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,3 +81,27 @@ def test_trained_logits_match_jax(images, name, ratio, tt_type):
     # drawn from another class)
     assert (logits_t.argmax(-1) == logits_j.argmax(-1)).all()
     assert (logits_t.argmax(-1) == labels).sum() >= 5
+
+
+DEIT_SMALL = ("results/deit_small_r05/ttm_deit_small_patch16_224_synthetic-"
+              "hard-imagenet_0822-011014_model.msgpack", 14_391_736)
+
+
+def test_trained_deit_small_through_the_port_reader(images):
+    path = os.path.join(ROOT, DEIT_SMALL[0])
+    v_port, v_jax = port_load_variables(path), load_variables(path)
+    sd, sd_jax = jax_to_state_dict(v_port), jax_to_state_dict(v_jax)
+    assert sd.keys() == sd_jax.keys()
+    assert all(torch.equal(sd[k], sd_jax[k]) for k in sd)  # the same bytes
+    model = create_model("ttm_deit_small_patch16_224", ratio="2")
+    model.load_state_dict(sd)  # strict: every name
+    assert count_params(model) == DEIT_SMALL[1]
+    xt, labels = images[0][:2], images[1][:2]
+    with torch.no_grad():
+        logits_t = model.eval()(xt).numpy()
+    jm = jax_model("ttm_deit_small_patch16_224", num_classes=1000, ratio="2")
+    logits_j = np.asarray(jm.apply(v_jax, jnp.asarray(
+        xt.permute(0, 2, 3, 1).numpy())))
+    assert logits_t.shape == (2, 1000) and np.isfinite(logits_t).all()
+    assert np.abs(logits_t - logits_j).max() <= TOL * np.abs(logits_j).max()
+    assert (logits_t.argmax(-1) == logits_j.argmax(-1)).all()
