@@ -44,7 +44,11 @@ prints one JSON line per phase:
    of the TK@3x plan from a seeded dense init (15 launches asserted);
    then the subspace kernel at the 24 launches of a DeiT-small-TT@2x
    Z-step (16 in the workspace plan, r = 256 and 320 among them, at 89
-   to 91% of full rank);
+   to 91% of full rank); then CIFAR ResNet56's 10 TK@3x buckets (all in
+   the resident plan, one full rank in both modes) and 18 TT@3x launches,
+   and for each plan one Z-step (`admm_update`) on layers of exactly the
+   plan's ranks, which must come back within 1e-3 with the finite guard
+   at 0, every launch held against the plain version there too;
    kernel times are device times (launches captured in a CUDA graph and
    replayed);
 4. main    — ResNet32 Tucker-2 @3x and ResNet32 Tensor-Train @3x, each at
@@ -61,14 +65,26 @@ prints one JSON line per phase:
    projection + 2 epochs x 20 steps), decompose,
    fine-tune 20 steps, eval and runtime, counting both kernels' launches
    (on the card the Z-step raises where a kernel's gate refuses a
-   bucket, so every bucket goes through a kernel); last DeiT-small
+   bucket, so every bucket goes through a kernel); then DeiT-small
    Tensor-Train @2x (embed 384, 6 heads) as `results/run_deit_small.sh`
    runs it, cut to 7 ADMM epochs x 10 steps with the late rho boost at the
    last (192 launches asserted), the dense model written to a msgpack,
    then the CLI's `--decompose` from that file with hard distillation from
    the dense teacher read from it too (1.53x and the parameter counts
    asserted), eval, and the subspace kernel against its plain version at
-   every launch of a Z-step on the trained weights.
+   every launch of a Z-step on the trained weights; last CIFAR ResNet56
+   Tucker-2 @3x as the JAX package's CIFAR recipes run it: ADMM with a
+   checkpoint after each epoch, stopped after epoch 2 and resumed through
+   the CLI for epoch 3 with `--save-model` (a msgpack), the checkpoint
+   read back bit for bit, the resumed run held against the same 3 epochs
+   uninterrupted (the same lr at every step, step counter and generator
+   states; Z, U and the weights within RESUME_TOL), then `--decompose
+   --model-path` of the msgpack into `tkc_resnet56` (3.10x, 853,018 /
+   275,266 parameters asserted) and 2 x 10 fine-tune steps at lr 0.003
+   with `--ema-decay 0.999 --sched step --opt sgd`, evaluated raw and as
+   the EMA (40 Tucker-2 launches asserted), and both kernels against their
+   plain versions at every launch of a TK and a TT Z-step on its trained
+   weights.
 
 Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
@@ -95,9 +111,10 @@ import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.optim.optimizer import register_optimizer_step_post_hook  # noqa: E402
 
 from dnn_compression_tensor_admm_tpu_torch.admm import (  # noqa: E402
-    admm_init, admm_update, build_program, tk_ranks)
+    AdmmState, admm_init, admm_update, build_program, tk_ranks)
 from dnn_compression_tensor_admm_tpu_torch.cli.main import main as cli_main  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.configs import get_rank_plan  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.data.datasets import load_dataset  # noqa: E402
@@ -107,9 +124,13 @@ from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.precision import full_f32  # noqa: E402
-from dnn_compression_tensor_admm_tpu_torch.ops.ttd import clamp_tt_ranks  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.ttd import clamp_tt_ranks, tt_project  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.tucker import tucker2_project  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.train import (  # noqa: E402
     TrainConfig, eval_runtime, evaluate_model, train_model)
+from dnn_compression_tensor_admm_tpu_torch.train.optim import make_schedule  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.train.state import (  # noqa: E402
+    CHECKPOINT_NAME, TrainState, load_train_state, save_train_state)
 from dnn_compression_tensor_admm_tpu_torch.utils.checkpoint import (  # noqa: E402
     load_any_variables, save_variables)
 from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import (  # noqa: E402
@@ -160,6 +181,26 @@ R50_TT_PARAMS = (25_557_032, 10_187_501)
 # DeiT-small TT@2x's, the JAX package's `ttm_deit_small_patch16_224` too
 # (1.5322x)
 DEIT_S_PARAMS = (22_050_664, 14_391_736)
+# CIFAR ResNet56 TK@3x's, dense and compressed, the JAX package's
+# `tkc_resnet56` too (its TT@3x has the same count; 3.0989x)
+R56_PARAMS = (853_018, 275_266)
+# A Z-step of a layer of exactly the plan's ranks must give the layer back:
+# ||Z - W|| / ||W|| below this (the projection is exact up to float32
+# rounding of ~100 dependent products)
+EXACT_RANK_TOL = 1e-3
+# ResNet56 TK@3x resumed after epoch 2 against the run that never stopped:
+# the two take the same batches, crops, flips, lr and Z-steps (their
+# generator states, step counters and lr at every step are asserted equal
+# apart from this). cuDNN's convolution backward is not deterministic by
+# default, so ||A - B|| / ||B|| over all parameters, all Z and all U is held
+# to a bound, not to 0: on the H100 the two runs came out bit for bit (0.0;
+# cuDNN picked deterministic algorithms at these shapes), where a
+# nondeterministic pick would add float32 rounding, ~1e-7 of a gradient a
+# step through 60 steps; a resume that dropped the momentum buffers or
+# redrew the batches would move the weights by a share of an epoch's
+# update at lr 0.1, far past the bound. U sums every epoch's W - Z, so its
+# relative bound is 10x looser.
+RESUME_TOL = {"params": 1e-3, "z": 1e-3, "u": 1e-2}
 # DeiT-small TT@2x's launches near full rank (r = 256 and 320 at 89 to 91%
 # of min(rows, cols), gaps sigma_r - sigma_r+1 of 1e-4 to 1e-3 of sigma_1
 # on N(0, 1/cols) inputs) are held to TT_PROJ_TOL and TT_REL_TOL like every
@@ -960,6 +1001,391 @@ def phase_deit_small(seed: int, card: str, launches_per_z_step: int,
     return launches
 
 
+# CIFAR ResNet56 TK@3x: the JAX package's CIFAR recipes (`results/
+# run_flagship.sh`: ADMM at lr 0.1, smoothing 0.1, rho 1e-3, `--save-model`,
+# then `--decompose --model-path` of that file; `results/run_ft_ablation.sh`'s
+# `lr003_ema`: fine-tune at lr 0.003 with `--ema-decay 0.999`) with a
+# checkpoint and a resume in the middle of ADMM, at CIFAR-10 geometry and
+# batch 256, the depth cut to 3 ADMM epochs x 20 steps (the resume after
+# epoch 2) and 2 fine-tune epochs x 10 steps on the step schedule (x 0.1
+# after the first epoch) with Nesterov SGD.
+R56 = dict(dense="resnet56", model="tkc_resnet56", name="resnet56 tk@3x",
+           ratio_arg="3", ratio=3.10, params=R56_PARAMS,
+           dataset="synthetic-cifar10", synthetic_size=None, batch_size=256,
+           lr=0.1, rho=1e-3,
+           epochs=3, stop_after=2, steps_per_epoch=20, ft_lr=0.003,
+           ft_epochs=2, ft_steps=10, ema_decay=0.999, input=(3, 32, 32),
+           classes=10)
+CUT["r56_tk3"] = ("first projection + 3 ADMM epochs x 20 steps (checkpoint "
+                  "after each, resumed after epoch 2), then 2 fine-tune "
+                  "epochs x 10 steps")
+CUT["run_flagship_sh"] = ("200 ADMM epochs of 196 steps, then 150 fine-tune "
+                          "epochs (ResNet32)")
+
+
+@contextlib.contextmanager
+def recorded_lr():
+    """The lr of every optimizer step taken inside the block, in order
+    (a global step hook: it reads `param_groups` after each step)."""
+    lrs = []
+    handle = register_optimizer_step_post_hook(
+        lambda opt, args, kwargs: lrs.append(opt.param_groups[0]["lr"]))
+    try:
+        yield lrs
+    finally:
+        handle.remove()
+
+
+def _rel_dist(a, b) -> float:
+    """||A - B|| / ||B|| over two name -> tensor maps."""
+    num = sum(torch.sum((a[n].double() - b[n].double()) ** 2) for n in b)
+    den = sum(torch.sum(b[n].double() ** 2) for n in b)
+    return (num / den).sqrt().item()
+
+
+def _same_tree(a, b) -> bool:
+    """Bit for bit: tensors by dtype and value, the rest by ==."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a, key=str) == sorted(b, key=str)
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _checkpoint(ckpt_dir: str) -> dict:
+    """A train-state file's contents as written (CPU tensors and values)."""
+    return torch.load(os.path.join(ckpt_dir, CHECKPOINT_NAME),
+                      map_location="cpu", weights_only=True)
+
+
+def phase_kernel_trained_tk(model, name: str, ratio: str, path: str):
+    """The Tucker-2 kernel against its plain version at every bucket of a
+    Z-step on `model`'s trained weights (U = 0)."""
+    params = dict(model.named_parameters())
+    program = build_program(params, get_rank_plan(name, "tk", ratio))
+    rows_out = []
+    for g in program.groups:
+        ts = torch.stack([params[n].detach().float() for n in g.names])
+        l, o, i, kh, kw = ts.shape
+        sp = tk_ranks(g.spec, (o, i, kh, kw))
+        x = ts.permute(0, 3, 4, 1, 2).reshape(l, kh * kw, o, i).contiguous()
+        max_abs, z_rel, sub = check_tucker(x, sp.out_rank, sp.in_rank)
+        row = {"phase": "kernel_trained_w", "name": "tucker2_factors_batched",
+               "path": path, "shape_LKOI": list(x.shape),
+               "ranks": [sp.out_rank, sp.in_rank], "z_rel_err": z_rel,
+               "z_rel_tol": Z_REL_TOL, "subspace_err": sub,
+               "subspace_tol": SUBSPACE_TOL, "max_abs_err": max_abs}
+        emit(row)
+        rows_out.append(row)
+    return rows_out
+
+
+@torch.no_grad()
+def exact_rank_weights(program, seed: int):
+    """Every plan layer of `program` at exactly the plan's ranks, unit
+    norm: a random N(0, 1) layer projected by exact SVD (HOSVD onto the
+    Tucker-2 ranks, or TT-SVD onto the clamped TT ranks of its
+    [O, kh*kw, I] view), so the spectrum within the ranks is a random
+    matrix's and beyond them zero. (Gaussian factors instead make the
+    spectrum within the ranks as ill-conditioned as their products: there
+    the fixed iteration counts leave the plain version itself 8.6% from
+    the input at ResNet56's layer1.5.conv1.)"""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for g in program.groups:
+        for name in g.names:
+            x = torch.randn(g.param_shape, generator=gen)
+            if g.kind == "tk_conv":
+                sp = tk_ranks(g.spec, g.param_shape)
+                w = tucker2_project(x, sp.out_rank, sp.in_rank, n_iter=0)
+            else:  # tt_conv, in the [O, kh*kw, I] view
+                o, i, kh, kw = g.param_shape
+                t = tt_project(x.permute(0, 2, 3, 1).reshape(o, kh * kw, i),
+                               g.spec.tt_shapes, g.spec.tt_ranks)
+                w = t.reshape(o, kh, kw, i).permute(0, 3, 1, 2)
+            out[name] = (w / torch.linalg.vector_norm(w)).contiguous().cuda()
+    return out
+
+
+def phase_exact_rank(seed: int, model: str, fmt: str, ratio: str, path: str,
+                     launches_per_z_step: int):
+    """One Z-step (kernel route, `admm_update`) of `model`'s `fmt` plan on
+    layers of exactly the plan's ranks: Z finite and within EXACT_RANK_TOL
+    of each layer, the finite guard's count 0, one launch a bucket (TK) or
+    a sweep step (TT) and none of the other kernel; then the kernel against
+    its plain version at every launch of those inputs."""
+    t_start = time.perf_counter()
+    program = _program(fmt, model, ratio)
+    params = exact_rank_weights(program, seed)
+    kernel, other = ((tk.tucker2_factors_batched,
+                      sk.dominant_left_subspace_batched) if fmt == "tk"
+                     else (sk.dominant_left_subspace_batched,
+                           tk.tucker2_factors_batched))
+    kernel.launches = other.launches = 0
+    state, _ = admm_update(params, admm_init(params, program), program,
+                           update_u=False, method="kernel", n_iter=6)
+    torch.cuda.synchronize()
+    launches, other_launches = kernel.launches, other.launches
+    if launches != launches_per_z_step or other_launches != 0:
+        raise AssertionError(f"{path} exact-rank Z-step: {launches} launches "
+                             f"(expected {launches_per_z_step}), the other "
+                             f"kernel {other_launches}")
+    errs = {n: (torch.linalg.vector_norm(state.z[n] - params[n])
+                / torch.linalg.vector_norm(params[n])).item()
+            for n in program.names}
+    finite = all(bool(torch.isfinite(state.z[n]).all()) for n in program.names)
+    if not finite or int(state.nonfinite) != 0 or max(errs.values()) >= \
+            EXACT_RANK_TOL:
+        raise AssertionError(f"{path} exact-rank Z-step: finite={finite}, "
+                             f"guard={int(state.nonfinite)}, worst "
+                             f"{max(errs.items(), key=lambda kv: kv[1])}")
+    checked, worst = 0, 0.0
+    for g in program.groups:
+        ts = torch.stack([params[n] for n in g.names])
+        if fmt == "tk":
+            l, o, i, kh, kw = ts.shape
+            sp = tk_ranks(g.spec, (o, i, kh, kw))
+            x = ts.permute(0, 3, 4, 1, 2).reshape(l, kh * kw, o, i)
+            worst = max(worst, check_tucker(x.contiguous(), sp.out_rank,
+                                            sp.in_rank)[1])
+            checked += 1
+        else:
+            x = ts.permute(0, 1, 3, 4, 2).reshape(len(g.names), -1)
+            for t, r in sweep_launch_inputs(x, g.spec.tt_shapes,
+                                            g.spec.tt_ranks):
+                worst = max(worst, check_subspace(t, r)[2])
+                checked += 1
+    row = {"phase": "exact_rank", "path": path, "layers": len(program.names),
+           "kernel_launches": launches, "other_kernel_launches": other_launches,
+           "guard_nonfinite_layers": int(state.nonfinite),
+           "max_z_rel_err_to_input": max(errs.values()),
+           "z_rel_tol": EXACT_RANK_TOL, "launches_checked_against_plain":
+               checked, "max_rel_err_against_plain": worst,
+           "wall_s": time.perf_counter() - t_start}
+    emit(row)
+    return launches
+
+
+def phase_r56(seed: int, card: str, launches_per_z_step: int, workdir: str):
+    """ResNet56 TK@3x through the port's entry points: ADMM by
+    `train_model` with a checkpoint after each epoch, stopped after epoch 2
+    (`max_epochs`); the checkpoint read back; the CLI with `--resume` for
+    the last epoch and `--save-model` (a msgpack); `cli_main`'s
+    `--decompose --model-path` of that file into `tkc_resnet56` and an EMA
+    fine-tune on the step schedule with Nesterov SGD; eval of the raw and
+    the EMA weights. Beside it, the same 3 ADMM epochs uninterrupted."""
+    path = R56
+    t_start = t0 = time.perf_counter()
+    size = path["synthetic_size"]
+    x_va, y_va, info = load_dataset(path["dataset"], False, size and size // 4)
+    dataset_s = time.perf_counter() - t0  # the validation set alone
+    ckpt = os.path.join(workdir, "r56_ckpt")
+    admm_kw = dict(model=path["dense"], dataset=path["dataset"],
+                   synthetic_size=size, batch_size=path["batch_size"],
+                   epochs=path["epochs"],
+                   steps_per_epoch=path["steps_per_epoch"], lr=path["lr"],
+                   smoothing=0.1, admm=True, rho=path["rho"], fmt="tk",
+                   ratio=path["ratio_arg"], admm_method="kernel",
+                   admm_hooi_iters=6, compute_dtype="bfloat16", seed=seed,
+                   device="cuda", print_fn=log)
+    cli_common = ["--dataset", path["dataset"], "--batch-size",
+                  str(path["batch_size"]), "--smoothing", "0.1", "--seed",
+                  str(seed), *(["--synthetic-size", str(size)] if size else [])]
+    tk.tucker2_factors_batched.launches = 0
+    sk.dominant_left_subspace_batched.launches = 0
+    t0 = time.perf_counter()
+    with recorded_lr() as lrs:
+        stopped, hist1 = train_model(TrainConfig(checkpoint_dir=ckpt,
+                                                 **admm_kw),
+                                     max_epochs=path["stop_after"])
+        torch.cuda.synchronize()
+        admm_s = time.perf_counter() - t0
+        # the checkpoint read back holds the stopped run's model, and
+        # written again from what was read it is the same file's contents,
+        # tensor for tensor, bit for bit
+        t0 = time.perf_counter()
+        dense_template = create_model(path["dense"]).state_dict()
+        saved, extra = load_train_state(ckpt, _template_state(
+            dense_template, admm_kw))
+        again = os.path.join(workdir, "r56_ckpt_again")
+        save_train_state(again, saved, extra)
+        live = {k: v.cpu() for k, v in stopped.state_dict().items()}
+        if not (_same_tree(saved.model, live)
+                and _same_tree(_checkpoint(ckpt), _checkpoint(again))):
+            raise AssertionError("the train state does not read back")
+        checkpoint_s = time.perf_counter() - t0
+        checkpoint_bytes = os.path.getsize(os.path.join(ckpt,
+                                                        CHECKPOINT_NAME))
+        if saved.epoch != path["stop_after"] - 1 or saved.step != (
+                path["stop_after"] * path["steps_per_epoch"]):
+            raise AssertionError(f"checkpoint at epoch {saved.epoch}, step "
+                                 f"{saved.step}")
+        argv = ["--model", path["dense"], "--admm", "--format", "tk",
+                "--ratio", path["ratio_arg"], "--rho", str(path["rho"]),
+                "--admm-method", "kernel", "--epochs", str(path["epochs"]),
+                "--steps-per-epoch", str(path["steps_per_epoch"]), "--lr",
+                str(path["lr"]), "--resume", ckpt, "--checkpoint-dir", ckpt,
+                "--save-model", "--output-dir",
+                os.path.join(workdir, "r56_admm"), *cli_common]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # its rows, as the others'
+            dense, hist2 = cli_main(argv)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    admm_lrs = list(lrs)
+    launches = tk.tucker2_factors_batched.launches
+    other = sk.dominant_left_subspace_batched.launches
+    z_steps = 1 + path["epochs"]  # the first projection is not run again
+    if launches != z_steps * launches_per_z_step or other != 0:
+        raise AssertionError(
+            f"r56_tk3: Tucker-2 kernel launched {launches} times (expected "
+            f"{z_steps} Z-steps x {launches_per_z_step}), the subspace "
+            f"kernel {other}")
+    if [h["epoch"] for h in hist1 + hist2] != [1, 2, 3]:
+        raise AssertionError(f"epochs {[h['epoch'] for h in hist1 + hist2]}")
+    (msgpack_path,) = [os.path.join(workdir, "r56_admm", f) for f in
+                       os.listdir(os.path.join(workdir, "r56_admm"))
+                       if f.endswith("_model.msgpack")]
+    sd = {k: v.cpu() for k, v in dense.state_dict().items()
+          if not k.endswith("num_batches_tracked")}
+    back_sd = load_any_variables(msgpack_path, dense.state_dict)
+    if not all(torch.equal(back_sd[k], v) for k, v in sd.items()):
+        raise AssertionError("the --save-model msgpack does not read back "
+                             "the dense model")
+
+    # the same ADMM run, never stopped
+    ref_dir = os.path.join(workdir, "r56_ref")
+    tk.tucker2_factors_batched.launches = 0
+    t0 = time.perf_counter()
+    with recorded_lr() as ref_lrs:
+        _, ref_hist = train_model(TrainConfig(checkpoint_dir=ref_dir,
+                                              **admm_kw))
+        torch.cuda.synchronize()
+    reference_s = time.perf_counter() - t0
+    ref_launches = tk.tucker2_factors_batched.launches
+    resumed = load_train_state(ckpt, _template_state(dense_template,
+                                                     admm_kw))[0]
+    ref = load_train_state(ref_dir, _template_state(dense_template,
+                                                    admm_kw))[0]
+    if admm_lrs != list(ref_lrs) or resumed.step != ref.step or (
+            resumed.epoch != ref.epoch):
+        raise AssertionError(f"resumed lr/step differ: {len(admm_lrs)} vs "
+                             f"{len(ref_lrs)} steps, step {resumed.step} vs "
+                             f"{ref.step}")
+    if not _same_tree(resumed.rng, ref.rng):
+        raise AssertionError("the resumed run's generators are not the "
+                             "uninterrupted run's")
+    names = [n for n, _ in create_model(path["dense"]).named_parameters()]
+    drift = {"params": _rel_dist({n: resumed.model[n] for n in names},
+                                 {n: ref.model[n] for n in names}),
+             "z": _rel_dist(resumed.admm.z, ref.admm.z),
+             "u": _rel_dist(resumed.admm.u, ref.admm.u)}
+    if not all(drift[k] < RESUME_TOL[k] for k in drift):
+        raise AssertionError(f"resumed state drifts {drift}, tolerance "
+                             f"{RESUME_TOL}")
+
+    # decompose the msgpack through the CLI and fine-tune with the EMA
+    argv = ["--model", path["model"], "--ratio", path["ratio_arg"],
+            "--decompose", "--model-path", msgpack_path, "--epochs",
+            str(path["ft_epochs"]), "--steps-per-epoch",
+            str(path["ft_steps"]), "--lr", str(path["ft_lr"]), "--ema-decay",
+            str(path["ema_decay"]), "--sched", "step", "--decay-epochs", "1",
+            "--opt", "sgd", *cli_common]
+    t0 = time.perf_counter()
+    with recorded_lr() as ft_lrs, contextlib.redirect_stdout(sys.stderr):
+        ft, ft_hist = cli_main(argv)
+    torch.cuda.synchronize()
+    finetune_s = time.perf_counter() - t0
+    schedule = make_schedule("step", path["ft_lr"], path["ft_epochs"],
+                             path["ft_steps"], decay_epochs=1)
+    if list(ft_lrs) != [schedule(i) for i in range(len(ft_lrs))] or len(
+            ft_lrs) != path["ft_epochs"] * path["ft_steps"]:
+        raise AssertionError(f"fine-tune lr {list(ft_lrs)}")
+    ema_rows = [h for h in ft_hist if "ema_test_loss" in h]
+    if len(ema_rows) != path["ft_epochs"]:
+        raise AssertionError("no ema_test_* in the fine-tune's eval rows")
+    ratio = compression_ratio(dense, ft)
+    counts = (count_params(dense), count_params(ft))
+    if round(ratio, 2) != path["ratio"] or counts != path["params"]:
+        raise AssertionError(f"compression {ratio}, parameters {counts}; "
+                             f"expected {path['ratio']}, {path['params']}")
+    ev = evaluate_model(ft, x_va, y_va, info, compute_dtype="bfloat16")
+    rt = eval_runtime(ft, info, batch_size=path["batch_size"],
+                      compute_dtype="bfloat16")
+    with torch.no_grad():
+        logits = ft.eval()(torch.zeros(4, *path["input"],
+                                       device=next(ft.parameters()).device))
+    if (tuple(logits.shape) != (4, path["classes"])
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    losses = ([h[k] for h in hist1 + hist2 + ref_hist + ft_hist
+               for k in ("train_loss", "test_loss")]
+              + [h["ema_test_loss"] for h in ema_rows] + [ev["loss"]])
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss in {losses}")
+    proj = check_projection_quality(dense, path["dense"], "tk",
+                                    path["ratio_arg"])
+    trained_tk = phase_kernel_trained_tk(dense, path["dense"],
+                                         path["ratio_arg"], path["name"])
+    trained_tt = phase_kernel_trained(dense, path["dense"], "tt",
+                                      path["ratio_arg"], "resnet56 tt@3x")
+    steps = path["steps_per_epoch"]
+    last = hist2[-1]
+    emit({"phase": "main", "card": card, "model": path["name"],
+          "batch": path["batch_size"], "optimizer": "momentum",
+          "lr": path["lr"], "finetune": {"lr": path["ft_lr"], "opt": "sgd",
+                                         "sched": "step", "decay_epochs": 1,
+                                         "ema_decay": path["ema_decay"]},
+          "depth_cut": CUT, "admm_epochs": path["epochs"],
+          "resumed_after_epoch": path["stop_after"], "steps_per_epoch": steps,
+          "z_steps": z_steps, "kernel_launches": launches,
+          "other_kernel_launches": other,
+          "launches_per_z_step": launches_per_z_step,
+          "reference_run_kernel_launches": ref_launches,
+          "dataset_s_validation": dataset_s,
+          "admm_it_per_s": steps / last["epoch_time_s"],
+          "admm_x_step_it_per_s": steps / last["x_step_s"],
+          "z_step_ms": 1000 * last["z_step_s"],
+          "admm_wall_s": admm_s, "resume_cli_s": resume_s,
+          "reference_wall_s": reference_s,
+          "checkpoint_bytes": checkpoint_bytes, "checkpoint_s": checkpoint_s,
+          "resumed_step": resumed.step, "lr_steps_equal": len(admm_lrs),
+          "resume_drift": drift, "resume_tol": RESUME_TOL,
+          "admm_train_loss": [h["train_loss"] for h in hist1 + hist2],
+          "reference_train_loss": [h["train_loss"] for h in ref_hist],
+          "admm_residual_total": [h["admm_residual_total"]
+                                  for h in hist1 + hist2],
+          "admm_nonfinite_layers": [h["admm_nonfinite_layers"]
+                                    for h in hist1 + hist2],
+          "msgpack_bytes": os.path.getsize(msgpack_path),
+          "cli_decompose_finetune_s": finetune_s, "compression_ratio": ratio,
+          "params_dense_compressed": list(counts),
+          "finetune_it_per_s": path["ft_steps"] / ft_hist[-1]["x_step_s"],
+          "finetune_lr_by_step": list(ft_lrs),
+          "finetune_train_loss": [h["train_loss"] for h in ft_hist],
+          "finetune_eval": [{k: h[k] for k in h if k.startswith(
+              ("test_", "ema_test_"))} for h in ft_hist],
+          "eval": ev, "ms_per_image": rt["ms_per_image"],
+          "images_per_s": rt["images_per_s"], "projection_rel_err": proj,
+          "trained_w_launches_checked": len(trained_tk) + len(trained_tt),
+          "wall_s": time.perf_counter() - t_start})
+    return launches
+
+
+def _template_state(dense_sd, admm_kw):
+    """A train state of ResNet56 TK@3x's shapes (no EMA), to check a
+    checkpoint against."""
+    plan = get_rank_plan(admm_kw["model"], "tk", admm_kw["ratio"])
+    z = {n: dense_sd[n] for n in plan.names()}
+    return TrainState(step=0, epoch=-1, model=dense_sd, optimizer={},
+                      admm=AdmmState(u=z, z=z), ema=None, rng={})
+
+
 # ms per Z-step of earlier CUDA versions of each kernel, as PERF.md
 # records them (NVIDIA H100 80GB HBM3, 700 W): printed on a line of their
 # own, labelled as recorded, apart from this run's measurements
@@ -1032,8 +1458,12 @@ def main() -> int:
     r50_plans = sorted(tk.plan_name(*b[0][1:], *b[1:]) for b in buckets_r50)
     if r50_plans != ["resident", "streamed"] + ["workspace"] * 13:
         raise AssertionError(f"ResNet-50 TK buckets' plans: {r50_plans}")
+    buckets_r56 = main_path_buckets(_program("tk", "resnet56", "3"))
+    r56_plans = [tk.plan_name(*b[0][1:], *b[1:]) for b in buckets_r56]
+    if r56_plans != ["resident"] * 10:
+        raise AssertionError(f"ResNet56 TK buckets' plans: {r56_plans}")
     tk_shapes = [*buckets, *NEAR_CAP_BUCKETS, *buckets_deit_tk,
-                 *WS_EXTRA_BUCKETS, *buckets_mbv2, *buckets_r50]
+                 *WS_EXTRA_BUCKETS, *buckets_mbv2, *buckets_r50, *buckets_r56]
     for shape, r0, r1 in tk_shapes:
         dims = (*shape[1:], r0, r1)
         if tk.block_plan_fits(*dims):
@@ -1071,8 +1501,13 @@ def main() -> int:
     if (len(launches_deit_s) != 24
             or deit_s_plans.count("workspace") != 16):
         raise AssertionError(f"DeiT-small launches' plans: {deit_s_plans}")
+    program_r56_tt = _program("tt", "resnet56", "3")
+    launches_r56_tt = tt_launches(program_r56_tt)
+    if len(launches_r56_tt) != 18:  # 20 sweep steps, 2 of them full rank
+        raise AssertionError(f"{len(launches_r56_tt)} ResNet56 TT launches, "
+                             "not 18")
     for (l, rows, cols), r in [*launches_tt, *launches_deit, *launches_r50,
-                               *launches_deit_s]:
+                               *launches_deit_s, *launches_r56_tt]:
         if sk.block_plan_fits(rows, cols, r):
             planned = (sk_lib.subspace_smem_bytes(rows, cols, r), 0)
             want = (sk.smem_bytes(rows, cols, r), 0)
@@ -1128,7 +1563,9 @@ def main() -> int:
               plan_row(s, r) for s, r in launches_r50],
           "deit_s_launches_shape_r_plan_smem_bytes_ws_bytes_regions_"
           "cluster_max_active_clusters": [
-              plan_row(s, r) for s, r in launches_deit_s]})
+              plan_row(s, r) for s, r in launches_deit_s],
+          "r56_tt_launches_shape_r_plan_smem_bytes": [
+              plan_row(s, r) for s, r in launches_r56_tt]})
 
     rows_tk = phase_kernel(args.seed, buckets, "resnet32 tk@3x")
     rows_deit_tk = phase_kernel(args.seed, buckets_deit_tk,
@@ -1150,6 +1587,14 @@ def main() -> int:
                                   len(buckets_r50))
     rows_deit_s = phase_kernel_tt(args.seed, launches_deit_s, program_deit_s,
                                   DEIT_S["name"], near_cap=())
+    rows_r56 = phase_kernel(args.seed, buckets_r56, R56["name"], extra=())
+    rows_r56_tt = phase_kernel_tt(args.seed, launches_r56_tt, program_r56_tt,
+                                  "resnet56 tt@3x", near_cap=())
+    phase_exact_rank(args.seed, "resnet56", "tk", "3", R56["name"],
+                     len(buckets_r56))
+    launches_r56_tt_main = phase_exact_rank(args.seed, "resnet56", "tt", "3",
+                                            "resnet56 tt@3x",
+                                            len(launches_r56_tt))
     with tempfile.TemporaryDirectory() as workdir:
         launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
                                       workdir)
@@ -1165,6 +1610,8 @@ def main() -> int:
                                        len(launches_r50), workdir)
         launches_deit_s_main = phase_deit_small(args.seed, smi,
                                                 len(launches_deit_s), workdir)
+        launches_r56_main = phase_r56(args.seed, smi, len(buckets_r56),
+                                      workdir)
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
@@ -1193,7 +1640,10 @@ def main() -> int:
             ("tucker2_factors_batched@r50_tk3", "resnet50 tk@3x",
              launches_r50_tk, rows_r50_tk,
              f"{src}tucker2_factors.cu, {src}tucker2_factors_ws.cu",
-             "library_ms")):
+             "library_ms"),
+            ("tucker2_factors_batched@r56_tk3", R56["name"],
+             launches_r56_main, rows_r56, src + "tucker2_factors.cu",
+             hosvd_key)):
         one = kernel_summary(name, path, source,
                              ref + "tucker_kernel.py:142", n, rows,
                              library_key)
@@ -1211,7 +1661,9 @@ def main() -> int:
              f"{src}subspace.cu, {src}subspace_ws.cu"),
             ("dominant_left_subspace_batched@deit_s_tt2", DEIT_S["name"],
              launches_deit_s_main, rows_deit_s,
-             f"{src}subspace.cu, {src}subspace_ws.cu")):
+             f"{src}subspace.cu, {src}subspace_ws.cu"),
+            ("dominant_left_subspace_batched@r56_tt3", "resnet56 tt@3x",
+             launches_r56_tt_main, rows_r56_tt, src + "subspace.cu")):
         one = kernel_summary(name, path, source,
                              ref + "subspace_kernel.py:85", n, rows,
                              "library_ms_batched_svd")

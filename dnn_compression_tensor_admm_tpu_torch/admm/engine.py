@@ -3,7 +3,8 @@
 * state: per-layer dual U (zeros) and auxiliary Z (= W); training starts
   with `admm_update(update_u=False)`, which sets Z to the projection of W.
 * each epoch: Z <- proj(W + U); U += W - Z.
-* each step: loss += 0.5 * rho * sum_l ||W_l - Z_l + U_l||^2.
+* each step: loss += 0.5 * rho * sum_l ||W_l - Z_l + U_l||^2 (or, in a
+  custom loop, `admm_grad_add` adds its gradient to each `.grad`).
 
 The plan's layers are bucketed by (kind, spec, shape); each bucket is
 stacked into one [L, ...] tensor and projected at once. With
@@ -16,7 +17,8 @@ bucket through the batched TT-SVD sweep on the CUDA subspace kernel
 gate refuses raises; on the CPU (where the kernel wrappers run their
 plain versions) it goes layer by layer through `ops/tucker.py`,
 `ops/ttd.py` or `ops/svd.py`, as every bucket does with another method
-(an SVD layer by exact SVD whatever the method, as the JAX package does).
+(`subspace`, `gram`, `svd` or `ns`: `ops/svd.py::truncated_left_sv`'s; an
+SVD layer by exact SVD whatever the method, as the JAX package does).
 U and Z are stored in each parameter's own layout (OIHW for convs,
 [out, in] for linears); a TT projection works on the [O, kh*kw, I] view
 of a conv and on the weight itself for a linear, an SVD one on a 1x1
@@ -38,7 +40,7 @@ from ..ops.svd import svd_project
 from ..ops.ttd import tt_project
 from ..ops.tucker import tucker2_project
 
-METHODS = ("kernel", "subspace", "svd")
+METHODS = ("kernel", "subspace", "gram", "svd", "ns")
 
 
 @dataclasses.dataclass
@@ -243,6 +245,22 @@ def admm_penalty(params: Mapping[str, torch.Tensor], state: AdmmState,
         d = params[name] - state.z[name] + state.u[name]
         total = total + torch.sum(d.float() ** 2)
     return 0.5 * rho * total
+
+
+@torch.no_grad()
+def admm_grad_add(params: Mapping[str, torch.Tensor], state: AdmmState,
+                  program: ProjectionProgram, rho: float) -> None:
+    """Add the penalty's gradient rho * (W - Z + U) to each target
+    parameter's `.grad` (allocated where it is None): the gradient of
+    `admm_penalty`, for custom loops that leave the penalty out of the
+    loss. The training loop keeps the penalty in the loss."""
+    for name in program.names:
+        w = params[name]
+        g = (rho * (w.float() - state.z[name] + state.u[name])).to(w.dtype)
+        if w.grad is None:
+            w.grad = g
+        else:
+            w.grad.add_(g)
 
 
 def adjust_rho(epoch: int, epochs: int, init_rho: float,

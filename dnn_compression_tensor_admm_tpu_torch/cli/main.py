@@ -1,6 +1,7 @@
 """Command line: the JAX package's `cli/main.py` surface for the port's
-slices (ResNet32 with Tucker-2 or Tensor-Train, and MobileNetV2-CIFAR with
-plain SVD or Tucker-2, on synthetic CIFAR geometry; DeiT-tiny with
+slices (ResNet-20/32/56 with Tucker-2 or Tensor-Train, and
+MobileNetV2-CIFAR with plain SVD or Tucker-2, on CIFAR-10/100 files or
+synthetic CIFAR geometry; DeiT-tiny with
 Tensor-Train or Tucker-2, DeiT-small and ViT-small with Tensor-Train, and
 ImageNet ResNet-18/34/50 with Tensor-Train or Tucker-2, on synthetic
 ImageNet geometry).
@@ -15,7 +16,10 @@ Pipeline modes:
 Run as `python -m dnn_compression_tensor_admm_tpu_torch ...`; it runs on
 the card unless given `--device cpu`. `--model-path` and `--teacher-path`
 read the JAX package's `.msgpack` checkpoints and the port's torch state
-dicts (`.pt`); `--save-model` writes a `.pt`.
+dicts (`.pt`); `--save-model` writes `{tag}_{ts}_model.msgpack` as the JAX
+package does, so its two-stage recipes chain (`--admm --save-model`, then
+`--decompose --model-path` of that file). `--checkpoint-dir` writes the
+whole train state after each epoch and `--resume` goes on from it.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Tensor-decomposition ADMM compression (PyTorch/CUDA)")
     p.add_argument("--model", default="resnet32", type=str,
-                   help="resnet32 | tkc_resnet32 | ttm_resnet32 | "
+                   help="resnet20 | resnet32 | resnet56 | tkc_resnet32 | "
+                        "ttm_resnet32 | tkc_resnet56 | ttm_resnet56 | "
                         "mobilenetv2_cifar | svdc_mobilenetv2_cifar | "
                         "tkc_mobilenetv2_cifar | deit_tiny_patch16_224 | "
                         "ttm_deit_tiny_patch16_224 | tkc_deit_tiny_patch16_224 "
@@ -40,19 +45,33 @@ def parse_args(argv=None):
                         "tkc_resnet50 | ttm_resnet18 | tkc_resnet18 (the "
                         "ImageNet ResNets)")
     p.add_argument("--dataset", default="synthetic-cifar10", type=str,
-                   help="synthetic-cifar10 | synthetic-hard-cifar10 | "
+                   help="cifar10 | cifar100 | mnist (files in --data-dir) | "
+                        "synthetic-cifar10 | synthetic-hard-cifar10 | "
                         "synthetic-imagenet | synthetic-hard-imagenet")
+    p.add_argument("--data-dir", default=None, type=str,
+                   help="the dataset's files (cifar-10-batches-py or "
+                        "cifar-10-python.tar.gz, cifar-100-python, MNIST "
+                        "idx); nothing is downloaded")
+    p.add_argument("--num-classes", default=None, type=int,
+                   help="the head's classes (default: the dataset's)")
     p.add_argument("--batch-size", default=256, type=int)
     p.add_argument("--epochs", default=200, type=int)
     p.add_argument("--steps-per-epoch", default=None, type=int)
     p.add_argument("--synthetic-size", default=None, type=int)
-    p.add_argument("--opt", default="momentum", choices=["momentum", "adamw"])
+    p.add_argument("--opt", default="momentum",
+                   choices=["momentum", "adamw", "sgd", "adam"],
+                   help="sgd is Nesterov momentum; adam has no weight decay")
     p.add_argument("--lr", default=0.1, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--weight-decay", default=1e-4, type=float)
+    p.add_argument("--sched", default="cosine",
+                   choices=["cosine", "step", "constant"])
     p.add_argument("--warmup-epochs", default=0, type=int,
                    help="linear warmup from 1e-6 to --lr before the cosine")
     p.add_argument("--min-lr", default=1e-5, type=float)
+    p.add_argument("--decay-epochs", default=30, type=int,
+                   help="step: the lr x --decay-rate every N epochs")
+    p.add_argument("--decay-rate", default=0.1, type=float)
     p.add_argument("--clip-grad", default=None, type=float,
                    help="clip the gradients by this global norm")
     p.add_argument("--smoothing", default=0.0, type=float)
@@ -65,13 +84,17 @@ def parse_args(argv=None):
     p.add_argument("--tt-type", default="general",
                    choices=["general", "special"])
     p.add_argument("--admm-method", default="kernel",
-                   choices=["kernel", "subspace", "svd"],
+                   choices=["kernel", "subspace", "gram", "svd", "ns"],
                    help="Z-step solver: 'kernel' is the CUDA Tucker-2 factor "
                         "kernel for tk and svd and the CUDA subspace kernel's "
-                        "TT-SVD sweep for tt (plain torch on the CPU)")
+                        "TT-SVD sweep for tt (plain torch on the CPU); "
+                        "'gram' eigh of the Gram, 'ns' orthogonal iteration "
+                        "with Newton-Schulz")
     p.add_argument("--adjust-rho", action="store_true",
                    help="5x rho boost after 85%% of epochs (reference "
                         "admm.py:87-89; off by default)")
+    p.add_argument("--orthogonal", action="store_true",
+                   help="add the factors' soft-orthogonality penalty at rho")
     p.add_argument("--decompose", action="store_true")
     p.add_argument("--pretrained", action="store_true",
                    help="load an already-factorized checkpoint "
@@ -87,12 +110,20 @@ def parse_args(argv=None):
     p.add_argument("--teacher-model", default=None, type=str)
     p.add_argument("--teacher-path", default=None, type=str,
                    help="the teacher's weights, a .msgpack or .pt")
+    p.add_argument("--ema-decay", default=0.0, type=float,
+                   help="> 0: keep an EMA of the parameters and evaluate it "
+                        "too (ema_test_* in each eval row)")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
     p.add_argument("--output-dir", default="saved_models", type=str)
     p.add_argument("--save-model", action="store_true")
     p.add_argument("--save-log", action="store_true")
     p.add_argument("--eval-every", default=1, type=int)
+    p.add_argument("--resume", default=None, type=str,
+                   help="a --checkpoint-dir to resume the whole train "
+                        "state (ADMM duals included) from")
+    p.add_argument("--checkpoint-dir", default=None, type=str,
+                   help="write the whole train state after each epoch")
     p.add_argument("--verbose", action="store_true",
                    help="per-layer ADMM residual rows (reference --verbose)")
     p.add_argument("--device", default="cuda", type=str,
@@ -103,21 +134,22 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
-    import torch
 
     from ..configs.resolver import get_rank_plan
     from ..data.datasets import dataset_info, load_dataset
     from ..models import (compression_ratio, create_model, decompose_params,
                           parse_compressed_name)
     from ..train import TrainConfig, eval_runtime, evaluate_model, train_model
-    from ..utils.checkpoint import load_any_variables
+    from ..utils.checkpoint import load_any_variables, save_variables
     from ..utils.device import resolve_device
+    from ..utils.jax_weights import state_dict_to_jax
 
     device = resolve_device(args.device)
     compressed = parse_compressed_name(args.model)
     if args.admm and compressed is not None:
         raise SystemExit("ERROR: --admm requires an uncompressed model name")
     info = dataset_info(args.dataset)
+    num_classes = args.num_classes or info.num_classes
     compute_dtype = None if args.fp32 else "bfloat16"
     kw = {"ratio": args.ratio, "tt_type": args.tt_type} if compressed else {}
 
@@ -128,11 +160,11 @@ def main(argv=None):
         if not args.model_path:
             raise SystemExit("ERROR: --decompose needs --model-path (dense ckpt)")
         base, fmt, _ = compressed
-        dense = create_model(base, num_classes=info.num_classes)
+        dense = create_model(base, num_classes=num_classes)
         dense.load_state_dict(load_any_variables(args.model_path))
         plan = get_rank_plan(args.model, fmt, args.ratio, args.tt_type)
         init_state = decompose_params(dense.to(device).state_dict(), plan)
-        model = create_model(args.model, num_classes=info.num_classes, **kw)
+        model = create_model(args.model, num_classes=num_classes, **kw)
         model.load_state_dict(init_state)
         print(f"decomposed {args.model_path}: compression "
               f"{compression_ratio(dense, model):.2f}x")
@@ -142,7 +174,7 @@ def main(argv=None):
         init_state = load_any_variables(args.model_path)
 
     if args.eval or args.runtime:
-        model = create_model(args.model, num_classes=info.num_classes, **kw)
+        model = create_model(args.model, num_classes=num_classes, **kw)
         if init_state is None:
             if not args.model_path:
                 raise SystemExit("ERROR: --eval/--runtime need --model-path")
@@ -153,7 +185,8 @@ def main(argv=None):
             r = eval_runtime(model, info, batch_size=args.batch_size,
                              compute_dtype=compute_dtype)
         else:
-            x, y, _ = load_dataset(args.dataset, False, args.synthetic_size)
+            x, y, _ = load_dataset(args.dataset, False, args.synthetic_size,
+                                   args.data_dir)
             r = evaluate_model(model, x, y, info, compute_dtype=compute_dtype)
         print(json.dumps(r))
         return r
@@ -161,13 +194,16 @@ def main(argv=None):
     cfg = TrainConfig(
         model=args.model, dataset=args.dataset, batch_size=args.batch_size,
         epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
+        num_classes=args.num_classes, data_dir=args.data_dir,
         opt=args.opt, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
-        min_lr=args.min_lr, warmup_epochs=args.warmup_epochs,
+        sched=args.sched, min_lr=args.min_lr,
+        warmup_epochs=args.warmup_epochs, decay_epochs=args.decay_epochs,
+        decay_rate=args.decay_rate,
         clip_grad=args.clip_grad, smoothing=args.smoothing, admm=args.admm,
         rho=args.rho, fmt=args.fmt, ratio=args.ratio, tt_type=args.tt_type,
         admm_method=args.admm_method, adjust_rho_late=args.adjust_rho,
-        verbose_admm=args.verbose,
+        verbose_admm=args.verbose, orthogonal=args.orthogonal,
         distillation_type=args.distillation_type,
         distillation_alpha=args.distillation_alpha,
         distillation_tau=args.distillation_tau,
@@ -175,7 +211,9 @@ def main(argv=None):
         teacher_state_dict=(load_any_variables(args.teacher_path)
                             if args.distillation_type != "none"
                             and args.teacher_path else None),
-        eval_every=args.eval_every, seed=args.seed,
+        ema_decay=args.ema_decay, eval_every=args.eval_every,
+        checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+        seed=args.seed,
         compute_dtype=compute_dtype,
         synthetic_size=args.synthetic_size, device=str(device))
     ts = time.strftime("%m%d-%H%M%S")
@@ -188,8 +226,8 @@ def main(argv=None):
     model, history = train_model(cfg, init_state_dict=init_state)
     if args.save_model:
         os.makedirs(args.output_dir, exist_ok=True)
-        path = os.path.join(args.output_dir, f"{tag}_{ts}_model.pt")
-        torch.save(model.state_dict(), path)
+        path = os.path.join(args.output_dir, f"{tag}_{ts}_model.msgpack")
+        save_variables(path, state_dict_to_jax(model.state_dict()))
         print(f"saved model to {path}")
     return model, history
 

@@ -22,7 +22,7 @@ from torch import nn
 
 from ..configs.hp import SVDSpec
 from ..ops.precision import full_f32
-from ..ops.svd import truncated_svd
+from ..ops.svd import svd_factors_scaled
 from .common import IntOrPair, pair
 
 
@@ -64,10 +64,10 @@ class SVDConv2d(nn.Module):
         factors (as the JAX package does; the reference folds them into
         one)."""
         o, i = dense_w_oihw.shape[:2]
-        u, s, vt = truncated_svd(dense_w_oihw.reshape(o, i), spec.rank)
-        rs = torch.sqrt(s)
-        params = {"first_factor": (rs[:, None] * vt).contiguous(),  # [r, I]
-                  "last_factor": (u * rs[None, :]).contiguous()}    # [O, r]
+        last, first = svd_factors_scaled(dense_w_oihw.reshape(o, i),
+                                         spec.rank)
+        params = {"first_factor": first.contiguous(),  # [r, I]
+                  "last_factor": last.contiguous()}    # [O, r]
         if dense_b is not None:
             params["bias"] = dense_b
         return params

@@ -1,5 +1,5 @@
-"""CIFAR ResNet-32 (option-A shortcut), dense, Tucker-2 and Tensor-Train
-compressed.
+"""CIFAR ResNet-20/32/56 (option-A shortcut), dense, Tucker-2 and
+Tensor-Train compressed.
 
 3x3 stem to 16 channels, three stages of BasicBlocks at 16/32/64 with
 stride-2 transitions, option-A shortcut (stride-2 subsample + zero-pad
@@ -97,22 +97,38 @@ def _cifar_out_channels(name: str) -> int:
     return _STAGE_PLANES[name.split(".")[0]]
 
 
-# every ratio the reference names; the table lookup raises a KeyError
-# that lists what the JSON copy holds
-for _ratio in ("1.5", "2", "3", "5"):
-    register_plan("resnet32", "tk", _ratio)(
-        lambda r=_ratio: build_tk_plan("resnet32", r))
-    register_plan("resnet32", "tt", _ratio)(
-        lambda r=_ratio: build_tt_conv_plan("resnet32", r, "general",
-                                            _cifar_out_channels))
+# every ratio the reference names, for every depth; the table lookup
+# raises a KeyError that lists what the JSON copy holds (it has no
+# resnet20 table)
+for _model in ("resnet20", "resnet32", "resnet56"):
+    for _ratio in ("1.5", "2", "3", "5"):
+        register_plan(_model, "tk", _ratio)(
+            lambda m=_model, r=_ratio: build_tk_plan(m, r))
+        register_plan(_model, "tt", _ratio)(
+            lambda m=_model, r=_ratio: build_tt_conv_plan(
+                m, r, "general", _cifar_out_channels))
+
+
+def _build(num_blocks, model_base: str, *, num_classes: int = 10,
+           fmt: Optional[str] = None, mode: str = "chain", ratio: str = "3",
+           tt_type: str = "general", plan: Optional[RankPlan] = None,
+           generator: Optional[torch.Generator] = None) -> ResNetCifar:
+    if fmt is not None and plan is None:
+        plan = get_rank_plan(model_base, fmt, ratio, tt_type)
+    return ResNetCifar(num_blocks, num_classes=num_classes, plan=plan,
+                       mode=mode, generator=generator)
 
 
 @register_model
-def resnet32(*, num_classes: int = 10, fmt: Optional[str] = None,
-             mode: str = "chain", ratio: str = "3", tt_type: str = "general",
-             plan: Optional[RankPlan] = None,
-             generator: Optional[torch.Generator] = None) -> ResNetCifar:
-    if fmt is not None and plan is None:
-        plan = get_rank_plan("resnet32", fmt, ratio, tt_type)
-    return ResNetCifar((5, 5, 5), num_classes=num_classes, plan=plan,
-                       mode=mode, generator=generator)
+def resnet20(**kw) -> ResNetCifar:
+    return _build((3, 3, 3), "resnet20", **kw)
+
+
+@register_model
+def resnet32(**kw) -> ResNetCifar:
+    return _build((5, 5, 5), "resnet32", **kw)
+
+
+@register_model
+def resnet56(**kw) -> ResNetCifar:
+    return _build((9, 9, 9), "resnet56", **kw)

@@ -4,6 +4,13 @@
 * ``method='subspace'`` — orthogonal iteration on the Gram matrix with
   twice-iterated Cholesky QR; the Z-step's route for buckets the CUDA
   kernel's gate refuses.
+* ``method='gram'`` — `torch.linalg.eigh` of the Gram matrix, its
+  trailing `rank` eigenvectors, largest first.
+* ``method='ns'`` — orthogonal iteration on the Gram matrix with
+  Newton-Schulz orthonormalisation: matmuls only.
+
+All run in full float32 (`full_f32`), as the JAX package runs them at
+f32-HIGHEST.
 """
 
 from __future__ import annotations
@@ -22,6 +29,21 @@ def _cholqr(a: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(r2, q.T, upper=False).T
 
 
+def _ns_orth(a: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """Orthonormalize the columns of `a` [m, r] by the Newton-Schulz
+    iteration for ``a (a^T a)^(-1/2)``, after scaling by the Frobenius norm
+    (every singular value in (0, 1], inside the cubic convergence basin)."""
+    x = a / (torch.linalg.vector_norm(a) + 1e-12)
+    eye = torch.eye(a.shape[1], dtype=a.dtype, device=a.device)
+    for _ in range(iters):
+        s = x.T @ x
+        x = x @ (0.125 * (15 * eye - s @ (10 * eye - 3 * s)))
+    return x
+
+
+METHODS = ("svd", "subspace", "gram", "ns")
+
+
 @full_f32()
 def truncated_left_sv(a: torch.Tensor, rank: int, method: str = "svd",
                       subspace_iters: int = 8) -> torch.Tensor:
@@ -33,14 +55,19 @@ def truncated_left_sv(a: torch.Tensor, rank: int, method: str = "svd",
     if rank == m:
         # full-rank subspace: the projection is exact, any basis works
         return torch.eye(m, dtype=a.dtype, device=a.device)
-    if method == "subspace":
+    if method == "gram":
+        # eigh's eigenvalues ascend: the trailing `rank` vectors, reversed
+        _, vecs = torch.linalg.eigh(a @ a.T)
+        return vecs[:, m - rank:].flip(1)
+    if method in ("subspace", "ns"):
+        orth = _cholqr if method == "subspace" else _ns_orth
         g = a @ a.T
         q = torch.eye(m, rank, dtype=a.dtype, device=a.device)
         for _ in range(subspace_iters):
-            q = _cholqr(g @ q)
+            q = orth(g @ q)
         return q
     if method != "svd":
-        raise ValueError(f"unknown method {method!r}")
+        raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
     if m < a.shape[1]:
         # the left vectors of a wide matrix are the right vectors of its
         # transpose; the tall SVD is the fast one (CPU LAPACK took 150 ms
@@ -63,3 +90,11 @@ def svd_project(a: torch.Tensor, rank: int) -> torch.Tensor:
     """Closest (Frobenius) rank-`rank` matrix to `a` (Eckart-Young)."""
     u, s, vt = truncated_svd(a, rank)
     return (u * s[None, :]) @ vt
+
+
+def svd_factors_scaled(a: torch.Tensor, rank: int):
+    """Balanced rank-`rank` factorization ``a ~= p @ q`` -> (p [m, r],
+    q [r, n]): sqrt(s) folded into each factor."""
+    u, s, vt = truncated_svd(a, rank)
+    rs = torch.sqrt(s)
+    return u * rs[None, :], rs[:, None] * vt

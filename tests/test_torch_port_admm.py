@@ -136,4 +136,4 @@ def test_adjust_rho_matches_jax():
 def test_unknown_method_raises(setup):
     with pytest.raises(ValueError):
         teng.admm_update(setup["params"], setup["tstate"], setup["tprog"],
-                         method="gram")
+                         method="pallas")

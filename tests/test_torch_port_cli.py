@@ -35,7 +35,7 @@ def test_cli_admm_decompose_eval_on_cpu(tmp_path, capsys):
     cli_main(["--model", "resnet32", "--admm", "--epochs", "2",
               "--steps-per-epoch", "2", "--smoothing", "0.1", "--save-model",
               "--save-log", "--output-dir", str(tmp_path / "admm"), *common])
-    (dense,) = (tmp_path / "admm").glob("*_model.pt")
+    (dense,) = (tmp_path / "admm").glob("*_model.msgpack")
     (log,) = (tmp_path / "admm").glob("*.log")
     rows = [json.loads(r) for r in log.read_text().splitlines()]
     assert len(rows) == 2 and all(np.isfinite(r["train_loss"]) for r in rows)
@@ -44,7 +44,7 @@ def test_cli_admm_decompose_eval_on_cpu(tmp_path, capsys):
               str(dense), "--epochs", "1", "--steps-per-epoch", "2",
               "--save-model", "--output-dir", str(tmp_path / "ft"), *common])
     assert "compression 2.83x" in capsys.readouterr().out
-    (ft,) = (tmp_path / "ft").glob("*_model.pt")
+    (ft,) = (tmp_path / "ft").glob("*_model.msgpack")
     r = cli_main(["--model", "tkc_resnet32", "--eval", "--model-path", str(ft),
                   *common])
     assert set(r) == {"acc1", "acc5", "loss"} and np.isfinite(r["loss"])
@@ -62,7 +62,7 @@ def test_cli_tt_admm_decompose_eval_on_cpu(tmp_path, capsys):
     cli_main(["--model", "resnet32", "--admm", "--format", "tt", "--epochs",
               "1", "--steps-per-epoch", "2", "--save-model", "--save-log",
               "--output-dir", str(tmp_path / "admm"), *common])
-    (dense,) = (tmp_path / "admm").glob("*_admm_tt_*_model.pt")
+    (dense,) = (tmp_path / "admm").glob("*_admm_tt_*_model.msgpack")
     (log,) = (tmp_path / "admm").glob("*.log")
     (row,) = [json.loads(r) for r in log.read_text().splitlines()]
     assert np.isfinite(row["train_loss"]) and len(row["admm_residuals"]) == 30
@@ -73,7 +73,7 @@ def test_cli_tt_admm_decompose_eval_on_cpu(tmp_path, capsys):
               str(dense), "--epochs", "1", "--steps-per-epoch", "1",
               "--save-model", "--output-dir", str(tmp_path / "ft"), *common])
     assert "compression 2.78x" in capsys.readouterr().out
-    (ft,) = (tmp_path / "ft").glob("*_model.pt")
+    (ft,) = (tmp_path / "ft").glob("*_model.msgpack")
     r = cli_main(["--model", "ttm_resnet32", "--eval", "--model-path", str(ft),
                   *common])
     assert set(r) == {"acc1", "acc5", "loss"} and np.isfinite(r["loss"])

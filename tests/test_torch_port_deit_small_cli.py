@@ -1,7 +1,8 @@
 """The port's command line on the DeiT-small TT@2x recipe, end to end on
 the CPU at a tiny size (full width, 224 x 224, 1000 classes, batch 2):
 `--admm --adjust-rho` over 7 epochs (the least at which the boost fires),
-its dense model as a msgpack that the JAX package reads back, then
+its dense model as the msgpack `--save-model` writes, which the JAX
+package reads back, then
 `--decompose` from that file with hard distillation from the dense
 teacher read from it too."""
 
@@ -13,9 +14,8 @@ import torch
 
 from dnn_compression_tensor_admm_tpu.utils.checkpoint import load_variables as jax_load
 from dnn_compression_tensor_admm_tpu_torch.cli.main import main as cli_main
-from dnn_compression_tensor_admm_tpu_torch.utils.checkpoint import save_variables
-from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import (
-    jax_to_state_dict, state_dict_to_jax)
+from dnn_compression_tensor_admm_tpu_torch.utils.checkpoint import load_any_variables
+from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import jax_to_state_dict
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -35,11 +35,12 @@ def test_cli_deit_small_recipe_through_a_msgpack(tmp_path, capsys):
               "--steps-per-epoch", "1"]
     # the Z-step by exact SVD: the kernel route's plain version is held
     # against the JAX package elsewhere, and costs 3.5x as much here
-    cli_main(["--model", "deit_small_patch16_224", "--admm", "--format", "tt",
-              "--admm-method", "svd", "--adjust-rho", "--epochs", "7",
-              "--eval-every", "7", "--warmup-epochs", "1", "--clip-grad", "1.0", "--lr", "5e-4",
-              "--verbose", "--save-model", "--save-log", "--output-dir",
-              str(tmp_path / "admm"), *common])
+    dense, _ = cli_main(
+        ["--model", "deit_small_patch16_224", "--admm", "--format", "tt",
+         "--admm-method", "svd", "--adjust-rho", "--epochs", "7",
+         "--eval-every", "7", "--warmup-epochs", "1", "--clip-grad", "1.0",
+         "--lr", "5e-4", "--verbose", "--save-model", "--save-log",
+         "--output-dir", str(tmp_path / "admm"), *common])
     out = capsys.readouterr().out
     # --verbose: one row of per-layer residuals a Z-step
     assert sum('"admm_residuals"' in line and '"epoch"' not in line
@@ -48,12 +49,13 @@ def test_cli_deit_small_recipe_through_a_msgpack(tmp_path, capsys):
     rows = [json.loads(r) for r in log.read_text().splitlines()]
     assert [r["rho"] for r in rows] == [1e-3] * 6 + [5e-3]
     assert [r["epoch"] for r in rows if "test_loss" in r] == [7]
-    (pt,) = (tmp_path / "admm").glob("*_admm_tt_*_model.pt")
-    sd = torch.load(pt, weights_only=True)
-    ckpt = tmp_path / "dense.msgpack"
-    save_variables(str(ckpt), state_dict_to_jax(sd))
+    (ckpt,) = (tmp_path / "admm").glob("*_admm_tt_*_model.msgpack")
+    sd = dense.state_dict()
+    mine = load_any_variables(str(ckpt))
     back = jax_to_state_dict(jax_load(str(ckpt)))  # the JAX package's reader
-    assert all(torch.equal(back[k], sd[k]) for k in sd)
+    assert sorted(mine) == sorted(back) == sorted(sd)
+    assert all(torch.equal(back[k], sd[k]) and torch.equal(mine[k], sd[k])
+               for k in sd)
 
     model, hist = cli_main(
         ["--model", "ttm_deit_small_patch16_224", "--decompose",

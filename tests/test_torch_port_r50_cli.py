@@ -35,7 +35,7 @@ def test_cli_r50_tt_admm_decompose_eval_on_cpu(tmp_path, capsys):
               "--epochs", "2", "--steps-per-epoch", "1", "--lr", "0.1",
               "--warmup-epochs", "1", "--clip-grad", "1.0", "--save-model",
               "--save-log", "--output-dir", str(tmp_path / "admm"), *common])
-    (dense,) = (tmp_path / "admm").glob("resnet50_*_admm_tt_*_model.pt")
+    (dense,) = (tmp_path / "admm").glob("resnet50_*_admm_tt_*_model.msgpack")
     (log,) = (tmp_path / "admm").glob("*.log")
     rows = [json.loads(r) for r in log.read_text().splitlines()]
     assert len(rows) == 2
@@ -46,7 +46,7 @@ def test_cli_r50_tt_admm_decompose_eval_on_cpu(tmp_path, capsys):
               "--lr", "0.01", "--save-model", "--output-dir",
               str(tmp_path / "ft"), *common])
     assert "compression 2.51x" in capsys.readouterr().out
-    (ft,) = (tmp_path / "ft").glob("ttm_resnet50_*_model.pt")
+    (ft,) = (tmp_path / "ft").glob("ttm_resnet50_*_model.msgpack")
     r = cli_main(["--model", "ttm_resnet50", "--eval", "--model-path",
                   str(ft), *common])
     assert set(r) == {"acc1", "acc5", "loss"} and np.isfinite(r["loss"])

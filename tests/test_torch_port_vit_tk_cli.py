@@ -31,7 +31,7 @@ def test_cli_deit_tk_admm_decompose_eval_on_cpu(tmp_path, capsys):
               "--epochs", "1", "--steps-per-epoch", "1", "--smoothing", "0.1",
               "--save-model", "--save-log", "--output-dir",
               str(tmp_path / "admm"), *common])
-    (dense,) = (tmp_path / "admm").glob("*_admm_tk_*_model.pt")
+    (dense,) = (tmp_path / "admm").glob("*_admm_tk_*_model.msgpack")
     (log,) = (tmp_path / "admm").glob("*.log")
     (row,) = [json.loads(r) for r in log.read_text().splitlines()]
     assert np.isfinite(row["train_loss"]) and len(row["admm_residuals"]) == 48
@@ -40,7 +40,7 @@ def test_cli_deit_tk_admm_decompose_eval_on_cpu(tmp_path, capsys):
               "--steps-per-epoch", "1", "--save-model", "--output-dir",
               str(tmp_path / "ft"), *common])
     assert "compression 1.17x" in capsys.readouterr().out
-    (ft,) = (tmp_path / "ft").glob("*_model.pt")
+    (ft,) = (tmp_path / "ft").glob("*_model.msgpack")
     r = cli_main(["--model", "tkc_deit_tiny_patch16_224", "--eval",
                   "--model-path", str(ft), *common])
     assert set(r) == {"acc1", "acc5", "loss"} and np.isfinite(r["loss"])
