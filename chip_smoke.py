@@ -48,7 +48,18 @@ prints one JSON line per phase:
    the resident plan, one full rank in both modes) and 18 TT@3x launches,
    and for each plan one Z-step (`admm_update`) on layers of exactly the
    plan's ranks, which must come back within 1e-3 with the finite guard
-   at 0, every launch held against the plain version there too;
+   at 0, every launch held against the plain version there too; then the
+   zoo: the Tucker-2 kernel at the 15 buckets of ImageNet
+   MobileNetV2-SVD@2x (the ninth path's), the 21 of MobileNetV2-TK@2x, the
+   9 of VGG16-TK@2x (`pre_logits.fc1` [1, 49, 4096, 512] at 256/288 among
+   them, timed by single launches), the 4 of DenseNet121-TK@2x, the 38
+   one-layer buckets of DenseNet40-TK@2x and the 4 `svd_linear` buckets of
+   DeiT-tiny's automatic SVD@2 plan, the subspace kernel at the 21
+   launches of MobileNetV2-TT@2x, each plan also through one whole Z/U
+   step from a seeded dense init (its launches counted); then the Stiefel
+   fine-tune: `stftkc_resnet32` from ResNet32's decomposed TK@3x weights,
+   20 steps at batch 256 with Riemannian SGD on its factors, each of which
+   must stay orthonormal within 1e-4;
    kernel times are device times (launches captured in a CUDA graph and
    replayed);
 4. main    — ResNet32 Tucker-2 @3x and ResNet32 Tensor-Train @3x, each at
@@ -84,7 +95,10 @@ prints one JSON line per phase:
    with `--ema-decay 0.999 --sched step --opt sgd`, evaluated raw and as
    the EMA (40 Tucker-2 launches asserted), and both kernels against their
    plain versions at every launch of a TK and a TT Z-step on its trained
-   weights.
+   weights; then ImageNet MobileNetV2 plain SVD @2x at full width, 224 x
+   224, 1000 classes and batch 256 with SGD momentum at lr 0.05 (its 29
+   1x1 convs in 15 Tucker-2 launches a Z-step; 3,504,872 / 2,514,184
+   parameters and 1.39x asserted), fine-tuned at lr 0.01.
 
 Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
@@ -181,6 +195,9 @@ R50_TT_PARAMS = (25_557_032, 10_187_501)
 # DeiT-small TT@2x's, the JAX package's `ttm_deit_small_patch16_224` too
 # (1.5322x)
 DEIT_S_PARAMS = (22_050_664, 14_391_736)
+# ImageNet MobileNetV2 SVD@2x's, dense and compressed, the JAX package's
+# `svdc_mobilenetv2` too (1.3940x)
+MBV2_INET_PARAMS = (3_504_872, 2_514_184)
 # CIFAR ResNet56 TK@3x's, dense and compressed, the JAX package's
 # `tkc_resnet56` too (its TT@3x has the same count; 3.0989x)
 R56_PARAMS = (853_018, 275_266)
@@ -211,6 +228,16 @@ RESUME_TOL = {"params": 1e-3, "z": 1e-3, "u": 1e-2}
 # one cluster of 8 SMs: its graphs hold 5 launches, not 25.
 TT_BIG_RANK = 256
 TT_BIG_GRAPH = {"launches": 5, "replays": 2}
+# A Tucker-2 bucket of this many floats or more (VGG16's `pre_logits.fc1`,
+# [1, 49, 4096, 512]: 102.8 M floats, a mode-0 Gram of ~842 GFLOP on one
+# cluster of 8 SMs, 4.4 s a launch on the H100) is timed by one launch
+# after the check's, its plain version and library yardstick by one call
+# each, not by graphs.
+TK_SINGLE_LAUNCH_FLOATS = 50_000_000
+# Riemannian SGD keeps the Stiefel fine-tune's factors orthonormal:
+# max |Q^T Q - I| on the tall side after its steps (float32 QR each step:
+# ~1e-6 expected; a Euclidean step at lr 0.1 would leave ~1e-2)
+STIEFEL_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -251,7 +278,10 @@ def graph_ms(fn, launches: int = 25, replays: int = 4) -> float:
 
 
 def _program(fmt: str, model: str = "resnet32", ratio: str = "3"):
-    dense = create_model(model)
+    """The Z-step's buckets of `model`'s plan (the model built on the meta
+    device: its shapes alone)."""
+    with torch.device("meta"):
+        dense = create_model(model)
     return build_program(dict(dense.named_parameters()),
                          get_rank_plan(model, fmt, ratio))
 
@@ -407,18 +437,25 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
                                      f"plan fits the card: {cluster}")
         else:
             cluster = {}
-        per_plan = TK_WS_GRAPH if plan == "workspace" else {}
-        kernel_ms = graph_ms(
-            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS),
-            **per_plan)
+        single = l * k * o * i >= TK_SINGLE_LAUNCH_FLOATS
+        if single:  # seconds a launch: one timed launch, the check's
+            # launch above its warm-up (the plain version's too)
+            timing = {"launches": 1}
+            timed = lambda fn: cuda_ms(fn, 1, 0)  # noqa: E731
+        else:
+            timing = TK_WS_GRAPH if plan == "workspace" else {}
+            timed = lambda fn: graph_ms(fn, **timing)  # noqa: E731
+        kernel_ms = timed(
+            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS))
         # the same launch without the HOOI sweeps: the Grams of X and the
         # HOSVD init
-        hosvd_ms = graph_ms(
-            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=0),
-            **per_plan)
+        hosvd_ms = timed(
+            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=0))
+        iters, warmup = (1, 0) if single else (5, 1)
         plain_ms = cuda_ms(
-            lambda: tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS), 5, 1)
-        library_ms = cuda_ms(library, 5, 1)
+            lambda: tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS),
+            iters, warmup)
+        library_ms = cuda_ms(library, iters, warmup)
         algorithm_flops = tk.factor_flops(shape, r0, r1, sweeps=SWEEPS)
         flops = k1_flops(shape, r0, r1) if k == 1 else algorithm_flops
         nbytes = 4 * (l * k * o * i + l * o * r0 + l * i * r1)
@@ -428,6 +465,8 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
         row = {"phase": "kernel", "name": "tucker2_factors_batched",
                "path": path, "shape_LKOI": list(shape), "ranks": [r0, r1],
                "plan": plan, **cluster,
+               "timed_by": ("single launches" if single else
+                            f"graphs of {timing.get('launches', 25)}"),
                "z_rel_err": z_rel, "z_rel_tol": Z_REL_TOL,
                "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
@@ -584,17 +623,22 @@ def check_full_rank_layer(dense, compressed) -> float:
     return rel
 
 
-def check_projection_quality(model, name: str, fmt: str, ratio: str):
+def check_projection_quality(model, name: str, fmt: str, ratio: str,
+                             kernel_z=None):
     """On the trained weights, the kernel route's Z must fit W as well as
-    the 'subspace' route's (the JAX package's criterion, within 0.02)."""
+    the 'subspace' route's (the JAX package's criterion, within 0.02).
+    `kernel_z`: the kernel route's Z of W, where the caller has it."""
     params = dict(model.named_parameters())
     program = build_program(params, get_rank_plan(name, fmt, ratio))
     state = admm_init(params, program)
     errs = {}
     for method in ("kernel", "subspace"):
-        new, _ = admm_update(params, state, program, update_u=False,
-                             method=method, n_iter=6)
-        num = sum(torch.sum((new.z[n] - params[n].detach()) ** 2)
+        if method == "kernel" and kernel_z is not None:
+            z = kernel_z
+        else:
+            z = admm_update(params, state, program, update_u=False,
+                            method=method, n_iter=6)[0].z
+        num = sum(torch.sum((z[n] - params[n].detach()) ** 2)
                   for n in program.names)
         den = sum(torch.sum(params[n].detach() ** 2) for n in program.names)
         errs[method] = (num / den).sqrt().item()
@@ -606,32 +650,37 @@ def check_projection_quality(model, name: str, fmt: str, ratio: str):
 def phase_zstep(seed: int, model: str, fmt: str, ratio: str,
                 launches_per_z_step: int):
     """One whole Z/U step of `model`'s plan on the card, kernel route,
-    from a seeded dense init: the Tucker-2 kernel must launch once a
-    bucket and the subspace kernel never; then the fit against the
-    'subspace' route's."""
+    from a seeded dense init: the Tucker-2 kernel (a TK or SVD plan) or the
+    subspace kernel (a TT plan) must launch once a bucket (a sweep step)
+    and the other kernel never; then the fit against the 'subspace'
+    route's."""
     t_start = time.perf_counter()
     dense = create_model(model, generator=torch.Generator().manual_seed(seed))
     dense.cuda()
     params = dict(dense.named_parameters())
     program = build_program(params, get_rank_plan(model, fmt, ratio))
     state = admm_init(params, program)
-    tk.tucker2_factors_batched.launches = 0
-    sk.dominant_left_subspace_batched.launches = 0
+    kernel, other_kernel = ((sk.dominant_left_subspace_batched,
+                             tk.tucker2_factors_batched) if fmt == "tt" else
+                            (tk.tucker2_factors_batched,
+                             sk.dominant_left_subspace_batched))
+    kernel.launches = other_kernel.launches = 0
     t0 = time.perf_counter()
     state, residuals = admm_update(params, state, program, update_u=True,
                                    method="kernel", n_iter=6)
     torch.cuda.synchronize()
     z_step_ms = 1000 * (time.perf_counter() - t0)
-    launches = tk.tucker2_factors_batched.launches
-    other = sk.dominant_left_subspace_batched.launches
+    launches, other = kernel.launches, other_kernel.launches
     if launches != launches_per_z_step or other != 0:
-        raise AssertionError(f"{model} {fmt}@{ratio}x Z-step: Tucker-2 "
-                             f"kernel launched {launches} times (expected "
-                             f"{launches_per_z_step}), the subspace kernel "
-                             f"{other}")
-    if not all(bool(torch.isfinite(state.z[n]).all()) for n in program.names):
+        raise AssertionError(f"{model} {fmt}@{ratio}x Z-step: the kernel "
+                             f"launched {launches} times (expected "
+                             f"{launches_per_z_step}), the other {other}")
+    if int(state.nonfinite) != 0 or not all(
+            bool(torch.isfinite(state.z[n]).all()) for n in program.names):
         raise AssertionError(f"{model} Z-step: non-finite Z")
-    proj = check_projection_quality(dense, model, fmt, ratio)
+    # from U = 0 the step's Z is the kernel route's projection of W
+    proj = check_projection_quality(dense, model, fmt, ratio,
+                                    kernel_z=state.z)
     emit({"phase": "zstep", "model": f"{model} {fmt}@{ratio}x",
           "buckets": len(program.groups), "layers": len(program.names),
           "kernel_launches": launches, "other_kernel_launches": other,
@@ -647,8 +696,10 @@ def phase_zstep(seed: int, model: str, fmt: str, ratio: str,
 # and deit_tt2, with the depth cut; DeiT-tiny TK@2x as deit_tt2;
 # MobileNetV2-CIFAR SVD@2x as RESULTS.md's mbv2_svd_r03 run, lr 0.05;
 # ResNet-50 TT@3x as `results/run_r50tt.sh`: ADMM at lr 0.1 with warmup
-# and clipping, fine-tune at lr 0.01), the kernel the Z-step must launch
-# and the one it must not
+# and clipping, fine-tune at lr 0.01; ImageNet MobileNetV2 SVD@2x at
+# ResNet-50's geometry with the JAX package's MobileNetV2 lr 0.05 and
+# fine-tune lr 0.01), the kernel the Z-step must launch and the one it
+# must not
 RESNET = dict(dense="resnet32", ratio_arg="3", dataset="synthetic-cifar10",
               synthetic_size=None, batch_size=256, opt="momentum", lr=0.1,
               input=(3, 32, 32), classes=10, full_rank_check=True)
@@ -689,6 +740,14 @@ PATHS = {
                 "params": R50_TT_PARAMS,
                 "kernel": sk.dominant_left_subspace_batched,
                 "other": tk.tucker2_factors_batched},
+    "mbv2_inet_svd": {**DEIT, "dense": "mobilenetv2", "ratio_arg": "2",
+                      "dataset": "synthetic-hard-imagenet", "batch_size": 256,
+                      "opt": "momentum", "lr": 0.05, "ft_lr": 0.01,
+                      "name": "mobilenetv2 svd@2x", "fmt": "svd",
+                      "model": "svdc_mobilenetv2", "ratio": 1.39,
+                      "params": MBV2_INET_PARAMS,
+                      "kernel": tk.tucker2_factors_batched,
+                      "other": sk.dominant_left_subspace_batched},
 }
 # the depth of every main path: bench.py runs 24 epochs of 196 (ResNet) or
 # 128 (DeiT) steps and the JAX package's fine-tune as many again
@@ -1386,6 +1445,74 @@ def _template_state(dense_sd, admm_kw):
                       admm=AdmmState(u=z, z=z), ema=None, rng={})
 
 
+# The Stiefel fine-tune: `stftkc_resnet32` from ResNet32 TK@3x's
+# decomposed weights, its 2-D first and last factors stepped by Riemannian
+# SGD (the 'stf' prefix picks it), the rest by SGD momentum, at CIFAR-10
+# geometry and batch 256.
+STIEFEL = dict(dense="resnet32", model="stftkc_resnet32", ratio_arg="3",
+               dataset="synthetic-cifar10", synthetic_size=2560,
+               batch_size=256, lr=0.1, steps=20)
+
+
+def _max_ortho_err(model) -> dict:
+    """name -> max |Q^T Q - I| of each 2-D first or last factor on its
+    tall side, in float64."""
+    out = {}
+    for name, p in model.named_parameters():
+        if name.endswith(("first_factor", "last_factor")) and p.dim() == 2:
+            q = p.detach().double()
+            q = q if q.shape[0] >= q.shape[1] else q.T
+            eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
+            out[name] = (q.T @ q - eye).abs().max().item()
+    return out
+
+
+def phase_stiefel(seed: int, card: str):
+    """The Stiefel fine-tune through `train_model`: ResNet32's seeded
+    weights decomposed at the TK@3x plan into `stftkc_resnet32`, then
+    STIEFEL['steps'] steps with Riemannian SGD on the factors; every
+    factor stays orthonormal (STIEFEL_TOL) and moves, losses finite."""
+    path = STIEFEL
+    t_start = time.perf_counter()
+    dense = create_model(path["dense"],
+                         generator=torch.Generator().manual_seed(seed))
+    plan = get_rank_plan(path["model"], "stftk", path["ratio_arg"])
+    sd = decompose_params(dense.cuda().state_dict(), plan)
+    cfg = TrainConfig(model=path["model"], ratio=path["ratio_arg"],
+                      dataset=path["dataset"],
+                      synthetic_size=path["synthetic_size"],
+                      batch_size=path["batch_size"], epochs=1,
+                      steps_per_epoch=path["steps"], opt="momentum",
+                      lr=path["lr"], smoothing=0.1, compute_dtype="bfloat16",
+                      seed=seed, device="cuda", print_fn=log)
+    start = create_model(path["model"], ratio=path["ratio_arg"])
+    start.load_state_dict(sd)
+    err_start = _max_ortho_err(start)
+    model, hist = train_model(cfg, init_state_dict=sd)
+    torch.cuda.synchronize()
+    err = _max_ortho_err(model)
+    if len(err) != 2 * len(plan.layers) or max(err.values()) >= STIEFEL_TOL:
+        raise AssertionError(f"Stiefel factors off the manifold: "
+                             f"{max(err.items(), key=lambda kv: kv[1])}")
+    moved = min((p.detach().cpu() - sd[n].cpu()).abs().max().item()
+                for n, p in model.named_parameters() if n in err)
+    if not moved > 0:
+        raise AssertionError("a Stiefel factor did not move")
+    losses = [h[k] for h in hist for k in ("train_loss", "test_loss")]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss in {losses}")
+    emit({"phase": "stiefel", "card": card, "model": path["model"],
+          "ratio_plan": path["ratio_arg"], "batch": path["batch_size"],
+          "lr": path["lr"], "steps": path["steps"],
+          "factors": len(err), "max_ortho_err_start": max(err_start.values()),
+          "max_ortho_err": max(err.values()), "ortho_tol": STIEFEL_TOL,
+          "min_factor_move": moved, "train_loss": hist[-1]["train_loss"],
+          "eval": {k: hist[-1][k] for k in hist[-1]
+                   if k.startswith("test_")},
+          "finetune_it_per_s": path["steps"] / hist[-1]["x_step_s"],
+          "wall_s": time.perf_counter() - t_start})
+
+
 # ms per Z-step of earlier CUDA versions of each kernel, as PERF.md
 # records them (NVIDIA H100 80GB HBM3, 700 W): printed on a line of their
 # own, labelled as recorded, apart from this run's measurements
@@ -1462,8 +1589,31 @@ def main() -> int:
     r56_plans = [tk.plan_name(*b[0][1:], *b[1:]) for b in buckets_r56]
     if r56_plans != ["resident"] * 10:
         raise AssertionError(f"ResNet56 TK buckets' plans: {r56_plans}")
+    # the zoo's plans: ImageNet MobileNetV2 SVD (the path) and TK, VGG16
+    # TK (`pre_logits.fc1` among them), DenseNet121 and DenseNet40 TK, and
+    # DeiT-tiny's automatic SVD plan (the svd_linear kind): (buckets, the
+    # count of each Tucker-2 plan)
+    zoo_tk = {}
+    for key, model, fmt, want in (
+            ("mbv2_inet_svd", "mobilenetv2", "svd",
+             {"resident": 4, "workspace": 11}),
+            ("mbv2_inet_tk", "mobilenetv2", "tk",
+             {"resident": 8, "streamed": 1, "workspace": 12}),
+            ("vgg16_tk", "vgg16", "tk", {"streamed": 1, "workspace": 8}),
+            ("densenet121_tk", "densenet121", "tk", {"workspace": 4}),
+            ("densenet40_tk", "densenet40", "tk",
+             {"resident": 10, "streamed": 6, "workspace": 22}),
+            ("deit_svd_auto", "deit_tiny_patch16_224", "svd",
+             {"workspace": 4})):
+        zoo_tk[key] = main_path_buckets(_program(fmt, model, "2"))
+        plans = [tk.plan_name(*b[0][1:], *b[1:]) for b in zoo_tk[key]]
+        if {p: plans.count(p) for p in set(plans)} != want:
+            raise AssertionError(f"{key} buckets' plans: {plans}")
+    if ((1, 49, 4096, 512), 256, 288) not in zoo_tk["vgg16_tk"]:
+        raise AssertionError("VGG16 TK@2x has no pre_logits.fc1 bucket")
     tk_shapes = [*buckets, *NEAR_CAP_BUCKETS, *buckets_deit_tk,
-                 *WS_EXTRA_BUCKETS, *buckets_mbv2, *buckets_r50, *buckets_r56]
+                 *WS_EXTRA_BUCKETS, *buckets_mbv2, *buckets_r50, *buckets_r56,
+                 *[b for bs in zoo_tk.values() for b in bs]]
     for shape, r0, r1 in tk_shapes:
         dims = (*shape[1:], r0, r1)
         if tk.block_plan_fits(*dims):
@@ -1506,8 +1656,14 @@ def main() -> int:
     if len(launches_r56_tt) != 18:  # 20 sweep steps, 2 of them full rank
         raise AssertionError(f"{len(launches_r56_tt)} ResNet56 TT launches, "
                              "not 18")
+    program_mbv2_tt = _program("tt", "mobilenetv2", "2")
+    launches_mbv2_tt = tt_launches(program_mbv2_tt)
+    if len(program_mbv2_tt.groups) != 21 or len(launches_mbv2_tt) != 21:
+        raise AssertionError(f"MobileNetV2 TT: {len(program_mbv2_tt.groups)}"
+                             f" buckets, {len(launches_mbv2_tt)} launches")
     for (l, rows, cols), r in [*launches_tt, *launches_deit, *launches_r50,
-                               *launches_deit_s, *launches_r56_tt]:
+                               *launches_deit_s, *launches_r56_tt,
+                               *launches_mbv2_tt]:
         if sk.block_plan_fits(rows, cols, r):
             planned = (sk_lib.subspace_smem_bytes(rows, cols, r), 0)
             want = (sk.smem_bytes(rows, cols, r), 0)
@@ -1565,7 +1721,10 @@ def main() -> int:
           "cluster_max_active_clusters": [
               plan_row(s, r) for s, r in launches_deit_s],
           "r56_tt_launches_shape_r_plan_smem_bytes": [
-              plan_row(s, r) for s, r in launches_r56_tt]})
+              plan_row(s, r) for s, r in launches_r56_tt],
+          "mbv2_inet_tt_launches_shape_r_plan_smem_bytes_ws_bytes_regions_"
+          "cluster_max_active_clusters": [
+              plan_row(s, r) for s, r in launches_mbv2_tt]})
 
     rows_tk = phase_kernel(args.seed, buckets, "resnet32 tk@3x")
     rows_deit_tk = phase_kernel(args.seed, buckets_deit_tk,
@@ -1595,6 +1754,34 @@ def main() -> int:
     launches_r56_tt_main = phase_exact_rank(args.seed, "resnet56", "tt", "3",
                                             "resnet56 tt@3x",
                                             len(launches_r56_tt))
+    # the zoo's kernel phases: every launch of each plan's Z-step against
+    # its plain version, then one whole Z/U step of the plan from a seeded
+    # dense init (its launches counted)
+    zoo_names = {"mbv2_inet_tk": "mobilenetv2 tk@2x",
+                 "vgg16_tk": "vgg16 tk@2x",
+                 "densenet121_tk": "densenet121 tk@2x",
+                 "densenet40_tk": "densenet40 tk@2x",
+                 "deit_svd_auto": "deit_tiny_patch16_224 svd@2x (auto)"}
+    rows_zoo, launches_zoo = {}, {}
+    rows_zoo["mbv2_inet_svd"] = phase_kernel(
+        args.seed, zoo_tk["mbv2_inet_svd"], PATHS["mbv2_inet_svd"]["name"],
+        extra=(), svd=True)
+    for key, (model, fmt) in (
+            ("mbv2_inet_tk", ("mobilenetv2", "tk")),
+            ("vgg16_tk", ("vgg16", "tk")),
+            ("densenet121_tk", ("densenet121", "tk")),
+            ("densenet40_tk", ("densenet40", "tk")),
+            ("deit_svd_auto", ("deit_tiny_patch16_224", "svd"))):
+        rows_zoo[key] = phase_kernel(args.seed, zoo_tk[key], zoo_names[key],
+                                     extra=(), svd=True)
+        launches_zoo[key] = phase_zstep(args.seed, model, fmt, "2",
+                                        len(zoo_tk[key]))
+    rows_mbv2_tt = phase_kernel_tt(args.seed, launches_mbv2_tt,
+                                   program_mbv2_tt, "mobilenetv2 tt@2x",
+                                   near_cap=())
+    launches_mbv2_tt_z = phase_zstep(args.seed, "mobilenetv2", "tt", "2",
+                                     len(launches_mbv2_tt))
+    phase_stiefel(args.seed, smi)
     with tempfile.TemporaryDirectory() as workdir:
         launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
                                       workdir)
@@ -1612,6 +1799,9 @@ def main() -> int:
                                                 len(launches_deit_s), workdir)
         launches_r56_main = phase_r56(args.seed, smi, len(buckets_r56),
                                       workdir)
+        launches_mbv2_inet_main = phase_main(
+            args.seed, smi, "mbv2_inet_svd", len(zoo_tk["mbv2_inet_svd"]),
+            workdir)
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
@@ -1643,7 +1833,16 @@ def main() -> int:
              "library_ms"),
             ("tucker2_factors_batched@r56_tk3", R56["name"],
              launches_r56_main, rows_r56, src + "tucker2_factors.cu",
-             hosvd_key)):
+             hosvd_key),
+            ("tucker2_factors_batched@mbv2_inet_svd2",
+             PATHS["mbv2_inet_svd"]["name"], launches_mbv2_inet_main,
+             rows_zoo["mbv2_inet_svd"],
+             f"{src}tucker2_factors.cu, {src}tucker2_factors_ws.cu",
+             "library_ms_batched_svd"),
+            *[(f"tucker2_factors_batched@{key}", zoo_names[key],
+               launches_zoo[key], rows_zoo[key],
+               f"{src}tucker2_factors.cu, {src}tucker2_factors_ws.cu",
+               "library_ms") for key in zoo_names]):
         one = kernel_summary(name, path, source,
                              ref + "tucker_kernel.py:142", n, rows,
                              library_key)
@@ -1663,7 +1862,10 @@ def main() -> int:
              launches_deit_s_main, rows_deit_s,
              f"{src}subspace.cu, {src}subspace_ws.cu"),
             ("dominant_left_subspace_batched@r56_tt3", "resnet56 tt@3x",
-             launches_r56_tt_main, rows_r56_tt, src + "subspace.cu")):
+             launches_r56_tt_main, rows_r56_tt, src + "subspace.cu"),
+            ("dominant_left_subspace_batched@mbv2_inet_tt2",
+             "mobilenetv2 tt@2x", launches_mbv2_tt_z, rows_mbv2_tt,
+             f"{src}subspace.cu, {src}subspace_ws.cu")):
         one = kernel_summary(name, path, source,
                              ref + "subspace_kernel.py:85", n, rows,
                              "library_ms_batched_svd")

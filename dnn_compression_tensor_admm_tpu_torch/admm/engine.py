@@ -9,8 +9,8 @@
 The plan's layers are bucketed by (kind, spec, shape); each bucket is
 stacked into one [L, ...] tensor and projected at once. With
 method='kernel' a Tucker-2 bucket (conv, or linear as K = 1) and a plain
-SVD bucket of 1x1 convs (as K = 1 at r0 = r1 = min(rank, O, I): the
-top-r left and right singular subspaces give the truncated SVD) go
+SVD bucket of 1x1 convs or linears (as K = 1 at r0 = r1 = min(rank, O,
+I): the top-r left and right singular subspaces give the truncated SVD) go
 through the CUDA factor kernel (`ops/cuda/tucker_kernel.py`), and a TT
 bucket through the batched TT-SVD sweep on the CUDA subspace kernel
 (`ops/cuda/subspace_kernel.py`). On the card a bucket that a kernel's
@@ -22,7 +22,7 @@ SVD layer by exact SVD whatever the method, as the JAX package does).
 U and Z are stored in each parameter's own layout (OIHW for convs,
 [out, in] for linears); a TT projection works on the [O, kh*kw, I] view
 of a conv and on the weight itself for a linear, an SVD one on a 1x1
-conv's [O, I] view.
+conv's [O, I] view or a linear's weight.
 """
 
 from __future__ import annotations
@@ -83,8 +83,10 @@ def _classify(spec, w: torch.Tensor) -> str:
             raise ValueError("an SVD projection targets 1x1 convs, not "
                              f"{tuple(w.shape)}")
         return "svd_conv"
-    raise NotImplementedError(f"{type(spec).__name__} on a {w.dim()}-d weight "
-                              "is not ported yet")
+    if isinstance(spec, SVDSpec) and w.dim() == 2:
+        return "svd_linear"
+    raise TypeError(f"{type(spec).__name__} does not apply to a "
+                    f"{w.dim()}-d weight")
 
 
 def build_program(params: Mapping[str, torch.Tensor],
@@ -131,7 +133,8 @@ def _project_one(g: _Group, w: torch.Tensor, *, method: str,
         t = w.permute(0, 2, 3, 1).reshape(o, kh * kw, i)
         z = tt_project(t, g.spec.tt_shapes, g.spec.tt_ranks, method=method)
         return z.reshape(o, kh, kw, i).permute(0, 3, 1, 2)
-    if g.kind == "svd_conv":  # exact SVD whatever the method, as in JAX
+    # an SVD layer by exact SVD whatever the method, as in JAX
+    if g.kind in ("svd_conv", "svd_linear"):
         return svd_project(w.reshape(w.shape[:2]), g.spec.rank).reshape(
             w.shape)
     sp = g.spec.clamped(w.shape)  # tk_conv and tk_linear: [O, I, ...]
@@ -142,7 +145,7 @@ def _project_one(g: _Group, w: torch.Tensor, *, method: str,
 def tk_ranks(spec, shape) -> TKSpec:
     """The Tucker-2 ranks (r0, r1) that the kernel route solves a layer of
     logical shape [O, I, ...] at: a TKSpec clamped to the shape, and an
-    SVD 1x1 conv as K = 1 at r0 = r1 = min(rank, O, I)."""
+    SVD 1x1 conv or linear as K = 1 at r0 = r1 = min(rank, O, I)."""
     if isinstance(spec, SVDSpec):
         spec = TKSpec(spec.rank, spec.rank)
     return spec.clamped(shape)
@@ -151,7 +154,8 @@ def tk_ranks(spec, shape) -> TKSpec:
 def _project_group_kernel(g: _Group, ts: torch.Tensor,
                           n_iter: int) -> Optional[torch.Tensor]:
     """Kernel Z-step for one bucket ts [L, O, I, kh, kw] or [L, out, in]
-    (a Tucker-2 linear, and an SVD 1x1 conv at r0 = r1, as K = 1).
+    (a Tucker-2 linear, and an SVD 1x1 conv or linear at r0 = r1, as
+    K = 1).
     Where the kernel's gate refuses the bucket: None for CPU tensors (the
     caller goes layer by layer), and ValueError on any other device."""
     l = ts.shape[0]
@@ -163,7 +167,7 @@ def _project_group_kernel(g: _Group, ts: torch.Tensor,
             z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
                                         sweeps=max(1, n_iter // 3))
             return z.reshape(l, kh, kw, o, i).permute(0, 3, 4, 1, 2)
-    elif g.kind == "tk_linear":
+    elif g.kind in ("tk_linear", "svd_linear"):
         _, o, i = ts.shape
         sp = tk_ranks(g.spec, (o, i))
         x = ts[:, None].contiguous()  # [L, 1, O, I]

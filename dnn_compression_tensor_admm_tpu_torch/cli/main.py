@@ -1,10 +1,12 @@
 """Command line: the JAX package's `cli/main.py` surface for the port's
-slices (ResNet-20/32/56 with Tucker-2 or Tensor-Train, and
-MobileNetV2-CIFAR with plain SVD or Tucker-2, on CIFAR-10/100 files or
-synthetic CIFAR geometry; DeiT-tiny with
-Tensor-Train or Tucker-2, DeiT-small and ViT-small with Tensor-Train, and
-ImageNet ResNet-18/34/50 with Tensor-Train or Tucker-2, on synthetic
-ImageNet geometry).
+model zoo (ResNet-20/32/56, MobileNetV2-CIFAR and DenseNet-40/100 on
+CIFAR-10/100 files or synthetic CIFAR geometry; DeiT-tiny, DeiT-small,
+ViT-small, ImageNet ResNet-18/34/50, MobileNetV2, VGG16(-BN) and
+DenseNet-121/201/264 on synthetic ImageNet geometry), each dense or under
+the prefix of its format: `tt{m,r,c}_`, `tk{m,r,c}_`, `svd{m,r,c}_` and
+the Stiefel Tucker-2 `stftkc_` (its factors kept orthonormal by
+Riemannian SGD). `--ratio` picks a reference table where one exists;
+any other number above 1 takes the automatic rank plan.
 
 Pipeline modes:
   (default)     train (dense baseline, or ADMM with --admm)
@@ -34,16 +36,14 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Tensor-decomposition ADMM compression (PyTorch/CUDA)")
     p.add_argument("--model", default="resnet32", type=str,
-                   help="resnet20 | resnet32 | resnet56 | tkc_resnet32 | "
-                        "ttm_resnet32 | tkc_resnet56 | ttm_resnet56 | "
-                        "mobilenetv2_cifar | svdc_mobilenetv2_cifar | "
-                        "tkc_mobilenetv2_cifar | deit_tiny_patch16_224 | "
-                        "ttm_deit_tiny_patch16_224 | tkc_deit_tiny_patch16_224 "
-                        "| deit_small_patch16_224 | ttm_deit_small_patch16_224 "
-                        "| vit_small_patch16_224 | ttm_vit_small_patch16_224 "
-                        "| resnet18 | resnet34 | resnet50 | ttm_resnet50 | "
-                        "tkc_resnet50 | ttm_resnet18 | tkc_resnet18 (the "
-                        "ImageNet ResNets)")
+                   help="a dense name (resnet20|32|56, mobilenetv2_cifar, "
+                        "densenet40|100, deit_tiny_patch16_224, "
+                        "deit_small_patch16_224, vit_small_patch16_224, "
+                        "resnet18|34|50, mobilenetv2, vgg16, vgg16_bn, "
+                        "densenet121|201|264) or one with a format prefix: "
+                        "ttm_|ttr_|ttc_, tkm_|tkc_|tkr_, svdm_|svdc_|svdr_, "
+                        "stftkc_ (e.g. tkc_resnet32, svdc_mobilenetv2, "
+                        "stftkc_resnet32)")
     p.add_argument("--dataset", default="synthetic-cifar10", type=str,
                    help="cifar10 | cifar100 | mnist (files in --data-dir) | "
                         "synthetic-cifar10 | synthetic-hard-cifar10 | "
@@ -80,7 +80,9 @@ def parse_args(argv=None):
     p.add_argument("--format", dest="fmt", default="tk",
                    choices=["tk", "tt", "svd"],
                    help="rank format of the ADMM plan")
-    p.add_argument("--ratio", default="2", type=str)
+    p.add_argument("--ratio", default="2", type=str,
+                   help="the rank table's ratio (e.g. 2, 3, sc); another "
+                        "number above 1 takes the automatic rank plan")
     p.add_argument("--tt-type", default="general",
                    choices=["general", "special"])
     p.add_argument("--admm-method", default="kernel",

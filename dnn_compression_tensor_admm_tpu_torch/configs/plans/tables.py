@@ -1,15 +1,13 @@
 """Build RankPlans from the reference rank tables.
 
-`reference_hp.json` here is a copy of the ResNet32 Tucker-2 entries, the
-DeiT-tiny and MobileNetV2-CIFAR Tucker-2 2x entries, the ResNet32
-Tensor-Train 3x entry, the DeiT-tiny Tensor-Train 2x entry, the
-MobileNetV2-CIFAR plain-SVD 2x entry, and the ImageNet ResNet entries
-(ResNet-50 Tucker-2 3x and Tensor-Train 3x general and special, ResNet-18
-Tucker-2 2x and Tensor-Train 2x general and special) of the JAX package's
-`configs/plans/reference_hp.json`. TK entries are
-``[out_rank, in_rank]``, TT entries a TT rank list beside their
-``tt_shapes``, SVD entries one rank; a rank list of length 1 means plain
-SVD.
+`reference_hp.json` here is a copy of every table of the JAX package's
+`configs/plans/reference_hp.json`, value for value (TK, TT and SVD, for
+the CIFAR and ImageNet ResNets, MobileNetV2 and MobileNetV2-CIFAR, VGG16,
+the DenseNets and the ViTs). TK entries are ``[out_rank, in_rank]``, TT
+entries a TT rank list beside their ``tt_shapes``, SVD entries one rank;
+a rank list of length 1 means plain SVD. A model whose table is missing
+at a numeric ratio takes the automatic plan (`configs/auto_plan.py`,
+through the resolver).
 """
 
 from __future__ import annotations

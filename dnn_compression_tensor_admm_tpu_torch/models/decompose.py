@@ -13,7 +13,8 @@ import torch
 from torch import nn
 
 from ..configs.hp import RankPlan, SVDSpec, TKSpec, TTConvSpec, TTLinearSpec
-from ..layers import SVDConv2d, TKConv2d, TKLinear, TTConv2d, TTLinear
+from ..layers import (SVDConv2d, SVDLinear, TKConv2d, TKLinear, TTConv2d,
+                      TTLinear)
 from ..ops.precision import full_f32
 
 
@@ -45,10 +46,11 @@ def decompose_params(state_dict: Dict[str, torch.Tensor], plan: RankPlan, *,
                                                    n_iter=n_iter, method=method)
             elif isinstance(spec, SVDSpec) and w.dim() == 4:
                 factors = SVDConv2d.factorize_dense(w.float(), spec)
+            elif isinstance(spec, SVDSpec) and w.dim() == 2:
+                factors = SVDLinear.factorize_dense(w.float(), spec)
             else:
-                raise NotImplementedError(
-                    f"{type(spec).__name__} on a {w.dim()}-d weight is not "
-                    f"ported yet ({name})")
+                raise TypeError(f"{type(spec).__name__} does not apply to a "
+                                f"{w.dim()}-d weight ({name})")
         out.update({prefix + k: v for k, v in factors.items()})
     return out
 

@@ -1,6 +1,6 @@
 """Layer substitution: a dense conv or linear, or the factorized layer a
-RankPlan prescribes for its canonical parameter name (TT, Tucker-2, or for
-a conv plain SVD)."""
+RankPlan prescribes for its canonical parameter name (TT, Tucker-2 or
+plain SVD)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ import torch
 from torch import nn
 
 from ..configs.hp import RankPlan, SVDSpec, TKSpec, TTConvSpec, TTLinearSpec
-from ..layers import SVDConv2d, TKConv2d, TKLinear, TTConv2d, TTLinear
+from ..layers import (SVDConv2d, SVDLinear, TKConv2d, TKLinear, TTConv2d,
+                      TTLinear)
 
 
 def kaiming_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -54,8 +55,8 @@ def make_conv(in_ch: int, out_ch: int, kernel_size: int, *, stride=1,
 def make_linear(in_f: int, out_f: int, *, plan: Optional[RankPlan], mode: str,
                 key: str, bias: bool = True,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    """A dense linear (He-normal on fan-in, zero bias), or the TT or
-    Tucker-2 linear the plan prescribes for `key`
+    """A dense linear (He-normal on fan-in, zero bias), or the TT, Tucker-2
+    or SVD linear the plan prescribes for `key`
     ('blocks.0.attn.qkv.weight')."""
     spec = plan.spec(key) if plan is not None else None
     if spec is None:
@@ -72,5 +73,8 @@ def make_linear(in_f: int, out_f: int, *, plan: Optional[RankPlan], mode: str,
         tk_mode = "reconstruct" if mode == "reconstruct" else "chain"
         return TKLinear(in_f, out_f, spec, bias=bias, mode=tk_mode,
                         generator=generator)
-    raise NotImplementedError(
-        f"{type(spec).__name__} linears are not ported yet ({key})")
+    if isinstance(spec, SVDSpec):
+        svd_mode = "reconstruct" if mode == "reconstruct" else "chain"
+        return SVDLinear(in_f, out_f, spec, bias=bias, mode=svd_mode,
+                         generator=generator)
+    raise TypeError(f"bad linear spec for {key}: {type(spec).__name__}")

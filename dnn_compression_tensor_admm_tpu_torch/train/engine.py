@@ -43,7 +43,7 @@ from ..data.device_pipeline import (augment_batch, batch_at, normalize,
 from ..models import create_model, parse_compressed_name
 from ..utils.device import resolve_device
 from .losses import DISTILLATION_TYPES, cross_entropy, distillation_loss
-from .optim import make_optimizer, make_schedule
+from .optim import make_schedule, make_train_optimizer
 from .state import TrainState, load_train_state, save_train_state
 
 
@@ -231,8 +231,11 @@ def train_model(cfg: TrainConfig, *,
     schedule = make_schedule(cfg.sched, cfg.lr, cfg.epochs, steps,
                              cfg.warmup_epochs, cfg.min_lr, cfg.decay_epochs,
                              cfg.decay_rate)
-    opt = make_optimizer(model.parameters(), cfg.lr, opt=cfg.opt,
-                         momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    # a Stiefel model ('stf*', the JAX package's rule) keeps its factors
+    # on the manifold; the clip covers the other parameters
+    opt, clipped = make_train_optimizer(
+        model.named_parameters(), cfg.lr, opt=cfg.opt, momentum=cfg.momentum,
+        weight_decay=cfg.weight_decay, stiefel=cfg.model.startswith("stf"))
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     teacher = _make_teacher(cfg, num_classes, device)
     # a copy of its own: the shadow never aliases the parameters
@@ -329,8 +332,7 @@ def train_model(cfg: TrainConfig, *,
             opt.zero_grad(set_to_none=True)
             loss.backward()
             if cfg.clip_grad is not None:
-                torch.nn.utils.clip_grad_norm_(model.parameters(),
-                                               cfg.clip_grad)
+                torch.nn.utils.clip_grad_norm_(clipped, cfg.clip_grad)
             opt.step()
             if ema is not None:  # e <- d e + (1 - d) p, each product rounded
                 with torch.no_grad():

@@ -16,6 +16,11 @@ sees the gradient of the loss (penalty included) before any decay: the
 train loop runs torch's `clip_grad_norm_` on every parameter before
 `opt.step()`, which adds the decay (torch divides by the norm + 1e-6,
 optax by the norm).
+
+The Stiefel models ('stftkc_*') keep their 2-D first and last factors
+orthonormal with `RiemannianSGD` (the JAX package's `riemannian_sgd`, the
+reference's geoopt RiemannianSGD) beside the base optimizer on the rest
+(`make_train_optimizer`).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import math
 from typing import Callable, Iterable
 
 import torch
+
+from ..ops.precision import full_f32
 
 OPTIMIZERS = ("momentum", "adamw", "sgd", "adam")
 SCHEDULES = ("cosine", "step", "constant")
@@ -105,3 +112,109 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, *,
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=0.0)
     raise ValueError(f"unknown optimizer {opt!r}; choose from {OPTIMIZERS}")
+
+
+# --- Riemannian SGD on the Stiefel manifold (the 'stf*' models) -----------
+
+STIEFEL_SUFFIXES = ("first_factor", "last_factor")
+
+
+def is_stiefel(name: str, p: torch.Tensor) -> bool:
+    """A 2-D first or last factor: kept orthonormal on its manifold."""
+    return name.endswith(STIEFEL_SUFFIXES) and p.dim() == 2
+
+
+def tangent_project(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient g projected onto the Stiefel manifold's tangent space
+    at w (canonical metric): g - w sym(w^T g), on the tall side (a wide
+    factor through its transpose)."""
+    tall = w.shape[0] >= w.shape[1]
+    a, ga = (w, g) if tall else (w.T, g.T)
+    wtg = a.T @ ga
+    t = ga - a @ (0.5 * (wtg + wtg.T))
+    return t if tall else t.T
+
+
+def retract(w: torch.Tensor) -> torch.Tensor:
+    """QR retraction onto the manifold, on the tall side, with the sign of
+    R's diagonal moved into Q (a zero counts as +1)."""
+    tall = w.shape[0] >= w.shape[1]
+    q, r = torch.linalg.qr(w if tall else w.T)
+    d = torch.sign(torch.diagonal(r))
+    q = q * torch.where(d == 0, torch.ones_like(d), d)[None, :]
+    return q if tall else q.T
+
+
+class RiemannianSGD(torch.optim.Optimizer):
+    """The JAX package's `riemannian_sgd`: the tangent-projected gradient
+    into a momentum buffer (which starts at the first one), then
+    w <- w + (retract(w - lr * m) - w). No weight decay."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9):
+        super().__init__(params, {"lr": lr, "momentum": momentum})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        with full_f32():
+            for group in self.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        continue
+                    rg = tangent_project(p, p.grad)
+                    state = self.state[p]
+                    buf = state.get("momentum_buffer")
+                    if buf is None:
+                        state["momentum_buffer"] = buf = rg.clone()
+                    else:
+                        buf.mul_(group["momentum"]).add_(rg)
+                    p.add_(retract(p - group["lr"] * buf) - p)
+
+
+class WithStiefel:
+    """A base optimizer on every other parameter and `RiemannianSGD` on the
+    Stiefel factors, as the JAX package's `optax.multi_transform` routes
+    them. `param_groups` holds both's groups, so the per-step lr reaches
+    both; the state dict holds both's."""
+
+    def __init__(self, base: torch.optim.Optimizer,
+                 stiefel: RiemannianSGD):
+        self.base, self.stiefel = base, stiefel
+
+    @property
+    def param_groups(self):
+        return self.base.param_groups + self.stiefel.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.base.zero_grad(set_to_none=set_to_none)
+        self.stiefel.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        self.base.step()
+        self.stiefel.step()
+
+    def state_dict(self) -> dict:
+        return {"base": self.base.state_dict(),
+                "stiefel": self.stiefel.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.base.load_state_dict(state["base"])
+        self.stiefel.load_state_dict(state["stiefel"])
+
+
+def make_train_optimizer(named_params, lr: float, *, opt: str = "momentum",
+                         momentum: float = 0.9, weight_decay: float = 1e-4,
+                         stiefel: bool = False):
+    """(optimizer, the parameters a clip by global norm covers). With
+    `stiefel` the 2-D first and last factors take `RiemannianSGD` (same
+    lr schedule and momentum, no weight decay, no clip: in the JAX package
+    the clip sits inside the base branch of the multi-transform, so its
+    norm covers the other parameters only); the rest takes `opt`."""
+    named = list(named_params)
+    on_manifold = [p for n, p in named if stiefel and is_stiefel(n, p)]
+    base = [p for n, p in named if not (stiefel and is_stiefel(n, p))]
+    optimizer = make_optimizer(base, lr, opt=opt, momentum=momentum,
+                               weight_decay=weight_decay)
+    if on_manifold:
+        optimizer = WithStiefel(optimizer,
+                                RiemannianSGD(on_manifold, lr, momentum))
+    return optimizer, base

@@ -22,14 +22,18 @@ The JAX variables are given as nested dicts of numpy arrays
   TT linear's ``core_i`` keep their layout.
 
 Flax module names may hold a dot ('layer1.0', 'bottlenecks.16',
-'patch_embed.proj', 'mlp.fc1', and inside an ImageNet ResNet block
-'downsample.0' (its conv) and 'downsample.1' (its BN)); on the way back a
-purely numeric name part is joined to the part before it, and the ViT's
-dotted module names are joined whole.
+'patch_embed.proj', 'mlp.fc1', inside an ImageNet ResNet block
+'downsample.0' (its conv) and 'downsample.1' (its BN), MobileNetV2's
+'features.3' and 'conv.6', VGG's 'features.28' and 'pre_logits.fc1', the
+DenseNets' 'block2.layer.7', 'trans1.bn1' and
+'features.denseblock3.denselayer12'); on the way back a purely numeric name
+part is joined to the part before it, and the other dotted module names
+are joined whole.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -75,17 +79,32 @@ def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     return out
 
 
-# flax module names of the ViT that hold a dot without a number
-_DOTTED = ("patch_embed.proj", "mlp.fc1", "mlp.fc2")
+# flax module names with dots that joining numeric parts alone does not
+# rebuild: the ViT's, VGG's `pre_logits` and head, the CIFAR DenseNet's
+# layers and transitions, the ImageNet DenseNet's `features.*` modules
+_DOTTED = re.compile(
+    r"patch_embed\.proj|mlp\.fc[12]|pre_logits\.fc[12]|head\.fc"
+    r"|block\d+\.layer\.\d+|trans\d+\.(?:bn1|conv1)"
+    r"|features\.(?:conv0|norm0|norm5|denseblock\d+\.denselayer\d+"
+    r"|transition\d+\.(?:norm|conv))")
 
 
 def _jax_path(name: str):
     parts = []
-    for p in name.split("."):
-        if parts and (p.isdigit() or f"{parts[-1]}.{p}" in _DOTTED):
-            parts[-1] = f"{parts[-1]}.{p}"
+    rest = name.split(".")
+    while rest:
+        # the longest dotted flax module name that starts here
+        for j in range(len(rest) - 1, 1, -1):
+            if _DOTTED.fullmatch(".".join(rest[:j])):
+                parts.append(".".join(rest[:j]))
+                rest = rest[j:]
+                break
         else:
-            parts.append(p)
+            p = rest.pop(0)
+            if parts and p.isdigit():
+                parts[-1] = f"{parts[-1]}.{p}"
+            else:
+                parts.append(p)
     return parts
 
 

@@ -30,5 +30,9 @@ def test_resnet32_tk3_plan_shape():
 
 
 def test_unknown_plan_raises():
+    # a numeric ratio without a table takes the automatic plan (as in the
+    # JAX package); a name that is no ratio, or an unknown model, raises
     with pytest.raises(KeyError):
-        get_rank_plan("resnet32", "tk", "7")
+        get_rank_plan("resnet32", "tk", "sc")
+    with pytest.raises(KeyError):
+        get_rank_plan("no_such_net", "tk", "7")
