@@ -98,7 +98,22 @@ prints one JSON line per phase:
    weights; then ImageNet MobileNetV2 plain SVD @2x at full width, 224 x
    224, 1000 classes and batch 256 with SGD momentum at lr 0.05 (its 29
    1x1 convs in 15 Tucker-2 launches a Z-step; 3,504,872 / 2,514,184
-   parameters and 1.39x asserted), fine-tuned at lr 0.01.
+   parameters and 1.39x asserted), fine-tuned at lr 0.01; last DeiT-tiny
+   Tensor-Train @2x as `run.sh`'s `deit-tiny-tt-admm` runs it, through
+   the CLI (`phase_deit_recipe`): `synthetic-imagenet` written as DCTA
+   shards (512 train, 128 val images) by the port's `write_shards`, ADMM
+   streamed from them by the native loader (4 threads, pinned buffers,
+   two batches in flight) with AdamW lr 5e-4, a cosine after a one-epoch
+   warmup, Mixup 0.8, CutMix 1.0 and smoothing 0.1, the first epoch
+   traced (`--profile-dir`: the device's idle share and its ten longest
+   ops are printed) and `--save-model`; then `--decompose` of that
+   msgpack (1.88x asserted) and 20 fine-tune steps from the shards read
+   whole (`--shard-cache hbm`) with RandAugment m9, RandomErasing 0.25
+   and 3 repeated views over a shuffled copy, eval on the val shards and
+   `--flops`; 99 subspace launches asserted (33 a Z-step), every step's
+   batch of the config's shapes and the shards' labels, each mixed target
+   row summing to 1 within MIX_ROW_TOL. Every synthetic CIFAR set is made
+   once and shared by the CIFAR phases (`shared_cifar_sets`).
 
 Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
@@ -1516,6 +1531,273 @@ def phase_stiefel(seed: int, card: str):
 # ms per Z-step of earlier CUDA versions of each kernel, as PERF.md
 # records them (NVIDIA H100 80GB HBM3, 700 W): printed on a line of their
 # own, labelled as recorded, apart from this run's measurements
+# DeiT-tiny TT@2x as `run.sh`'s `deit-tiny-tt-admm` runs it: AdamW lr
+# 5e-4, cosine after a warmup, Mixup 0.8 and CutMix 1.0, the train set
+# streamed from DCTA shards by the native loader; here with smoothing 0.1
+# and the same msgpack chained into `--decompose`, whose fine-tune adds the
+# DeiT recipe's RandAugment, RandomErasing and repeated augmentation over
+# the shards read whole (`--shard-cache hbm`, `--sampling shuffle`). The
+# shards hold `synthetic-imagenet` at 512 train and 128 val images.
+DEIT_R = dict(dense="deit_tiny_patch16_224", model="ttm_deit_tiny_patch16_224",
+              name="deit_tiny_patch16_224 tt@2x (run.sh recipe)",
+              ratio_arg="2", ratio=1.88, dataset="synthetic-imagenet",
+              train_images=512, val_images=128, images_per_shard=128,
+              batch_size=128, epochs=2, steps_per_epoch=20, warmup_epochs=1,
+              lr=5e-4, ft_steps=20, loader_workers=4, input=(3, 224, 224),
+              classes=1000)
+CUT["deit_tt2_recipe"] = ("first projection + 2 ADMM epochs x 20 streamed "
+                          "steps (warmup 1 epoch, run.sh: 5 of 300), then "
+                          "20 fine-tune steps from the shards read whole")
+CUT["run_sh_deit_tiny_tt_admm"] = "300 ADMM epochs, warmup 5, batch 256"
+# every Mixup/CutMix target row is a probability vector: sums to 1 within
+# float32 rounding of 1,000 smoothed, mixed entries
+MIX_ROW_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def shared_cifar_sets():
+    """Makes each synthetic CIFAR set once for the whole run: the CIFAR
+    paths (ResNet32 TK and TT, MobileNetV2-CIFAR, ResNet56, the Stiefel
+    fine-tune) read the same bytes as when each made its own, without
+    making 50,000 images again (~75% of a ResNet32 path's wall time)."""
+    from dnn_compression_tensor_admm_tpu_torch.data import datasets
+    from dnn_compression_tensor_admm_tpu_torch.train import engine
+    made, original = {}, datasets.load_dataset
+
+    def load(name, train, synthetic_size=None, data_dir=None):
+        if not (name.startswith("synthetic-") and "cifar" in name):
+            return original(name, train, synthetic_size, data_dir)
+        key = (name, train, synthetic_size)
+        if key not in made:
+            made[key] = original(name, train, synthetic_size, data_dir)
+        return made[key]
+
+    owners = (datasets, engine, sys.modules[__name__])
+    for m in owners:
+        m.load_dataset = load
+    try:
+        yield made
+    finally:
+        for m in owners:
+            m.load_dataset = original
+
+
+@contextlib.contextmanager
+def observed_mixing():
+    """Records what reaches Mixup/CutMix in the engine, a step at a time:
+    the images' shape, the labels and the targets' worst row sum (kept on
+    the card; read after the block)."""
+    from dnn_compression_tensor_admm_tpu_torch.train import engine
+    seen = {"shapes": set(), "labels": [], "row_err": []}
+    original = engine.mixup_cutmix
+
+    def mixing(x, labels, draws, **kw):
+        out, target = original(x, labels, draws, **kw)
+        seen["shapes"].add((tuple(x.shape), tuple(labels.shape),
+                            tuple(target.shape)))
+        seen["labels"].append(labels)
+        seen["row_err"].append((target.sum(-1) - 1).abs().max())
+        return out, target
+
+    engine.mixup_cutmix = mixing
+    try:
+        yield seen
+    finally:
+        engine.mixup_cutmix = original
+
+
+def check_mixed_batches(seen, steps: int, shard_labels) -> dict:
+    """Each step's batch has the config's shapes, its labels come from
+    the shards, and its mixed targets' rows sum to 1."""
+    b, classes = DEIT_R["batch_size"], DEIT_R["classes"]
+    want = {((b, *DEIT_R["input"]), (b,), (b, classes))}
+    if len(seen["labels"]) != steps or seen["shapes"] != want:
+        raise AssertionError(f"{len(seen['labels'])} mixed batches of "
+                             f"{seen['shapes']}, expected {steps} of {want}")
+    labels = set(torch.cat(seen["labels"]).unique().tolist())
+    if not labels <= shard_labels:
+        raise AssertionError(f"labels {sorted(labels - shard_labels)[:5]} "
+                             "are not in the shards")
+    row_err = torch.stack(seen["row_err"]).max().item()
+    if not row_err < MIX_ROW_TOL:
+        raise AssertionError(f"a mixed target row sums to 1 +- {row_err}")
+    return {"distinct_labels": len(labels), "max_row_sum_err": row_err}
+
+
+def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
+                      workdir: str):
+    """DeiT-tiny TT@2x through the CLI as `run.sh`'s recipe: shards
+    written by the port, ADMM streamed through the native loader with
+    `--profile-dir` and `--save-model`, then `--decompose` of that msgpack
+    and a fine-tune from the shards read whole, eval on the val shards,
+    and `--flops`."""
+    from dnn_compression_tensor_admm_tpu_torch.data.records import (
+        read_shard, write_shards)
+    from dnn_compression_tensor_admm_tpu_torch.utils.profiling import (
+        trace_summary)
+    path = DEIT_R
+    t_start = t0 = time.perf_counter()
+    shards = os.path.join(workdir, "deit_shards")
+    sets = {}
+    for train, prefix, n in ((True, "train", path["train_images"]),
+                             (False, "val", path["val_images"])):
+        x, y, _ = load_dataset(path["dataset"], train, n)
+        sets[prefix] = write_shards(x, y, shards, path["images_per_shard"],
+                                    prefix)
+        del x
+    shard_labels = set(np.concatenate(
+        [read_shard(p)[1] for p in sets["train"]]).tolist())
+    shards_s = time.perf_counter() - t0
+    shard_bytes = {k: sum(os.path.getsize(p) for p in v)
+                   for k, v in sets.items()}
+    def probe(cache, model=path["dense"], **extra) -> dict:
+        """One untraced epoch of the X-step, streamed (`cache` None) or
+        from the shards read whole, with the recipe's Mixup/CutMix and
+        `extra` settings: ms a step and the streamed route's loader
+        times."""
+        cfg = TrainConfig(model=model, dataset=path["dataset"],
+                          shard_dir=shards, shard_cache=cache, epochs=1,
+                          steps_per_epoch=path["steps_per_epoch"],
+                          batch_size=path["batch_size"], opt="adamw",
+                          lr=path["lr"], mixup=0.8, cutmix=1.0,
+                          smoothing=0.1, loader_workers=path["loader_workers"],
+                          fmt="tt", ratio=path["ratio_arg"],
+                          compute_dtype="bfloat16", seed=seed,
+                          device="cuda", print_fn=log, **extra)
+        row = train_model(cfg)[1][-1]
+        return {"ms_per_step": 1000 * row["x_step_s"] / cfg.steps_per_epoch,
+                **{k: row[k] for k in ("loader_host_ms_per_batch",
+                                       "loader_wait_ms_per_step")
+                   if k in row}}
+
+    # before any profiler runs in this process (a trace leaves the later
+    # steps of its process slower, PERF.md section 6): the dense model's
+    # X-step streamed and read whole, an ADMM epoch streamed (the traced
+    # epoch's workload) and the fine-tune's step (its model and
+    # augmentations, random weights); one dense probe again after the trace
+    probes = {"dense_streamed": probe(None), "dense_cached": probe("hbm"),
+              "admm_streamed": probe(None, admm=True),
+              "finetune_cached": probe(
+                  "hbm", model=path["model"], randaug_magnitude=9,
+                  randaug_std=0.5, erase_prob=0.25, repeated_aug=3,
+                  sampling="shuffle")}
+    out_dir = os.path.join(workdir, "deit_recipe_models")
+    profile_dir = os.path.join(workdir, "deit_recipe_profile")
+    common = ["--dataset", path["dataset"], "--shard-dir", shards,
+              "--batch-size", str(path["batch_size"]), "--opt", "adamw",
+              "--lr", str(path["lr"]), "--sched", "cosine",
+              "--mixup", "0.8", "--cutmix", "1.0", "--smoothing", "0.1",
+              "--seed", str(seed), "--output-dir", out_dir]
+    admm_argv = ["--model", path["dense"], "--admm", "--format", "tt",
+                 "--ratio", path["ratio_arg"], "--warmup-epochs",
+                 str(path["warmup_epochs"]), "--epochs", str(path["epochs"]),
+                 "--steps-per-epoch", str(path["steps_per_epoch"]),
+                 "--loader-workers", str(path["loader_workers"]),
+                 "--profile-dir", profile_dir, "--save-model", *common]
+    tk.tucker2_factors_batched.launches = 0
+    sk.dominant_left_subspace_batched.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr), observed_mixing() as seen:
+        dense, hist = cli_main(admm_argv)
+    torch.cuda.synchronize()
+    admm_s = time.perf_counter() - t0
+    launches = sk.dominant_left_subspace_batched.launches
+    other = tk.tucker2_factors_batched.launches
+    z_steps = 1 + path["epochs"]
+    if launches != z_steps * launches_per_z_step or other != 0:
+        raise AssertionError(
+            f"deit_tt2_recipe: subspace kernel launched {launches} times "
+            f"(expected {z_steps} Z-steps x {launches_per_z_step}), the "
+            f"Tucker-2 kernel {other}")
+    streamed = check_mixed_batches(
+        seen, path["epochs"] * path["steps_per_epoch"], shard_labels)
+    trace_path = hist[0].get("profile_trace")
+    if not trace_path or not os.path.getsize(trace_path):
+        raise AssertionError("no Chrome trace of the first epoch")
+    profile = trace_summary(trace_path, top=10)
+    if not profile["device_events"]:
+        raise AssertionError("the trace holds no device op")
+    busy_ms = profile["device_busy_ms"] / path["steps_per_epoch"]
+    (ckpt,) = [os.path.join(out_dir, f) for f in os.listdir(out_dir)
+               if f.endswith("_model.msgpack")]
+
+    ft_argv = ["--model", path["model"], "--ratio", path["ratio_arg"],
+               "--decompose", "--model-path", ckpt, "--shard-cache", "hbm",
+               "--aa", "rand-m9-mstd0.5", "--reprob", "0.25",
+               "--repeated-aug", "3", "--sampling", "shuffle",
+               "--epochs", "1", "--steps-per-epoch", str(path["ft_steps"]),
+               *common]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr), \
+            observed_mixing() as seen_ft:
+        ft, ft_hist = cli_main(ft_argv)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    cached = check_mixed_batches(seen_ft, path["ft_steps"], shard_labels)
+    ratio = compression_ratio(dense, ft)
+    if round(ratio, 2) != path["ratio"]:
+        raise AssertionError(f"compression {ratio}, expected {path['ratio']}")
+    with contextlib.redirect_stdout(sys.stderr):
+        flops = cli_main(["--model", path["model"], "--ratio",
+                          path["ratio_arg"], "--flops", "--dataset",
+                          path["dataset"]])
+    probes["dense_cached_after_trace"] = probe("hbm")
+    losses = ([h["train_loss"] for h in hist + ft_hist]
+              + [h["test_loss"] for h in hist + ft_hist])
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss in {losses}")
+    proj = check_projection_quality(dense, path["dense"], "tt",
+                                    path["ratio_arg"])
+    last, steps = hist[-1], path["steps_per_epoch"]
+    emit({"phase": "main", "card": card, "model": path["name"],
+          "batch": path["batch_size"], "optimizer": "adamw",
+          "lr": path["lr"], "warmup_epochs": path["warmup_epochs"],
+          "depth_cut": CUT["deit_tt2_recipe"],
+          "shards": {"train_images": path["train_images"],
+                     "val_images": path["val_images"],
+                     "bytes": shard_bytes, "write_s": shards_s},
+          "admm_epochs": path["epochs"], "steps_per_epoch": steps,
+          "z_steps": z_steps, "kernel_launches": launches,
+          "other_kernel_launches": other,
+          "launches_per_z_step": launches_per_z_step,
+          "probes": probes,
+          "admm_ms_per_step_streamed_profiled_epoch": (
+              1000 * hist[0]["x_step_s"] / steps),
+          "admm_ms_per_step_streamed_after_profile": (
+              1000 * last["x_step_s"] / steps),
+          "finetune_ms_per_step_cached_after_trace": (
+              1000 * ft_hist[-1]["x_step_s"] / path["ft_steps"]),
+          "loader_host_ms_per_batch": [h["loader_host_ms_per_batch"]
+                                       for h in hist],
+          "loader_wait_ms_per_step": [h["loader_wait_ms_per_step"]
+                                      for h in hist],
+          "z_step_ms": 1000 * last["z_step_s"],
+          "admm_wall_s": admm_s, "finetune_cli_s": ft_s,
+          "admm_train_loss": [h["train_loss"] for h in hist],
+          "admm_residual_total": [h["admm_residual_total"] for h in hist],
+          "streamed_batches": streamed, "cached_batches": cached,
+          "profile": {"trace": os.path.basename(trace_path),
+                      **{k: profile[k] for k in ("span_ms",
+                                                 "device_busy_ms",
+                                                 "idle_share",
+                                                 "device_events")},
+                      # the traced epoch's device time a step against an
+                      # untraced step of the same workload
+                      "device_busy_ms_per_step": busy_ms,
+                      "idle_share_of_untraced_step": 1 - busy_ms / (
+                          probes["admm_streamed"]["ms_per_step"]),
+                      "top_ops": profile["top_ops"]},
+          "compression_ratio": ratio,
+          "finetune_train_loss": ft_hist[-1]["train_loss"],
+          "eval_val_shards": {k: ft_hist[-1][f"test_{k}"]
+                              for k in ("acc1", "acc5", "loss")},
+          "flops": flops["flops"], "dense_flops": flops["dense_flops"],
+          "flop_ratio": flops["flop_ratio"], "params": flops["params"],
+          "projection_rel_err": proj,
+          "wall_s": time.perf_counter() - t_start})
+    return launches
+
+
 RECORDED_MS = {
     "first_version_ms_per_z_step": {"tucker2_factors_batched": 7.85,
                                     "dominant_left_subspace_batched": 15.13},
@@ -1781,8 +2063,10 @@ def main() -> int:
                                    near_cap=())
     launches_mbv2_tt_z = phase_zstep(args.seed, "mobilenetv2", "tt", "2",
                                      len(launches_mbv2_tt))
-    phase_stiefel(args.seed, smi)
-    with tempfile.TemporaryDirectory() as workdir:
+    # each synthetic CIFAR set made once for all the phases that read it
+    with shared_cifar_sets() as cifar_sets, \
+            tempfile.TemporaryDirectory() as workdir:
+        phase_stiefel(args.seed, smi)
         launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
                                       workdir)
         launches_tt_main = phase_main(args.seed, smi, "tt", len(launches_tt),
@@ -1802,6 +2086,9 @@ def main() -> int:
         launches_mbv2_inet_main = phase_main(
             args.seed, smi, "mbv2_inet_svd", len(zoo_tk["mbv2_inet_svd"]),
             workdir)
+        launches_deit_recipe = phase_deit_recipe(args.seed, smi,
+                                                 len(launches_deit), workdir)
+        emit({"phase": "shared_sets", "made": [list(k) for k in cifar_sets]})
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
@@ -1854,6 +2141,10 @@ def main() -> int:
              launches_tt_main, rows_tt, src + "subspace.cu"),
             ("dominant_left_subspace_batched@deit_tt2",
              "deit_tiny_patch16_224 tt@2x", launches_deit_main, rows_deit,
+             f"{src}subspace.cu, {src}subspace_ws.cu"),
+            # the run.sh recipe's path: the same 33 launches a Z-step
+            ("dominant_left_subspace_batched@deit_tt2_recipe", DEIT_R["name"],
+             launches_deit_recipe, rows_deit,
              f"{src}subspace.cu, {src}subspace_ws.cu"),
             ("dominant_left_subspace_batched@r50_tt3",
              PATHS["r50_tt3"]["name"], launches_r50_main, rows_r50,

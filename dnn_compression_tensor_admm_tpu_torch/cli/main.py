@@ -22,6 +22,18 @@ dicts (`.pt`); `--save-model` writes `{tag}_{ts}_model.msgpack` as the JAX
 package does, so its two-stage recipes chain (`--admm --save-model`, then
 `--decompose --model-path` of that file). `--checkpoint-dir` writes the
 whole train state after each epoch and `--resume` goes on from it.
+
+The ViT recipe's augmentations (`--mixup --cutmix --aa rand-m9-mstd0.5
+--reprob --repeated-aug`) and `--sampling` are the JAX CLI's. `--shard-dir`
+streams `train-*.dcta` shards (made with `data/records.py::write_shards`)
+through the native loader, which the port builds from
+`native/dataloader.cc` at first use, and evaluates on `val-*.dcta`;
+`--shard-cache hbm` reads them whole onto the device-resident route.
+`--flops` prints the model's FLOPs and parameters (and the dense model's
+beside a compressed one) and exits; `--profile-dir D` writes a
+`torch.profiler` Chrome trace of the first epoch's X-step to
+`D/trace.json` (the later epochs of that process run slower: trace a
+short run).
 """
 
 from __future__ import annotations
@@ -75,6 +87,22 @@ def parse_args(argv=None):
     p.add_argument("--clip-grad", default=None, type=float,
                    help="clip the gradients by this global norm")
     p.add_argument("--smoothing", default=0.0, type=float)
+    p.add_argument("--mixup", default=0.0, type=float,
+                   help="Mixup alpha (0 = off)")
+    p.add_argument("--cutmix", default=0.0, type=float,
+                   help="CutMix alpha (0 = off)")
+    p.add_argument("--aa", default=None, type=str, metavar="rand-mN-mstdS",
+                   help="RandAugment policy string (timm syntax, e.g. "
+                        "rand-m9-mstd0.5)")
+    p.add_argument("--reprob", default=0.0, type=float,
+                   help="RandomErasing probability")
+    p.add_argument("--repeated-aug", default=0, type=int,
+                   help="repeated-augmentation views per image (RASampler)")
+    p.add_argument("--sampling", default="perm",
+                   choices=["perm", "shuffle", "replacement"],
+                   help="'perm' gathers a slice of the epoch's permutation "
+                        "a step, 'shuffle' slices a shuffled copy (the same "
+                        "rows), 'replacement' samples uniformly a step")
     p.add_argument("--admm", action="store_true")
     p.add_argument("--rho", default=0.001, type=float)
     p.add_argument("--format", dest="fmt", default="tk",
@@ -128,6 +156,20 @@ def parse_args(argv=None):
                    help="write the whole train state after each epoch")
     p.add_argument("--verbose", action="store_true",
                    help="per-layer ADMM residual rows (reference --verbose)")
+    p.add_argument("--profile-dir", default=None, type=str,
+                   help="write a torch.profiler trace of the first epoch's "
+                        "X-step to DIR/trace.json (later epochs of the "
+                        "process run slower after it: trace a short run)")
+    p.add_argument("--shard-dir", default=None, type=str,
+                   help="directory of DCTA record shards (train-*.dcta / "
+                        "val-*.dcta) streamed by the native loader")
+    p.add_argument("--loader-workers", default=4, type=int,
+                   help="the native shard loader's threads")
+    p.add_argument("--shard-cache", default=None, choices=["hbm"],
+                   help="with --shard-dir: read the shards whole onto the "
+                        "device-resident route instead of streaming them")
+    p.add_argument("--flops", action="store_true",
+                   help="print the model's FLOPs and parameters and exit")
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -138,6 +180,7 @@ def main(argv=None):
 
 
     from ..configs.resolver import get_rank_plan
+    from ..data.augment import parse_randaugment
     from ..data.datasets import dataset_info, load_dataset
     from ..models import (compression_ratio, create_model, decompose_params,
                           parse_compressed_name)
@@ -154,6 +197,21 @@ def main(argv=None):
     num_classes = args.num_classes or info.num_classes
     compute_dtype = None if args.fp32 else "bfloat16"
     kw = {"ratio": args.ratio, "tt_type": args.tt_type} if compressed else {}
+
+    if args.flops:
+        from ..utils.flops import model_flops_params
+        shape = (1, len(info.mean), info.input_size, info.input_size)
+        model = create_model(args.model, num_classes=num_classes, **kw)
+        rep = model_flops_params(model.to(device), shape)
+        if compressed is not None:
+            dense = create_model(compressed[0], num_classes=num_classes)
+            drep = model_flops_params(dense.to(device), shape)
+            rep["dense_params"] = drep["params"]
+            rep["dense_flops"] = drep["flops"]
+            rep["param_ratio"] = drep["params"] / rep["params"]
+            rep["flop_ratio"] = drep["flops"] / rep["flops"]
+        print(json.dumps(rep))
+        return rep
 
     init_state = None
     if args.decompose:
@@ -193,6 +251,7 @@ def main(argv=None):
         print(json.dumps(r))
         return r
 
+    randaug = parse_randaugment(args.aa)
     cfg = TrainConfig(
         model=args.model, dataset=args.dataset, batch_size=args.batch_size,
         epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
@@ -202,7 +261,13 @@ def main(argv=None):
         sched=args.sched, min_lr=args.min_lr,
         warmup_epochs=args.warmup_epochs, decay_epochs=args.decay_epochs,
         decay_rate=args.decay_rate,
-        clip_grad=args.clip_grad, smoothing=args.smoothing, admm=args.admm,
+        clip_grad=args.clip_grad, smoothing=args.smoothing,
+        mixup=args.mixup, cutmix=args.cutmix,
+        randaug_magnitude=randaug[0], randaug_std=randaug[1],
+        erase_prob=args.reprob, repeated_aug=args.repeated_aug,
+        sampling=args.sampling, shard_dir=args.shard_dir,
+        shard_cache=args.shard_cache, loader_workers=args.loader_workers,
+        profile_dir=args.profile_dir, admm=args.admm,
         rho=args.rho, fmt=args.fmt, ratio=args.ratio, tt_type=args.tt_type,
         admm_method=args.admm_method, adjust_rho_late=args.adjust_rho,
         verbose_admm=args.verbose, orthogonal=args.orthogonal,

@@ -6,11 +6,16 @@ One ADMM epoch is the Z/U step (`admm_update`) followed by
 epochs past 85% with `adjust_rho_late`) and, with `orthogonal`, the
 factors' soft-orthogonality penalty at the same rho. A fine-tune may
 distil from a frozen dense teacher, run in the same autocast. Batches come
-from the device-resident dataset: an epoch permutation drawn on the
-device, a contiguous slice of it per step, then crop, flip and
-normalise on the device. The host reads back a few scalars per epoch.
-Every model's forward takes that device generator; a ViT draws its drop
-path from it, a ResNet ignores it.
+from the device-resident dataset (`sampling`: a slice of an epoch
+permutation drawn on the device, a slice of a shuffled copy, or uniform
+draws; `repeated_aug` views of each row), or, with `shard_dir`, are
+streamed from DCTA shards by the native loader through pinned buffers
+(`shard_cache='hbm'` reads the shards whole into the device-resident
+route). Then crop, flip, RandAugment, normalise and RandomErasing on the
+device, and Mixup/CutMix against soft targets. The host reads back a few
+scalars per epoch. Every model's forward takes that device generator; a
+ViT draws its drop path from it, a ResNet ignores it. `profile_dir`
+traces the first epoch's X-step (`utils/profiling.py`).
 
 With `ema_decay` > 0 an EMA shadow of the parameters follows each
 optimizer step and is evaluated beside them (`ema_test_*`, with the live
@@ -25,8 +30,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import json
 import math
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -37,12 +44,19 @@ import torch.nn.functional as F
 from ..admm import (AdmmState, admm_init, admm_penalty, admm_update,
                     adjust_rho, build_program, orthogonal_penalty)
 from ..configs.resolver import get_rank_plan
-from ..data.datasets import DatasetInfo, load_dataset
-from ..data.device_pipeline import (augment_batch, batch_at, normalize,
-                                    random_crop_flip)
+from ..data.augment import (draw_mix, draw_rand_augment,
+                            draw_random_erasing, mixup_cutmix)
+from ..data.datasets import DatasetInfo, dataset_info, load_dataset
+from ..data.device_pipeline import (DevicePrefetcher, augment_batch,
+                                    batch_at_views, normalize,
+                                    random_crop_flip, sample_batch,
+                                    sample_batch_repeated, shuffle_epoch)
+from ..data.records import read_shard, shard_shape
 from ..models import create_model, parse_compressed_name
 from ..utils.device import resolve_device
-from .losses import DISTILLATION_TYPES, cross_entropy, distillation_loss
+from ..utils.profiling import PhaseTimer, trace
+from .losses import (DISTILLATION_TYPES, cross_entropy, distillation_loss,
+                     soft_target_cross_entropy)
 from .optim import make_schedule, make_train_optimizer
 from .state import TrainState, load_train_state, save_train_state
 
@@ -67,6 +81,12 @@ class TrainConfig:
     decay_rate: float = 0.1
     clip_grad: Optional[float] = None  # clip by global norm before the step
     smoothing: float = 0.0
+    mixup: float = 0.0  # Mixup alpha (0 = off)
+    cutmix: float = 0.0  # CutMix alpha (0 = off)
+    repeated_aug: int = 0  # views of each row in a batch (0 = off)
+    randaug_magnitude: float = 0.0  # RandAugment's m (0 = off)
+    randaug_std: float = 0.5  # its magnitude's std
+    erase_prob: float = 0.0  # RandomErasing's probability
     # ADMM
     admm: bool = False
     rho: float = 0.001
@@ -86,6 +106,12 @@ class TrainConfig:
     teacher_model: Optional[str] = None
     teacher_state_dict: Optional[Dict[str, torch.Tensor]] = None
     # misc
+    sampling: str = "perm"  # perm | shuffle | replacement (SAMPLING)
+    shard_dir: Optional[str] = None  # train-*.dcta / val-*.dcta, streamed
+    shard_cache: Optional[str] = None  # 'hbm': the shards read whole onto
+                                       # the device-resident route
+    loader_workers: int = 4  # the native loader's threads
+    profile_dir: Optional[str] = None  # a trace of the first epoch's X-step
     ema_decay: float = 0.0  # > 0: an EMA shadow of the parameters
     eval_every: int = 1  # evaluate every N epochs and after the last
     checkpoint_dir: Optional[str] = None  # the train state after each epoch
@@ -96,6 +122,39 @@ class TrainConfig:
     log_path: Optional[str] = None
     device: str = "cuda"
     print_fn: Callable = print
+
+
+# 'perm': a slice of the epoch's permutation a step, then a gather;
+# 'shuffle': a slice of a shuffled copy of the set (the same rows);
+# 'replacement': uniform rows a step (any set smaller than a batch)
+SAMPLING = ("perm", "shuffle", "replacement")
+
+
+def _criterion(cfg: TrainConfig):
+    """Soft-target CE against the mixed targets where Mixup or CutMix is
+    on, else CE against the labels with `smoothing`."""
+    if cfg.mixup > 0 or cfg.cutmix > 0:
+        return soft_target_cross_entropy
+    return lambda logits, y: cross_entropy(logits, y, cfg.smoothing)
+
+
+def _load_shards(cfg: TrainConfig):
+    """The shard route's sets: (train paths, val images or None, val
+    labels or None); with `shard_cache='hbm'` the train set is read whole
+    too, as (images, labels) in place of the paths."""
+    def read(paths):
+        parts = [read_shard(p) for p in paths]
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+
+    train = sorted(glob.glob(os.path.join(cfg.shard_dir, "train-*.dcta")))
+    val = sorted(glob.glob(os.path.join(cfg.shard_dir, "val-*.dcta")))
+    if not train:
+        raise FileNotFoundError(f"no train-*.dcta shards in {cfg.shard_dir}")
+    if cfg.shard_cache not in (None, "hbm"):
+        raise ValueError(f"unknown shard cache {cfg.shard_cache!r}")
+    x_va, y_va = read(val) if val else (None, None)
+    return (read(train) if cfg.shard_cache == "hbm" else train), x_va, y_va
 
 
 def _autocast(device: torch.device, compute_dtype: Optional[str]):
@@ -208,13 +267,28 @@ def train_model(cfg: TrainConfig, *,
     the schedule and the rho boost still count `cfg.epochs`."""
     log = cfg.print_fn
     device = resolve_device(cfg.device)
-    x_tr, y_tr, info = load_dataset(cfg.dataset, True, cfg.synthetic_size,
-                                    cfg.data_dir)
-    x_va, y_va, _ = load_dataset(
-        cfg.dataset, False,
-        cfg.synthetic_size // 4 if cfg.synthetic_size else None, cfg.data_dir)
-    if len(x_tr) < cfg.batch_size:
-        raise ValueError(f"{len(x_tr)} training images < batch {cfg.batch_size}")
+    if cfg.sampling not in SAMPLING:
+        raise ValueError(f"unknown sampling {cfg.sampling!r}; choose from "
+                         f"{SAMPLING}")
+    streaming = False
+    if cfg.shard_dir is not None:
+        info = dataset_info(cfg.dataset)
+        train, x_va, y_va = _load_shards(cfg)
+        streaming = cfg.shard_cache is None
+        if not streaming:
+            x_tr, y_tr = train
+        held = shard_shape(train[0]) if streaming else x_tr.shape[1:]
+        want = (info.input_size, info.input_size, len(info.mean))
+        if tuple(held) != want:
+            raise ValueError(f"the shards hold {tuple(held)} images; "
+                             f"{cfg.dataset} takes {want}")
+    else:
+        x_tr, y_tr, info = load_dataset(cfg.dataset, True, cfg.synthetic_size,
+                                        cfg.data_dir)
+        x_va, y_va, _ = load_dataset(
+            cfg.dataset, False,
+            cfg.synthetic_size // 4 if cfg.synthetic_size else None,
+            cfg.data_dir)
     num_classes = cfg.num_classes or info.num_classes
     kw = ({"ratio": cfg.ratio, "tt_type": cfg.tt_type}
           if parse_compressed_name(cfg.model) else {})
@@ -225,9 +299,18 @@ def train_model(cfg: TrainConfig, *,
         model.load_state_dict(init_state_dict)
     model.to(device)
     params = dict(model.named_parameters())
-    images = torch.from_numpy(x_tr).to(device)
-    labels = torch.from_numpy(y_tr).long().to(device)
-    steps = cfg.steps_per_epoch or max(1, len(x_tr) // cfg.batch_size)
+    if streaming:
+        from ..data.native_loader import NativeLoader
+        loader = NativeLoader(train, cfg.batch_size,
+                              workers=cfg.loader_workers, seed=cfg.seed,
+                              drop_last=True, loop=True)
+        stream = DevicePrefetcher(loader, device)
+        n_train = loader.total
+    else:
+        images = torch.from_numpy(x_tr).to(device)
+        labels = torch.from_numpy(y_tr).long().to(device)
+        n_train = len(x_tr)
+    steps = cfg.steps_per_epoch or max(1, n_train // cfg.batch_size)
     schedule = make_schedule(cfg.sched, cfg.lr, cfg.epochs, steps,
                              cfg.warmup_epochs, cfg.min_lr, cfg.decay_epochs,
                              cfg.decay_rate)
@@ -280,91 +363,167 @@ def train_model(cfg: TrainConfig, *,
                               method=cfg.admm_method,
                               n_iter=cfg.admm_hooi_iters)
 
+    criterion = _criterion(cfg)
+    repeats = cfg.repeated_aug
+    mix = cfg.mixup > 0 or cfg.cutmix > 0
+    timer = PhaseTimer()
+
+    def epoch_batches():
+        """The epoch's (uint8 NHWC images, labels) a step: streamed, or
+        picked from the device-resident set by the epoch's sampling mode
+        ('replacement' where the set is smaller than a batch)."""
+        if streaming:
+            for _ in range(steps):
+                yield next(stream)
+            return
+        n = images.shape[0]
+        mode = cfg.sampling if n >= cfg.batch_size else "replacement"
+        if mode == "shuffle":
+            step_images, step_labels = shuffle_epoch(images, labels, gen)
+            for i in range(steps):
+                yield (batch_at_views(step_images, i, cfg.batch_size, repeats),
+                       batch_at_views(step_labels, i, cfg.batch_size, repeats))
+            return
+        if mode == "perm":
+            perm = torch.randperm(n, device=device, generator=gen)
+        for i in range(steps):
+            if mode == "perm":
+                idx = batch_at_views(perm, i, cfg.batch_size, repeats)
+            elif repeats > 1:
+                idx = sample_batch_repeated(n, gen, cfg.batch_size, repeats)
+            else:
+                idx = sample_batch(n, gen, cfg.batch_size)
+            yield images[idx], labels[idx]
+
+    def one_step(x, target, step, rho):
+        """One optimizer step on augmented `x` -> (step + 1, loss, logits)."""
+        lr = schedule(step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        with _autocast(device, cfg.compute_dtype):
+            logits = model(x, generator=gen)
+        loss = criterion(logits, target)
+        if teacher is not None:
+            with torch.no_grad(), _autocast(device, cfg.compute_dtype):
+                t_logits = teacher(x)
+            loss = distillation_loss(loss, logits, t_logits,
+                                     cfg.distillation_type,
+                                     cfg.distillation_alpha,
+                                     cfg.distillation_tau)
+        if program is not None:
+            loss = loss + admm_penalty(params, admm, program, rho)
+        if cfg.orthogonal:
+            loss = loss + orthogonal_penalty(params, rho)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if cfg.clip_grad is not None:
+            torch.nn.utils.clip_grad_norm_(clipped, cfg.clip_grad)
+        opt.step()
+        if ema is not None:  # e <- d e + (1 - d) p, each product rounded
+            with torch.no_grad():
+                shadow = [ema[n] for n in params]
+                live = list(params.values())
+                torch._foreach_mul_(shadow, cfg.ema_decay)
+                torch._foreach_add_(
+                    shadow, torch._foreach_mul(live, 1 - cfg.ema_decay))
+        return step + 1, loss, logits
+
     history = []
     epochs = max_epochs or cfg.epochs
-    for epoch in range(start_epoch, epochs):
-        t0 = time.perf_counter()
-        row = {"epoch": epoch + 1}
-        rho = (adjust_rho(epoch, cfg.epochs, cfg.rho) if cfg.adjust_rho_late
-               else cfg.rho)
-        if cfg.admm:
-            admm, residuals = admm_update(params, admm, program, update_u=True,
-                                          method=cfg.admm_method,
-                                          n_iter=cfg.admm_hooi_iters)
-            names = sorted(residuals)
-            vals = torch.stack([residuals[n] for n in names]).tolist()
-            row["z_step_s"] = time.perf_counter() - t0
-            row["rho"] = rho
-            row["admm_nonfinite_layers"] = int(admm.nonfinite)
-            row["admm_residual_total"] = float(sum(vals))
-            row["admm_residuals"] = dict(zip(names, vals))
-            if cfg.verbose_admm:
-                log(json.dumps({"admm_residuals": {
-                    n: round(v, 5) for n, v in row["admm_residuals"].items()}}))
-        t_x = time.perf_counter()
-        model.train()
-        perm = torch.randperm(images.shape[0], device=device, generator=gen)
-        loss_sum = torch.zeros((), device=device)
-        acc_sum = torch.zeros((), device=device)
-        for i in range(steps):
-            idx = batch_at(perm, i, cfg.batch_size)
-            yb = labels[idx]
-            offsets, flips = random_crop_flip(cfg.batch_size, gen)
-            x = augment_batch(images[idx], offsets, flips, mean=info.mean,
-                              std=info.std)
-            lr = schedule(step)
-            for group in opt.param_groups:
-                group["lr"] = lr
-            with _autocast(device, cfg.compute_dtype):
-                logits = model(x, generator=gen)
-            loss = cross_entropy(logits, yb, cfg.smoothing)
-            if teacher is not None:
-                with torch.no_grad(), _autocast(device, cfg.compute_dtype):
-                    t_logits = teacher(x)
-                loss = distillation_loss(loss, logits, t_logits,
-                                         cfg.distillation_type,
-                                         cfg.distillation_alpha,
-                                         cfg.distillation_tau)
-            if program is not None:
-                loss = loss + admm_penalty(params, admm, program, rho)
-            if cfg.orthogonal:
-                loss = loss + orthogonal_penalty(params, rho)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            if cfg.clip_grad is not None:
-                torch.nn.utils.clip_grad_norm_(clipped, cfg.clip_grad)
-            opt.step()
-            if ema is not None:  # e <- d e + (1 - d) p, each product rounded
-                with torch.no_grad():
-                    shadow = [ema[n] for n in params]
-                    live = list(params.values())
-                    torch._foreach_mul_(shadow, cfg.ema_decay)
-                    torch._foreach_add_(
-                        shadow, torch._foreach_mul(live, 1 - cfg.ema_decay))
-            step += 1
-            loss_sum += loss.detach()
-            acc_sum += (logits.argmax(-1) == yb).float().mean()
-        train_loss = loss_sum.item() / steps
-        row["x_step_s"] = time.perf_counter() - t_x
-        if not math.isfinite(train_loss):
-            raise FloatingPointError(f"loss is {train_loss}, stopping")
-        row.update(train_loss=train_loss, train_acc=acc_sum.item() / steps,
-                   epoch_time_s=time.perf_counter() - t0)
-        if (epoch + 1) % cfg.eval_every == 0 or epoch + 1 == epochs:
-            ev = evaluate_model(model, x_va, y_va, info,
-                                compute_dtype=cfg.compute_dtype)
-            row.update({f"test_{k}": v for k, v in ev.items()})
-            if ema is not None:
-                with _swapped(params, ema):
-                    ev = evaluate_model(model, x_va, y_va, info,
-                                        compute_dtype=cfg.compute_dtype)
-                row.update({f"ema_test_{k}": v for k, v in ev.items()})
-        history.append(row)
-        log(json.dumps(row))
-        if cfg.checkpoint_dir:
-            save_train_state(cfg.checkpoint_dir, train_state(step, epoch),
-                             {"model": cfg.model})
-        if cfg.log_path:
-            with open(cfg.log_path, "a") as f:
-                f.write(json.dumps(row) + "\n")
+    try:
+        for epoch in range(start_epoch, epochs):
+            t0 = time.perf_counter()
+            row = {"epoch": epoch + 1}
+            rho = (adjust_rho(epoch, cfg.epochs, cfg.rho)
+                   if cfg.adjust_rho_late else cfg.rho)
+            if cfg.admm:
+                admm, residuals = admm_update(params, admm, program,
+                                              update_u=True,
+                                              method=cfg.admm_method,
+                                              n_iter=cfg.admm_hooi_iters)
+                names = sorted(residuals)
+                vals = torch.stack([residuals[n] for n in names]).tolist()
+                row["z_step_s"] = time.perf_counter() - t0
+                timer.add("z_step", row["z_step_s"])
+                row["rho"] = rho
+                row["admm_nonfinite_layers"] = int(admm.nonfinite)
+                row["admm_residual_total"] = float(sum(vals))
+                row["admm_residuals"] = dict(zip(names, vals))
+                if cfg.verbose_admm:
+                    log(json.dumps({"admm_residuals": {
+                        n: round(v, 5)
+                        for n, v in row["admm_residuals"].items()}}))
+            t_x = time.perf_counter()
+            model.train()
+            loss_sum = torch.zeros((), device=device)
+            acc_sum = torch.zeros((), device=device)
+            profiled = cfg.profile_dir is not None and epoch == start_epoch
+            if streaming:
+                host_s, batches = stream.host_s, stream.batches
+                wait_s = stream.wait_s
+            with (trace(cfg.profile_dir) if profiled
+                  else contextlib.nullcontext()):
+                for xb, yb in epoch_batches():
+                    b, h, w, c = xb.shape
+                    offsets, flips = random_crop_flip(b, gen)
+                    ra = er = None
+                    if cfg.randaug_magnitude > 0:
+                        ra = draw_rand_augment(b, gen,
+                                               magnitude=cfg.randaug_magnitude,
+                                               mag_std=cfg.randaug_std)
+                    if cfg.erase_prob > 0:
+                        er = draw_random_erasing((b, c, h, w), gen,
+                                                 prob=cfg.erase_prob)
+                    x = augment_batch(xb, offsets, flips, mean=info.mean,
+                                      std=info.std, randaug=ra, erase=er)
+                    target = yb
+                    if mix:  # one lambda a batch, from the host generator
+                        x, target = mixup_cutmix(
+                            x, yb, draw_mix(init_gen, h, w,
+                                            mixup_alpha=cfg.mixup,
+                                            cutmix_alpha=cfg.cutmix),
+                            num_classes=num_classes, smoothing=cfg.smoothing)
+                    step, loss, logits = one_step(x, target, step, rho)
+                    loss_sum += loss.detach()
+                    acc_sum += (logits.argmax(-1) == yb).float().mean()
+            train_loss = loss_sum.item() / steps
+            row["x_step_s"] = time.perf_counter() - t_x
+            timer.add("x_step", row["x_step_s"])
+            if streaming:
+                row["loader_host_ms_per_batch"] = (
+                    1000 * (stream.host_s - host_s)
+                    / max(1, stream.batches - batches))
+                row["loader_wait_ms_per_step"] = (
+                    1000 * (stream.wait_s - wait_s) / steps)
+            if profiled:
+                row["profile_trace"] = os.path.join(cfg.profile_dir,
+                                                    "trace.json")
+            if not math.isfinite(train_loss):
+                raise FloatingPointError(f"loss is {train_loss}, stopping")
+            row.update(train_loss=train_loss, train_acc=acc_sum.item() / steps,
+                       epoch_time_s=time.perf_counter() - t0)
+            if x_va is not None and ((epoch + 1) % cfg.eval_every == 0
+                                     or epoch + 1 == epochs):
+                ev = evaluate_model(model, x_va, y_va, info,
+                                    compute_dtype=cfg.compute_dtype)
+                row.update({f"test_{k}": v for k, v in ev.items()})
+                if ema is not None:
+                    with _swapped(params, ema):
+                        ev = evaluate_model(model, x_va, y_va, info,
+                                            compute_dtype=cfg.compute_dtype)
+                    row.update({f"ema_test_{k}": v for k, v in ev.items()})
+            history.append(row)
+            log(json.dumps(row))
+            if cfg.checkpoint_dir:
+                save_train_state(cfg.checkpoint_dir, train_state(step, epoch),
+                                 {"model": cfg.model})
+            if cfg.log_path:
+                with open(cfg.log_path, "a") as f:
+                    f.write(json.dumps(row) + "\n")
+    finally:
+        if streaming:
+            stream.close()
+            loader.close()
+    if cfg.profile_dir:
+        timer.log(log)
     return model, history

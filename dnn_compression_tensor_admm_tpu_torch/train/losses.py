@@ -1,5 +1,6 @@
-"""Losses: cross entropy with label smoothing, and knowledge distillation
-from a teacher's logits (the JAX package's `train/losses.py`)."""
+"""Losses: cross entropy with label smoothing, against soft targets
+(Mixup/CutMix), and knowledge distillation from a teacher's logits (the
+JAX package's `train/losses.py`)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     the label and s/C elsewhere (timm LabelSmoothingCrossEntropy)."""
     return F.cross_entropy(logits.float(), labels.long(),
                            label_smoothing=smoothing)
+
+
+def soft_target_cross_entropy(logits: torch.Tensor,
+                              soft_targets: torch.Tensor) -> torch.Tensor:
+    """Mean CE against probability targets [B, C], in float32 (timm
+    SoftTargetCrossEntropy, the Mixup/CutMix criterion)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(torch.sum(soft_targets * logp, dim=-1))
 
 
 def distillation_loss(base_loss: torch.Tensor, student_logits: torch.Tensor,

@@ -93,7 +93,17 @@ def test_port_and_chip_smoke_import_without_jax():
                             p.with_suffix("")).relative_to(ROOT).parts)
                   for p in pkg.rglob("*.py") if p.name != "__main__.py")
     assert len(mods) > 30
-    code = _NO_JAX + "".join(f"import {m}\n" for m in mods) + "import chip_smoke\n"
+    # the ViT recipe's modules and the shard route among them, and
+    # chip_smoke.py's tenth path able to run its pieces without JAX
+    pkg_name = "dnn_compression_tensor_admm_tpu_torch"
+    assert {f"{pkg_name}.{m}" for m in (
+        "data.augment", "data.records", "data.native_loader",
+        "utils.flops", "utils.profiling")} <= set(mods)
+    code = (_NO_JAX + "".join(f"import {m}\n" for m in mods)
+            + "import chip_smoke\n"
+            + "assert chip_smoke.DEIT_R['ratio'] == 1.88\n"
+            + f"from {pkg_name}.data.augment import parse_randaugment\n"
+            + "assert parse_randaugment('rand-m9-mstd0.5') == (9.0, 0.5)\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    stdin=subprocess.DEVNULL, timeout=120)
 

@@ -21,7 +21,6 @@ from dnn_compression_tensor_admm_tpu.admm import engine as jeng
 from dnn_compression_tensor_admm_tpu.configs.hp import RankPlan as JaxRankPlan
 from dnn_compression_tensor_admm_tpu.configs.hp import SVDSpec as JaxSVDSpec
 from dnn_compression_tensor_admm_tpu.models import create_model as jax_model
-from dnn_compression_tensor_admm_tpu.models import decompose_params as jax_decompose
 from dnn_compression_tensor_admm_tpu_torch.admm import engine as teng
 from dnn_compression_tensor_admm_tpu_torch.configs import RankPlan, SVDSpec, get_rank_plan
 from dnn_compression_tensor_admm_tpu_torch.layers.common import oihw_to_hwio
@@ -29,6 +28,7 @@ from dnn_compression_tensor_admm_tpu_torch.models import create_model, decompose
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk
 from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import (
     jax_to_state_dict, state_dict_to_jax)
+from tests import torch_port_jax as jitted
 
 # three buckets of the SVD 2 table: name -> rank
 BUCKETS = {"bottlenecks.3.conv1.weight": 18,   # [144, 24]: resident, rp = 20
@@ -71,7 +71,7 @@ def _zu_step(params_t, params_j, plan_t, plan_j, method, rng):
         z={n: jnp.asarray(oihw_to_hwio(t.numpy())) for n, t in state.z.items()})
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DCTA_PALLAS_INTERPRET", "1")
-        js, jr = jeng.admm_update(
+        js, jr = jitted.admm_update(
             params_j, jstate, jprog, update_u=True,
             method="pallas" if method == "kernel" else method, n_iter=6)
     ts, tr = teng.admm_update(params_t, state, tprog, update_u=True,
@@ -105,11 +105,11 @@ def slice_run(_one_torch_thread):
     out["plan_svd"] = _zu_step(params_t, params_j, plan_t, plan_j, "svd", rng)
 
     # decompose the dense model's weights on both sides, then the logits
-    jdec = jax.tree.map(np.asarray, jax_decompose(v, plan_j))
+    jdec = jax.tree.map(np.asarray, jitted.decompose(v, plan_j))
     tdec = decompose_params(jax_to_state_dict(v), plan_t)
     x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
-    jlogits = jax_model("svdc_mobilenetv2_cifar", num_classes=10,
-                        ratio="2").apply(jdec, jnp.asarray(x))
+    jlogits = jitted.apply(jax_model("svdc_mobilenetv2_cifar", num_classes=10,
+                                      ratio="2"), jdec, jnp.asarray(x))
     tc = create_model("svdc_mobilenetv2_cifar", ratio="2")
     tc.load_state_dict(tdec)
     with torch.no_grad():

@@ -26,7 +26,6 @@ from dnn_compression_tensor_admm_tpu.admm import engine as jeng
 from dnn_compression_tensor_admm_tpu.configs.hp import RankPlan as JaxRankPlan
 from dnn_compression_tensor_admm_tpu.configs.resolver import get_rank_plan as jax_plan
 from dnn_compression_tensor_admm_tpu.models import create_model as jax_model
-from dnn_compression_tensor_admm_tpu.models import decompose_params as jax_decompose
 from dnn_compression_tensor_admm_tpu.ops.pallas.subspace_kernel import tt_supported_pallas
 from dnn_compression_tensor_admm_tpu.ops.pallas.tucker_kernel import pallas_tk_supported
 from dnn_compression_tensor_admm_tpu_torch.admm import engine as teng
@@ -39,6 +38,7 @@ from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk
 from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import (
     jax_to_state_dict, state_dict_to_jax)
+from tests import torch_port_jax as jitted
 
 # the buckets held against the Pallas kernels, one layer each
 TT_LAYERS = ("layer3.1.conv1.weight",   # 1x1, (256, 1, 1024) at 75
@@ -94,7 +94,7 @@ def _zu_step(params_t, params_j, plan_t, plan_j, method, rng):
         z={n: jnp.asarray(oihw_to_hwio(t.numpy())) for n, t in state.z.items()})
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DCTA_PALLAS_INTERPRET", "1")
-        js, jr = jeng.admm_update(
+        js, jr = jitted.admm_update(
             params_j, jstate, jprog, update_u=True,
             method="pallas" if method == "kernel" else method, n_iter=6)
     ts, tr = teng.admm_update(params_t, state, tprog, update_u=True,
@@ -133,11 +133,11 @@ def slice_run(_one_torch_thread):
         "dense": (dense, params_t, tk_t)}
 
     # decompose the dense model's weights on both sides, then the logits
-    jdec = jax.tree.map(np.asarray, jax_decompose(v, tt_j))
+    jdec = jax.tree.map(np.asarray, jitted.decompose(v, tt_j))
     tdec = decompose_params(jax_to_state_dict(v), tt_t)
     x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
-    jlogits = jax_model("ttm_resnet50", num_classes=1000, ratio="3").apply(
-        jdec, jnp.asarray(x))
+    jlogits = jitted.apply(jax_model("ttm_resnet50", num_classes=1000,
+                                      ratio="3"), jdec, jnp.asarray(x))
     tc = create_model("ttm_resnet50", ratio="3")
     tc.load_state_dict(tdec)
     out["dec"] = (jax_to_state_dict(jdec), tdec, tt_t,

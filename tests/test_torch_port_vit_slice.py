@@ -23,8 +23,7 @@ from dnn_compression_tensor_admm_tpu.admm import engine as jeng
 from dnn_compression_tensor_admm_tpu.configs.hp import RankPlan as JaxRankPlan
 from dnn_compression_tensor_admm_tpu.configs.resolver import get_rank_plan as jax_plan
 from dnn_compression_tensor_admm_tpu.models import (
-    compression_ratio as jax_ratio, create_model as jax_model,
-    decompose_params as jax_decompose)
+    compression_ratio as jax_ratio, create_model as jax_model)
 from dnn_compression_tensor_admm_tpu.models.vit import VisionTransformer as JaxViT
 from dnn_compression_tensor_admm_tpu.train.losses import cross_entropy as jax_ce
 from dnn_compression_tensor_admm_tpu_torch.admm import engine as teng
@@ -37,6 +36,7 @@ from dnn_compression_tensor_admm_tpu_torch.train.losses import cross_entropy
 from dnn_compression_tensor_admm_tpu_torch.train.optim import make_optimizer
 from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import (
     jax_to_state_dict, state_dict_to_jax)
+from tests import torch_port_jax as jitted
 
 NAME = "deit_tiny_patch16_224"
 RHO, LR, WD, SMOOTHING = 1e-3, 5e-4, 1e-4, 0.1
@@ -129,8 +129,8 @@ def slice_run(_one_torch_thread):
                             z={n: ts.z[n] for n in ZU_LAYERS})
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DCTA_PALLAS_INTERPRET", "1")
-        js2, jr2 = jeng.admm_update(jparams, _jax_state(ts_sub), jsub,
-                                    update_u=True, method="pallas", n_iter=6)
+        js2, jr2 = jitted.admm_update(jparams, _jax_state(ts_sub), jsub,
+                                      update_u=True, method="pallas", n_iter=6)
     ts2, tr2 = teng.admm_update(params, ts_sub, tsub, update_u=True,
                                 method="kernel", n_iter=6)
     # every bucket takes the kernel route (its plain version on the CPU)
@@ -141,7 +141,7 @@ def slice_run(_one_torch_thread):
 
     # decompose (exact-SVD TT-SVD) of the JAX side's stepped weights
     jvars = {"params": jparams}
-    out["dec"] = (jax.tree.map(np.asarray, jax_decompose(jvars, plan_j)),
+    out["dec"] = (jax.tree.map(np.asarray, jitted.decompose(jvars, plan_j)),
                   decompose_params(jax_to_state_dict(jvars), plan_t))
     return out
 
