@@ -113,7 +113,15 @@ prints one JSON line per phase:
    `--flops`; 99 subspace launches asserted (33 a Z-step), every step's
    batch of the config's shapes and the shards' labels, each mixed target
    row summing to 1 within MIX_ROW_TOL. Every synthetic CIFAR set is made
-   once and shared by the CIFAR phases (`shared_cifar_sets`).
+   once and shared by the CIFAR phases (`shared_cifar_sets`);
+5. nlp     — the BERT subsystem's three subcommands through
+   `nlp.cli.main` at the JAX CLI's defaults (BERT-base, sequence 128,
+   batch 32, TT@2x linears, SVD@4.5x word embedding; see NLP): ms a step
+   by stage, tokens/s, peak device memory, the parameter counts asserted
+   equal to the JAX package's (NLP_PARAMS), finite losses, the dev
+   accuracy, SQuAD's EM/F1 and both prediction files, then
+   `factorize_encoder` of the fine-tuned teacher's 144 blocks, timed,
+   with its fit.
 
 Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
@@ -132,6 +140,7 @@ if __name__ == "__main__":
 import argparse  # noqa: E402
 import concurrent.futures  # noqa: E402
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -163,7 +172,12 @@ from dnn_compression_tensor_admm_tpu_torch.train.state import (  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.utils.checkpoint import (  # noqa: E402
     load_any_variables, save_variables)
 from dnn_compression_tensor_admm_tpu_torch.utils.jax_weights import (  # noqa: E402
-    state_dict_to_jax)
+    jax_to_state_dict, state_dict_to_jax)
+from dnn_compression_tensor_admm_tpu_torch.nlp import bert as nlp_bert  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.nlp import shared_tucker  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.nlp.cli import main as nlp_main  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.utils.checkpoint import (  # noqa: E402
+    load_variables)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -253,6 +267,14 @@ TK_SINGLE_LAUNCH_FLOATS = 50_000_000
 # max |Q^T Q - I| on the tall side after its steps (float32 QR each step:
 # ~1e-6 expected; a Euclidean step at lr 0.1 would leave ~1e-2)
 STIEFEL_TOL = 1e-4
+
+# the NLP phase's parameter counts at BERT-base width (the CLI's plan: TT@2x
+# linears, SVD@4.5x word embedding) on each synthetic corpus's vocabulary
+# (215, 305 and 116 entries); tests/test_torch_port_nlp_model.py takes them
+# from the JAX package by `jax.eval_shape`
+NLP_PARAMS = {"task_teacher": 86_208_002, "task_student": 17_454_613,
+              "general_teacher": 86_275_584, "general_student": 17_468_208,
+              "squad": 17_437_690}
 
 
 def emit(obj) -> None:
@@ -1528,6 +1550,128 @@ def phase_stiefel(seed: int, card: str):
           "wall_s": time.perf_counter() - t_start})
 
 
+# The NLP phase: `python -m dnn_compression_tensor_admm_tpu_torch.nlp`'s
+# three subcommands through its `cli.main` at the JAX CLI's defaults
+# (BERT-base: hidden 768, 12 layers, 12 heads, FFN 3072; sequence 128,
+# batch 32; TT@2x linears at tt_dim 2, SVD@4.5x word embedding) on the
+# synthetic corpora: task-distill on SST-2 at 512 examples (teacher 4
+# epochs, stages 1 and 2 one epoch each), general-distill one epoch over
+# 256 documents, squad at 128 examples, doc stride 64, 2 epochs. Float32
+# with TF32 off (`ops/precision.py::full_f32`), as the JAX package's f32
+# modules; no kernel of this repo runs there (XLA compiled all of it in
+# the JAX package). Then `factorize_encoder` (HOOI onto
+# NLP_TUCKER) of the fine-tuned teacher's 144 blocks.
+NLP = dict(batch=32, seq=128)  # the CLI's defaults, for tokens/s
+NLP_TUCKER = shared_tucker.SharedTuckerConfig(60, 384, 384)
+NLP_WALL_LIMIT_S = 120.0
+
+
+def _nlp_cli(argv):
+    """`nlp.cli.main(argv)`, its printed rows sent to stderr; the peak
+    device memory of the run and its wall seconds beside its result."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        model, hist = nlp_main(argv)
+    torch.cuda.synchronize()
+    return model, hist, {"wall_s": time.perf_counter() - t0,
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _finite_losses(rows):
+    losses = [r[k] for r in rows for k in ("loss", "finetune_loss") if k in r]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite or no NLP losses: {rows}")
+    return losses
+
+
+def phase_nlp(seed: int, card: str, workdir: str) -> None:
+    """The NLP subcommands at BERT-base width on the card (see NLP)."""
+    t_start = time.perf_counter()
+    tokens = NLP["batch"] * NLP["seq"]
+    out = os.path.join(workdir, "nlp")
+    common = ["--seed", str(seed), "--device", "cuda"]
+    paths = {k: os.path.join(out, f"{k}.msgpack")
+             for k in ("student", "teacher", "squad")}
+    student, td, td_run = _nlp_cli([
+        "task-distill", "--save", paths["student"],
+        "--save-teacher", paths["teacher"], *common])
+    teacher_sd = jax_to_state_dict(load_variables(paths["teacher"]))
+    student_back = jax_to_state_dict(load_variables(paths["student"]))
+    for name, t in student.state_dict().items():
+        if not torch.equal(t.cpu(), student_back[name]):
+            raise AssertionError(f"the student's msgpack differs at {name}")
+    general, gd, gd_run = _nlp_cli(["general-distill", *common])
+    squad_dir = os.path.join(out, "squad")
+    squad, sq, sq_run = _nlp_cli(["squad", "--output-dir", squad_dir,
+                                  "--save", paths["squad"], *common])
+    files = {f: os.path.getsize(os.path.join(squad_dir, f))
+             for f in ("predictions.json", "nbest_predictions.json")}
+    vocab_general = general.embeddings.word_embeddings.first_factor.shape[0]
+    with torch.device("meta"):
+        general_teacher = nlp_bert.BertModel(
+            nlp_bert.BertConfig(vocab_size=vocab_general))
+    counts = {"task_teacher": sum(t.numel() for t in teacher_sd.values()),
+              "task_student": count_params(student),
+              "general_teacher": count_params(general_teacher),
+              "general_student": count_params(general),
+              "squad": count_params(squad)}
+    if counts != NLP_PARAMS:
+        raise AssertionError(f"NLP parameter counts {counts} != the JAX "
+                             f"package's {NLP_PARAMS}")
+    losses = {"task": _finite_losses(td), "general": _finite_losses(gd),
+              "squad": _finite_losses(sq)}
+    teacher_row, stage1, stage2 = td[0], td[1], td[-1]
+    steps_ms = {"teacher_finetune": teacher_row["finetune_ms_per_step"],
+                "stage1": stage1["ms_per_step"],
+                "stage2": stage2["ms_per_step"],
+                "general_distill": gd[-1]["ms_per_step"],
+                "squad": sq[-1]["ms_per_step"]}
+    # HOOI of the fine-tuned teacher's 144 [768, 768] blocks
+    blocks = shared_tucker.stack_encoder_blocks(
+        teacher_sd, 12, prefix="bert.encoder.layer").cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factors = shared_tucker.factorize_encoder(blocks, NLP_TUCKER)
+    torch.cuda.synchronize()
+    factorize_s = time.perf_counter() - t0
+    with full_f32():
+        fit = float(torch.linalg.vector_norm(
+            blocks - shared_tucker.reconstruct_blocks(factors))
+            / torch.linalg.vector_norm(blocks))
+    if not (np.isfinite(fit) and fit < 1.0):
+        raise AssertionError(f"factorize_encoder fit {fit}")
+    wall = time.perf_counter() - t_start
+    emit({"phase": "nlp", "card": card,
+          "config": "bert-base (768, 12 layers, 12 heads, FFN 3072), "
+                    "seq 128, batch 32, tt@2x linears, svd@4.5x embedding",
+          "matmul_precision": "float32, TF32 off (full_f32); "
+                              f"torch {torch.get_float32_matmul_precision()}",
+          "params": counts,
+          "task_ratio": counts["task_teacher"] / counts["task_student"],
+          "ms_per_step": steps_ms,
+          "tokens_per_s": {k: tokens / (v / 1e3) for k, v in steps_ms.items()},
+          "peak_mem_bytes": {"task_distill": td_run["peak_mem_bytes"],
+                             "general_distill": gd_run["peak_mem_bytes"],
+                             "squad": sq_run["peak_mem_bytes"]},
+          "wall_s_by_command": {"task_distill": td_run["wall_s"],
+                                "general_distill": gd_run["wall_s"],
+                                "squad": sq_run["wall_s"]},
+          "final_loss": {k: v[-1] for k, v in losses.items()},
+          "teacher_finetune_loss": teacher_row["finetune_loss"],
+          "teacher_dev_acc": teacher_row["acc"],
+          "student_dev_acc": stage2["acc"],
+          "squad_exact_match": sq[-1]["exact_match"],
+          "squad_f1": sq[-1]["f1"], "squad_prediction_files_bytes": files,
+          "factorize_encoder": {"blocks": list(blocks.shape),
+                                "ranks": dataclasses.astuple(NLP_TUCKER),
+                                "seconds": factorize_s, "rel_err": fit},
+          "wall_s": wall, "wall_limit_s": NLP_WALL_LIMIT_S})
+    if wall > NLP_WALL_LIMIT_S:
+        raise AssertionError(f"the NLP phase took {wall:.1f} s")
+
+
 # ms per Z-step of earlier CUDA versions of each kernel, as PERF.md
 # records them (NVIDIA H100 80GB HBM3, 700 W): printed on a line of their
 # own, labelled as recorded, apart from this run's measurements
@@ -2088,6 +2232,7 @@ def main() -> int:
             workdir)
         launches_deit_recipe = phase_deit_recipe(args.seed, smi,
                                                  len(launches_deit), workdir)
+        phase_nlp(args.seed, smi, workdir)
         emit({"phase": "shared_sets", "made": [list(k) for k in cifar_sets]})
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})

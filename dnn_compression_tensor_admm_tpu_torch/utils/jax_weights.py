@@ -20,15 +20,23 @@ The JAX variables are given as nested dicts of numpy arrays
 * ViT: LayerNorm ``scale`` <-> ``weight``; the patch embedding's conv
   kernel HWIO <-> OIHW with its bias; ``cls_token``, ``pos_embed`` and a
   TT linear's ``core_i`` keep their layout.
+* BERT (`nlp/`): Dense kernels transposed, LayerNorm ``scale`` <->
+  ``weight``; the embedding tables, whose flax leaves hold a dot
+  (``word_embeddings.weight``, ``position_embeddings.weight``,
+  ``token_type_embeddings.weight``), TT and TTM cores, SVD factors, ket
+  leaves (``weight_leafs``) and the shared-Tucker factors (``core``,
+  ``factor_*``, ``bias``) keep their layout.
 
 Flax module names may hold a dot ('layer1.0', 'bottlenecks.16',
 'patch_embed.proj', 'mlp.fc1', inside an ImageNet ResNet block
 'downsample.0' (its conv) and 'downsample.1' (its BN), MobileNetV2's
 'features.3' and 'conv.6', VGG's 'features.28' and 'pre_logits.fc1', the
 DenseNets' 'block2.layer.7', 'trans1.bn1' and
-'features.denseblock3.denselayer12'); on the way back a purely numeric name
-part is joined to the part before it, and the other dotted module names
-are joined whole.
+'features.denseblock3.denselayer12', BERT's 'encoder.layer.0',
+'attention.self.query', 'attention.output.LayerNorm', 'intermediate.dense'
+and 'pooler.dense'); on the way back a purely numeric name part is joined
+to the part before it, and the other dotted module names (and BERT's
+dotted embedding leaves) are joined whole.
 """
 
 from __future__ import annotations
@@ -81,17 +89,27 @@ def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
 
 # flax module names with dots that joining numeric parts alone does not
 # rebuild: the ViT's, VGG's `pre_logits` and head, the CIFAR DenseNet's
-# layers and transitions, the ImageNet DenseNet's `features.*` modules
+# layers and transitions, the ImageNet DenseNet's `features.*` modules,
+# BERT's layers and their linears and LayerNorms
 _DOTTED = re.compile(
     r"patch_embed\.proj|mlp\.fc[12]|pre_logits\.fc[12]|head\.fc"
     r"|block\d+\.layer\.\d+|trans\d+\.(?:bn1|conv1)"
     r"|features\.(?:conv0|norm0|norm5|denseblock\d+\.denselayer\d+"
-    r"|transition\d+\.(?:norm|conv))")
+    r"|transition\d+\.(?:norm|conv))"
+    r"|encoder\.layer\.\d+|attention\.self\.(?:query|key|value)"
+    r"|(?:attention\.)?output\.(?:dense|LayerNorm)|intermediate\.dense"
+    r"|pooler\.dense")
+# flax parameter leaves with a dot: BERT's dense embedding tables
+_DOTTED_LEAF = re.compile(r"(?:word|position|token_type)_embeddings\.weight")
 
 
 def _jax_path(name: str):
     parts = []
     rest = name.split(".")
+    leaf = None
+    if len(rest) > 1 and _DOTTED_LEAF.fullmatch(".".join(rest[-2:])):
+        leaf = ".".join(rest[-2:])
+        rest = rest[:-2]
     while rest:
         # the longest dotted flax module name that starts here
         for j in range(len(rest) - 1, 1, -1):
@@ -105,7 +123,7 @@ def _jax_path(name: str):
                 parts[-1] = f"{parts[-1]}.{p}"
             else:
                 parts.append(p)
-    return parts
+    return parts if leaf is None else parts + [leaf]
 
 
 def _put(tree, path, value):
