@@ -121,7 +121,20 @@ prints one JSON line per phase:
    equal to the JAX package's (NLP_PARAMS), finite losses, the dev
    accuracy, SQuAD's EM/F1 and both prediction files, then
    `factorize_encoder` of the fine-tuned teacher's 144 blocks, timed,
-   with its fit.
+   with its fit;
+6. export  — the fine-tuned models of three main paths (ResNet32 TK@3x,
+   ResNet-50 TT@3x, DeiT-tiny TT@2x; `phase_main` writes each as the JAX
+   msgpack, as --save-model does) through the CLI's `--pretrained
+   --export-onnx --export`: the ONNX file run on the card at batch 1 by
+   the runner below (`run_onnx`: a protobuf reader and the exporter's
+   opset-13 ops as torch ops, float32 with TF32 off) against the model's
+   float32 forward within rtol = atol = 2e-3, the torch.export program
+   read back (`load_exported`) against the eager forward within 1e-5
+   relative, and the weights written as a reference-named `.pth`
+   (`state_dict_to_torch`) evaluated through `--pretrained --eval` to the
+   msgpack's numbers exactly; then an ONNX export of ImageNet MobileNetV2,
+   which must be refused, and the TT-LSTM latency demo at the JAX
+   package's defaults. The phase must take under 60 s.
 
 Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
@@ -178,6 +191,13 @@ from dnn_compression_tensor_admm_tpu_torch.nlp import shared_tucker  # noqa: E40
 from dnn_compression_tensor_admm_tpu_torch.nlp.cli import main as nlp_main  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.utils.checkpoint import (  # noqa: E402
     load_variables)
+from dnn_compression_tensor_admm_tpu_torch.analysis import (  # noqa: E402
+    tt_lstm_inference_demo)
+from dnn_compression_tensor_admm_tpu_torch.utils.export import load_exported  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.utils.onnx_export import (  # noqa: E402
+    export_onnx, onnx_attrs, pb_fields)
+from dnn_compression_tensor_admm_tpu_torch.utils.torch_import import (  # noqa: E402
+    save_torch_state_dict, state_dict_to_torch)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -851,6 +871,8 @@ def phase_main(seed: int, card: str, key: str, launches_per_z_step: int,
                          lr=path.get("ft_lr", path["lr"]),
                          ratio=path["ratio_arg"], **common)
     ft, ft_hist = train_model(ft_cfg, init_state_dict=sd)
+    save_variables(ft_checkpoint(workdir, key),
+                   state_dict_to_jax(ft.state_dict()))  # as --save-model
     ev = evaluate_model(ft, x_va, y_va, info, compute_dtype="bfloat16")
     rt = eval_runtime(ft, info, batch_size=path["batch_size"],
                       compute_dtype="bfloat16")
@@ -1942,6 +1964,232 @@ def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
     return launches
 
 
+# --------------------------------------------------------------------------
+# The export phase: the fine-tuned models of three main paths written out
+# by the CLI as ONNX and as a torch.export program, and read back.
+
+EXPORT_PATHS = ("tk", "r50_tt3", "deit")
+EXPORT_BATCH = 2           # the torch.export program's fixed batch
+ONNX_TOL = 2e-3            # rtol = atol, the JAX package's ONNX test's
+EXPORT_REL_TOL = 1e-5      # max |program - eager| / max |eager|
+EXPORT_WALL_LIMIT_S = 60.0
+EXPORT_EVAL_IMAGES = 32    # the .pth round trip's ImageNet-geometry evals
+
+
+def ft_checkpoint(workdir: str, key: str) -> str:
+    """Where `phase_main` writes path `key`'s fine-tuned model."""
+    return os.path.join(workdir, f"{key}_ft_model.msgpack")
+
+
+def _onnx_conv(ins, a):
+    p = a.get("pads", [0, 0, 0, 0])
+    if p[:2] != p[2:]:
+        raise ValueError(f"asymmetric Conv pads {p}")
+    return torch.nn.functional.conv2d(
+        ins[0], ins[1], ins[2] if len(ins) > 2 else None,
+        stride=tuple(a.get("strides", [1, 1])), padding=tuple(p[:2]))
+
+
+def _onnx_maxpool(ins, a):
+    p = a.get("pads", [0, 0, 0, 0])
+    if p[:2] != p[2:]:
+        raise ValueError(f"asymmetric MaxPool pads {p}")
+    return torch.nn.functional.max_pool2d(
+        ins[0], tuple(a["kernel_shape"]), tuple(a["strides"]), tuple(p[:2]))
+
+
+def _onnx_slice(x, starts, ends, axes, steps):
+    index = [slice(None)] * x.ndim
+    for st, en, ax, sp in zip(starts, ends, axes, steps):
+        index[int(ax)] = slice(int(st), int(min(en, x.shape[int(ax)])),
+                               int(sp))
+    return x[tuple(index)]
+
+
+def _onnx_pad(x, pads):
+    r = x.ndim
+    width = []
+    for d in reversed(range(r)):  # torch pads the last dim first
+        width += [int(pads[d]), int(pads[d + r])]
+    return torch.nn.functional.pad(x, width)
+
+
+def _onnx_gather(x, idx, axis):
+    if np.ndim(idx) == 0:
+        return x.select(axis, int(idx))
+    return x.index_select(axis, torch.as_tensor(idx, device=x.device))
+
+
+# opset-13 semantics of every op the port's exporter writes, as torch ops
+ONNX_OPS = {
+    "Conv": _onnx_conv,
+    "Relu": lambda ins, a: torch.relu(ins[0]),
+    "Add": lambda ins, a: ins[0] + ins[1],
+    "Sub": lambda ins, a: ins[0] - ins[1],
+    "Mul": lambda ins, a: ins[0] * ins[1],
+    "Div": lambda ins, a: ins[0] / ins[1],
+    "Sqrt": lambda ins, a: torch.sqrt(ins[0]),
+    "Erf": lambda ins, a: torch.erf(ins[0]),
+    "MatMul": lambda ins, a: torch.matmul(ins[0], ins[1]),
+    "ReduceMean": lambda ins, a: ins[0].mean(
+        dim=tuple(a["axes"]), keepdim=bool(a.get("keepdims", 1))),
+    "Softmax": lambda ins, a: torch.softmax(ins[0], dim=a.get("axis", -1)),
+    "Transpose": lambda ins, a: ins[0].permute(*a["perm"]),
+    "Reshape": lambda ins, a: ins[0].reshape([int(v) for v in ins[1]]),
+    "Concat": lambda ins, a: torch.cat(ins, dim=a["axis"]),
+    "Gather": lambda ins, a: _onnx_gather(ins[0], ins[1], a.get("axis", 0)),
+    "BatchNormalization": lambda ins, a: torch.nn.functional.batch_norm(
+        ins[0], ins[3], ins[4], ins[1], ins[2], False, 0.0,
+        a.get("epsilon", 1e-5)),
+    "MaxPool": _onnx_maxpool,
+    "GlobalAveragePool": lambda ins, a: ins[0].mean(dim=(2, 3), keepdim=True),
+    "Flatten": lambda ins, a: ins[0].reshape(
+        int(np.prod(ins[0].shape[:a.get("axis", 1)])), -1),
+    "Gemm": lambda ins, a: torch.addmm(
+        ins[2], ins[0], ins[1].t() if a.get("transB") else ins[1]),
+    "Slice": lambda ins, a: _onnx_slice(*ins),
+    "Pad": lambda ins, a: _onnx_pad(ins[0], ins[1]),
+}
+
+
+def run_onnx(data: bytes, x: torch.Tensor):
+    """Run an ONNX model of the port's exporter on x's device: float
+    initializers as tensors there, int64 ones (shapes, indices, pads) on
+    the host. Returns (output, number of nodes); raises on an op it does
+    not know. Run it inside `full_f32()` for float32 without TF32."""
+    graph = pb_fields(pb_fields(data)[7][0])
+    env = {}
+    for tb in graph.get(5, []):
+        f = pb_fields(tb)
+        dtype = {1: np.float32, 7: np.int64}[f[2][0]]
+        a = np.frombuffer(f[9][0], dtype=dtype).reshape(tuple(f.get(1, [])))
+        env[f[8][0].decode()] = (torch.from_numpy(a.copy()).to(x.device)
+                                 if dtype == np.float32 else a)
+    env[pb_fields(graph[11][0])[1][0].decode()] = x
+    nodes = graph.get(1, [])
+    for nb in nodes:
+        node = pb_fields(nb)
+        op = node[4][0].decode()
+        if op not in ONNX_OPS:
+            raise ValueError(f"ONNX op {op} is not one the exporter writes")
+        ins = [env[b.decode()] for b in node.get(1, [])]
+        env[node[2][0].decode()] = ONNX_OPS[op](ins, onnx_attrs(node))
+    return env[pb_fields(graph[12][0])[1][0].decode()], len(nodes)
+
+
+def _cli_quiet(argv):
+    """`cli_main(argv)` with its printed lines sent to stderr."""
+    with contextlib.redirect_stdout(sys.stderr):
+        return cli_main(argv)
+
+
+def export_one(seed: int, key: str, workdir: str) -> dict:
+    """Path `key`'s fine-tuned model through the CLI's --export-onnx and
+    --export, each file run again on the card against the eager model,
+    and the .pth round trip through --pretrained --eval."""
+    path = PATHS[key]
+    ckpt = ft_checkpoint(workdir, key)
+    stem = os.path.join(workdir, f"export_{key}")
+    onnx_path, program_path, pth_path = (stem + ".onnx", stem + ".pt2",
+                                         stem + ".pth")
+    common = ["--model", path["model"], "--ratio", path["ratio_arg"],
+              "--dataset", path["dataset"], "--device", "cuda",
+              "--seed", str(seed)]
+    if path["synthetic_size"]:  # CIFAR evaluates the shared 10,000 images
+        common += ["--synthetic-size", str(EXPORT_EVAL_IMAGES)]
+    t0 = time.perf_counter()
+    done = _cli_quiet([*common, "--pretrained", "--model-path", ckpt,
+                       "--export-onnx", onnx_path, "--export", program_path,
+                       "--batch-size", str(EXPORT_BATCH)])
+    cli_s = time.perf_counter() - t0
+
+    model = create_model(path["model"], ratio=path["ratio_arg"],
+                         num_classes=path["classes"])
+    model.load_state_dict(load_any_variables(ckpt, model.state_dict))
+    model = model.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x1 = torch.rand(1, *path["input"], generator=gen, device="cuda")
+    x2 = torch.rand(EXPORT_BATCH, *path["input"], generator=gen,
+                    device="cuda")
+    with open(onnx_path, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    program = load_exported(program_path)
+    load_s = time.perf_counter() - t0
+    with torch.no_grad(), full_f32():
+        t0 = time.perf_counter()
+        y_onnx, n_nodes = run_onnx(data, x1)
+        torch.cuda.synchronize()
+        onnx_run_s = time.perf_counter() - t0
+        y1 = model(x1)
+        y_program = program.module()(x2)
+        y2 = model(x2)
+    onnx_err = float((y_onnx - y1).abs().max())
+    onnx_ok = bool(torch.allclose(y_onnx, y1, rtol=ONNX_TOL, atol=ONNX_TOL))
+    program_rel = float((y_program - y2).abs().max() / y2.abs().max())
+    if tuple(y_onnx.shape) != (1, path["classes"]) or not onnx_ok:
+        raise AssertionError(f"{key}: the ONNX model gives "
+                             f"{tuple(y_onnx.shape)}, {onnx_err} from the "
+                             f"model (rtol = atol = {ONNX_TOL})")
+    if (tuple(y_program.shape) != (EXPORT_BATCH, path["classes"])
+            or not program_rel <= EXPORT_REL_TOL):
+        raise AssertionError(f"{key}: the torch.export program is "
+                             f"{program_rel} from the model")
+
+    t0 = time.perf_counter()
+    save_torch_state_dict(pth_path, state_dict_to_torch(model))
+    eval_pth = _cli_quiet([*common, "--pretrained", "--model-path", pth_path,
+                           "--eval"])
+    eval_msgpack = _cli_quiet([*common, "--pretrained", "--model-path", ckpt,
+                               "--eval"])
+    pth_s = time.perf_counter() - t0
+    if eval_pth != eval_msgpack:
+        raise AssertionError(f"{key}: the .pth evaluates to {eval_pth}, the "
+                             f"msgpack to {eval_msgpack}")
+    return {"model": path["name"],
+            "bytes": {"msgpack": os.path.getsize(ckpt),
+                      "onnx": os.path.getsize(onnx_path),
+                      "torch_export": os.path.getsize(program_path),
+                      "pth": os.path.getsize(pth_path)},
+            "onnx_nodes": n_nodes,
+            "export_onnx_s": done["export_onnx_s"],
+            "torch_export_s": done["export_s"],
+            "cli_s": cli_s, "load_exported_s": load_s,
+            "onnx_run_s": onnx_run_s,
+            "onnx_max_abs_diff": onnx_err,
+            "onnx_logit_scale": float(y1.abs().max()),
+            "torch_export_rel_diff": program_rel,
+            "pth_eval": eval_pth, "pth_roundtrip_s": pth_s}
+
+
+def phase_export(seed: int, card: str, workdir: str) -> None:
+    """The fine-tuned ResNet32 TK@3x, ResNet-50 TT@3x and DeiT-tiny TT@2x
+    written out and run again (see EXPORT_PATHS), an ONNX export the
+    exporter must refuse, and the TT-LSTM latency demo."""
+    t_start = time.perf_counter()
+    rows = [export_one(seed, key, workdir) for key in EXPORT_PATHS]
+    try:
+        export_onnx(create_model("mobilenetv2"),
+                    os.path.join(workdir, "mobilenetv2.onnx"),
+                    num_classes=1000, input_size=224)
+    except ValueError as e:
+        if "ResNet and ViT/DeiT families only" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        raise AssertionError("the ONNX exporter wrote a MobileNetV2 graph")
+    lstm = tt_lstm_inference_demo(device="cuda", seed=seed)
+    wall_s = time.perf_counter() - t_start
+    emit({"phase": "export", "card": card, "models": rows,
+          "onnx_rtol_atol": ONNX_TOL, "torch_export_rel_tol": EXPORT_REL_TOL,
+          "torch_export_batch": EXPORT_BATCH, "onnx_batch": 1,
+          "mobilenetv2_refused": refused,
+          "tt_lstm": {**lstm, "card": card}, "wall_s": wall_s})
+    if wall_s >= EXPORT_WALL_LIMIT_S:
+        raise AssertionError(f"the export phase took {wall_s:.1f} s, the "
+                             f"limit is {EXPORT_WALL_LIMIT_S} s")
+
+
 RECORDED_MS = {
     "first_version_ms_per_z_step": {"tucker2_factors_batched": 7.85,
                                     "dominant_left_subspace_batched": 15.13},
@@ -2233,6 +2481,7 @@ def main() -> int:
         launches_deit_recipe = phase_deit_recipe(args.seed, smi,
                                                  len(launches_deit), workdir)
         phase_nlp(args.seed, smi, workdir)
+        phase_export(args.seed, smi, workdir)
         emit({"phase": "shared_sets", "made": [list(k) for k in cifar_sets]})
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})

@@ -14,11 +14,16 @@ Pipeline modes:
   --pretrained  load an already-factorized checkpoint (--model-path)
   --eval        evaluate a checkpoint (or the freshly decomposed model)
   --runtime     latency benchmark
+  --export PATH, --export-onnx PATH
+                write the loaded model as a torch.export program or an
+                ONNX file, then stop unless --eval or --runtime is given
 
 Run as `python -m dnn_compression_tensor_admm_tpu_torch ...`; it runs on
 the card unless given `--device cpu`. `--model-path` and `--teacher-path`
-read the JAX package's `.msgpack` checkpoints and the port's torch state
-dicts (`.pt`); `--save-model` writes `{tag}_{ts}_model.msgpack` as the JAX
+read the JAX package's `.msgpack` checkpoints, the port's torch state
+dicts (`.pt`) and the reference's `.pth` files (the JAX package's
+`variables_to_torch` naming, torchvision's; wrapped in `state_dict` or
+`model` or not); `--save-model` writes `{tag}_{ts}_model.msgpack` as the JAX
 package does, so its two-stage recipes chain (`--admm --save-model`, then
 `--decompose --model-path` of that file). `--checkpoint-dir` writes the
 whole train state after each epoch and `--resume` goes on from it.
@@ -168,11 +173,52 @@ def parse_args(argv=None):
     p.add_argument("--shard-cache", default=None, choices=["hbm"],
                    help="with --shard-dir: read the shards whole onto the "
                         "device-resident route instead of streaming them")
+    p.add_argument("--export", default=None, type=str, metavar="PATH",
+                   help="after loading, write the eval-mode model at "
+                        "--batch-size as a torch.export program (NCHW "
+                        "input; the JAX package writes StableHLO)")
+    p.add_argument("--export-savedmodel", default=None, type=str,
+                   metavar="DIR",
+                   help="a TF SavedModel needs tensorflow and jax2tf: "
+                        "refused here, use --export-onnx")
+    p.add_argument("--export-onnx", default=None, type=str, metavar="PATH",
+                   help="write a .onnx file at batch 1 (ResNet families "
+                        "and ViT/DeiT, dense or factorized; no onnx "
+                        "package needed)")
     p.add_argument("--flops", action="store_true",
                    help="print the model's FLOPs and parameters and exit")
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
+
+
+def export_all(args, model, info, num_classes: int) -> dict:
+    """The exports asked for (`--export-onnx`, `--export`,
+    `--export-savedmodel`, in the JAX CLI's order) -> the seconds of each
+    (`export_onnx_s`, `export_s`)."""
+    from ..models.vit import _VIT_CFGS
+    from ..utils.export import export_model, export_savedmodel
+    from ..utils.onnx_export import export_onnx
+
+    size = info.input_size
+    shape = (args.batch_size, len(info.mean), size, size)
+    done = {}
+    if args.export_onnx:
+        t0 = time.perf_counter()
+        heads = next((h for k, (_, _, h) in _VIT_CFGS.items()
+                      if args.model.endswith(k)), None)
+        export_onnx(model, args.export_onnx, num_classes=num_classes,
+                    input_size=size, num_heads=heads)
+        done["export_onnx_s"] = time.perf_counter() - t0
+        print(f"exported ONNX model to {args.export_onnx}")
+    if args.export:
+        t0 = time.perf_counter()
+        export_model(model, shape, args.export)
+        done["export_s"] = time.perf_counter() - t0
+        print(f"exported torch.export program to {args.export}")
+    if args.export_savedmodel:
+        export_savedmodel(model, shape, args.export_savedmodel)
+    return done
 
 
 def main(argv=None):
@@ -213,6 +259,12 @@ def main(argv=None):
         print(json.dumps(rep))
         return rep
 
+    def template(name, **model_kw):
+        """The state dict a checkpoint of `name` must map onto."""
+        return lambda: create_model(name, num_classes=num_classes,
+                                    **model_kw).state_dict()
+
+    exports = args.export or args.export_onnx or args.export_savedmodel
     init_state = None
     if args.decompose:
         if compressed is None:
@@ -221,7 +273,8 @@ def main(argv=None):
             raise SystemExit("ERROR: --decompose needs --model-path (dense ckpt)")
         base, fmt, _ = compressed
         dense = create_model(base, num_classes=num_classes)
-        dense.load_state_dict(load_any_variables(args.model_path))
+        dense.load_state_dict(load_any_variables(args.model_path,
+                                                 dense.state_dict))
         plan = get_rank_plan(args.model, fmt, args.ratio, args.tt_type)
         init_state = decompose_params(dense.to(device).state_dict(), plan)
         model = create_model(args.model, num_classes=num_classes, **kw)
@@ -231,16 +284,23 @@ def main(argv=None):
     elif args.pretrained:
         if not args.model_path:
             raise SystemExit("ERROR: --pretrained needs --model-path")
-        init_state = load_any_variables(args.model_path)
+        if not (args.eval or args.runtime or exports):  # else read below
+            init_state = load_any_variables(args.model_path,
+                                            template(args.model, **kw))
 
-    if args.eval or args.runtime:
+    if args.eval or args.runtime or exports:
         model = create_model(args.model, num_classes=num_classes, **kw)
         if init_state is None:
             if not args.model_path:
-                raise SystemExit("ERROR: --eval/--runtime need --model-path")
-            init_state = load_any_variables(args.model_path)
+                raise SystemExit("ERROR: --eval/--runtime/--export need "
+                                 "--model-path")
+            init_state = load_any_variables(args.model_path, model.state_dict)
         model.load_state_dict(init_state)
         model.to(device)
+        if exports:
+            r = export_all(args, model, info, num_classes)
+            if not (args.eval or args.runtime):
+                return r
         if args.runtime:
             r = eval_runtime(model, info, batch_size=args.batch_size,
                              compute_dtype=compute_dtype)
@@ -275,7 +335,8 @@ def main(argv=None):
         distillation_alpha=args.distillation_alpha,
         distillation_tau=args.distillation_tau,
         teacher_model=args.teacher_model,
-        teacher_state_dict=(load_any_variables(args.teacher_path)
+        teacher_state_dict=(load_any_variables(args.teacher_path,
+                                               template(args.teacher_model))
                             if args.distillation_type != "none"
                             and args.teacher_path else None),
         ema_decay=args.ema_decay, eval_every=args.eval_every,

@@ -1,6 +1,7 @@
 """Model checkpoints: the JAX package's single-file msgpack (flax
 `msgpack_serialize` of the variables dict; its `utils/checkpoint.py`) and
-the port's own torch state dicts.
+torch state dicts: the port's own, and the reference's and the JAX
+package's `.pth` files (`utils/torch_import.py`).
 
 `load_variables` and `save_variables` read and write the JAX layout
 (nested dicts of arrays under 'params' and, for BatchNorm, 'batch_stats')
@@ -20,6 +21,7 @@ import torch
 
 from . import msgpack
 from .jax_weights import jax_to_state_dict
+from .torch_import import load_torch_state_dict, torch_to_state_dict
 
 MSGPACK_SUFFIX = ".msgpack"
 TORCH_SUFFIXES = (".pt", ".pth")
@@ -55,15 +57,19 @@ def load_any_variables(path: str,
                        template_fn: Optional[Callable[[], Dict[str, torch.Tensor]]]
                        = None) -> Dict[str, torch.Tensor]:
     """A state dict of the port from a `.msgpack` (JAX layout) or a
-    `.pt`/`.pth` (a torch state dict) file. With `template_fn` (the
-    model's own `state_dict`), the names and shapes must be the model's."""
+    `.pt`/`.pth` (a torch state dict: the port's own, or the reference's
+    and the JAX package's naming, `utils/torch_import.py`) file. With
+    `template_fn` (the model's own `state_dict`), the names and shapes
+    must be the model's. A torch file is mapped onto them, so it needs
+    `template_fn`."""
     if path.endswith(TORCH_SUFFIXES):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-    elif path.endswith(MSGPACK_SUFFIX):
-        sd = jax_to_state_dict(load_variables(path))
-    else:
+        if template_fn is None:
+            raise ValueError("torch checkpoints need a model template")
+        return torch_to_state_dict(load_torch_state_dict(path), template_fn())
+    if not path.endswith(MSGPACK_SUFFIX):
         raise ValueError(f"{path}: a checkpoint is a {MSGPACK_SUFFIX} or "
                          f"{'/'.join(TORCH_SUFFIXES)} file")
+    sd = jax_to_state_dict(load_variables(path))
     if template_fn is not None:
         want = {k: tuple(v.shape) for k, v in template_fn().items()}
         got = {k: tuple(v.shape) for k, v in sd.items()}

@@ -29,3 +29,30 @@ def decompose(variables, plan):
 def apply(model, variables, *args, **kw):
     """`model.apply(variables, *args, **kw)`, jitted (keywords static)."""
     return jax.jit(functools.partial(model.apply, **kw))(variables, *args)
+
+
+def seeded_variables(init_fn, seed=0):
+    """Variables shaped as `init_fn()` gives them (traced by
+    `jax.eval_shape`, nothing compiled), drawn by numpy from `seed`: BN
+    variances in [0.5, 1.5], scales 1 + 0.1 N, means and biases 0.1 N,
+    every other leaf N / sqrt(its fan-in, the product of all but its last
+    axis). Nested dicts of float32 arrays."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name = str(path[-1].key)
+        shape = leaf.shape
+        if name == "var":
+            a = rng.uniform(0.5, 1.5, shape)
+        elif name == "scale":
+            a = 1 + 0.1 * rng.standard_normal(shape)
+        elif name in ("mean", "bias"):
+            a = 0.1 * rng.standard_normal(shape)
+        else:
+            fan = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+            a = rng.standard_normal(shape) / np.sqrt(fan)
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, jax.eval_shape(init_fn))
