@@ -21,15 +21,13 @@ prints one JSON line per phase:
    a K = 1 Tucker-2 bucket, HOOI's for K > 1): the Tucker-2 factor kernel at the 5 buckets of ResNet32-TK@3x and the 4 of
    DeiT-tiny-TK@2x (all 4 in the workspace plan, one thread-block
    cluster per layer: its size and how many such clusters the card holds
-   at once are printed), each also at sweeps=0
-   (`hosvd_ms`: the Grams of X and the HOSVD init), and untimed at two
+   at once are printed), and untimed at two
    workspace-plan buckets of other plans (ResNet50 TK 3, DenseNet40 TK
    2), the
    subspace kernel at the 24 launches of a ResNet32-TT@3x Z-step and at
    the 33 of a DeiT-tiny-TT@2x Z-step (13 of them in the workspace
    plan, one thread-block cluster per layer, printed as for Tucker-2),
-   each also at iters=0 (`gram_ms`: the Gram, the identity start
-   and the lift), the Tucker-2 kernel at the 16 buckets of
+   the Tucker-2 kernel at the 16 buckets of
    MobileNetV2-CIFAR-SVD@2x (plain SVD of 1x1 convs as K = 1 at
    r0 = r1: 4 resident, 1 streamed, 11 workspace), each beside
    `torch.linalg.svd` of the same [L, O, I] stack and both rank-r fits,
@@ -112,8 +110,8 @@ prints one JSON line per phase:
    and 3 repeated views over a shuffled copy, eval on the val shards and
    `--flops`; 99 subspace launches asserted (33 a Z-step), every step's
    batch of the config's shapes and the shards' labels, each mixed target
-   row summing to 1 within MIX_ROW_TOL. Every synthetic CIFAR set is made
-   once and shared by the CIFAR phases (`shared_cifar_sets`);
+   row summing to 1 within MIX_ROW_TOL. Every synthetic set is made once
+   and shared by the phases that read it (`shared_sets`);
 5. nlp     — the BERT subsystem's three subcommands through
    `nlp.cli.main` at the JAX CLI's defaults (BERT-base, sequence 128,
    batch 32, TT@2x linears, SVD@4.5x word embedding; see NLP): ms a step
@@ -134,7 +132,27 @@ prints one JSON line per phase:
    (`state_dict_to_torch`) evaluated through `--pretrained --eval` to the
    msgpack's numbers exactly; then an ONNX export of ImageNet MobileNetV2,
    which must be refused, and the TT-LSTM latency demo at the JAX
-   package's defaults. The phase must take under 60 s.
+   package's defaults. The phase must take under 60 s;
+7. multi_rank — ResNet32 TK@3x ADMM over 2 ranks in processes of their
+   own (`parallel/`; NCCL with a GPU a rank where two are visible, else
+   gloo on the one card, which checks correctness, not scaling): the
+   data-parallel X-step with BatchNorm over the global batch, the
+   layer-sharded Z/U step and the evaluation over ranks. Its first X-step
+   in float32 is held to the 1-process step (loss, each parameter's
+   update, the BatchNorm statistics; EARLY_TOL), and three planted faults
+   must fail that check; the 2 x 20-step bf16 run must end replicated
+   with its launches counted, its distance from the 1-process run
+   printed; then one sharded Z/U step of ResNet32's TK and TT programs,
+   bit for bit the 1-process step's, each rank launching the kernel on
+   its own blocks.
+
+Each phase prints its `wall_s`. Kernel times in this check are device
+times from CUDA graphs of a few launches (CHECK_GRAPH), the plain
+version's and the library's from one call; `tools/torch_kernel_times.py`
+times every launch in full (graphs of 25, each launch again without its
+iteration, 5 calls of the plain version and the library), the Z/U step's
+kernel time against its other work, and the recipe path's untraced
+X-step probes.
 
 Then the script's wall time, earlier CUDA versions' times as PERF.md
 records them (on a line of their own), the kernel summary, the card's
@@ -159,6 +177,7 @@ import os  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
+from typing import Optional  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -198,6 +217,11 @@ from dnn_compression_tensor_admm_tpu_torch.utils.onnx_export import (  # noqa: E
     export_onnx, onnx_attrs, pb_fields)
 from dnn_compression_tensor_admm_tpu_torch.utils.torch_import import (  # noqa: E402
     save_torch_state_dict, state_dict_to_torch)
+from dnn_compression_tensor_admm_tpu_torch.parallel import dist  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.parallel.launch import (  # noqa: E402
+    file_init_method, spawn)
+from dnn_compression_tensor_admm_tpu_torch.parallel.mesh import (  # noqa: E402
+    Mesh, make_mesh)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -231,11 +255,6 @@ NEAR_CAP_BUCKETS = [((2, 9, 144, 144), 40, 40), ((2, 9, 160, 96), 40, 30)]
 # DenseNet40 TK 2's largest (a 3 x 3 conv of the last dense block); not
 # on a main path, so outside its per-Z-step sums.
 WS_EXTRA_BUCKETS = [((6, 9, 256, 256), 64, 64), ((1, 9, 16, 328), 8, 75)]
-# A Tucker-2 workspace-plan launch does 0.1 to 10 G FMA a layer on a
-# cluster of 8 SMs, 2 to 26 ms (DeiT TK, MobileNetV2 SVD): fewer launches
-# per graph keep its timing to seconds. Block-plan launches take
-# graph_ms's default.
-TK_WS_GRAPH = {"launches": 5, "replays": 2}
 # MobileNetV2-CIFAR SVD@2x's parameter counts, dense and compressed (the
 # JAX package's)
 MBV2_PARAMS = (2_237_770, 1_289_754)
@@ -274,15 +293,21 @@ RESUME_TOL = {"params": 1e-3, "z": 1e-3, "u": 1e-2}
 # plain version summed in another order moves such a projector by 1e-4,
 # and the kernel's stayed within 1.2e-4 on the H100.
 # A subspace launch at r >= 256 does ~10 G FMA of Newton-Schulz a layer on
-# one cluster of 8 SMs: its graphs hold 5 launches, not 25.
+# one cluster of 8 SMs: it is timed as a workspace-plan launch.
 TT_BIG_RANK = 256
-TT_BIG_GRAPH = {"launches": 5, "replays": 2}
 # A Tucker-2 bucket of this many floats or more (VGG16's `pre_logits.fc1`,
 # [1, 49, 4096, 512]: 102.8 M floats, a mode-0 Gram of ~842 GFLOP on one
 # cluster of 8 SMs, 4.4 s a launch on the H100) is timed by one launch
 # after the check's, its plain version and library yardstick by one call
 # each, not by graphs.
 TK_SINGLE_LAUNCH_FLOATS = 50_000_000
+# What this check times of each kernel launch: the kernel by a CUDA graph
+# of CHECK_GRAPH launches (CHECK_WS_GRAPH for a workspace-plan or r >= 256
+# launch, seconds a graph otherwise), its plain version by one call after
+# the check's and the library yardstick by one call after a warm-up (CUDA
+# events). `tools/torch_kernel_times.py` times the same launches in full.
+CHECK_GRAPH = {"launches": 5, "replays": 2}
+CHECK_WS_GRAPH = {"launches": 2, "replays": 1}
 # Riemannian SGD keeps the Stiefel fine-tune's factors orthonormal:
 # max |Q^T Q - I| on the tall side after its steps (float32 QR each step:
 # ~1e-6 expected; a Euclidean step at lr 0.1 would leave ~1e-2)
@@ -447,12 +472,44 @@ def subspace_least_flops(shape, r: int) -> int:
     return l * (2 * rows * cols * min(rows, cols) + lift)
 
 
+def tucker_work(shape, r0: int, r1: int):
+    """(least operations, the kernel's own operations, bytes) of one
+    Tucker-2 launch at x [L, K, O, I]: the least is `k1_flops` at K = 1
+    and HOOI's own count (`tk.factor_flops`) at K > 1; X read once, both
+    factors written once."""
+    l, k, o, i = shape
+    algorithm_flops = tk.factor_flops(shape, r0, r1, sweeps=SWEEPS)
+    flops = k1_flops(shape, r0, r1) if k == 1 else algorithm_flops
+    return flops, algorithm_flops, 4 * (l * k * o * i + l * o * r0
+                                        + l * i * r1)
+
+
+def subspace_work(shape, r: int):
+    """(least operations, the kernel's own operations, bytes) of one
+    subspace launch at t [L, rows, cols]: t read once, Q written once."""
+    l, rows, cols = shape
+    return (subspace_least_flops(shape, r),
+            sk.subspace_flops(shape, r, iters=TT_ITERS),
+            4 * (l * rows * cols + l * rows * r))
+
+
+def bound_fields(flops: int, nbytes: int, kernel_ms: float) -> dict:
+    """The card's least time for the work (the larger of its operations
+    at the float32 peak and its bytes at the HBM rate) and its share of
+    `kernel_ms`."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes,
+            "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
+            "bytes_us": 1e6 * t_bytes,
+            "bound_share": 1e3 * max(t_ops, t_bytes) / kernel_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
                  extra_plan: str = "streamed", svd=False):
     """The Tucker-2 kernel at every bucket of a TK path's Z-step, then
-    untimed at `extra`, which must take `extra_plan`; workspace-plan
-    buckets are timed with TK_WS_GRAPH's launches and replays. The
-    library yardstick is a batched SVD of both unfoldings (the HOSVD's),
+    untimed at `extra`, which must take `extra_plan`; timed as CHECK_GRAPH
+    says. The library yardstick is a batched SVD of both unfoldings (the HOSVD's),
     or with `svd` at a K = 1 bucket (an SVD 1x1 conv: r0 = r1) one
     `torch.linalg.svd` of the [L, O, I] stack, whose rank-r fit is
     printed beside the kernel's; each row also gives it as
@@ -495,46 +552,33 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
         else:
             cluster = {}
         single = l * k * o * i >= TK_SINGLE_LAUNCH_FLOATS
+        kernel = lambda: tk.tucker2_factors_batched(  # noqa: E731
+            x, r0, r1, sweeps=SWEEPS)
         if single:  # seconds a launch: one timed launch, the check's
             # launch above its warm-up (the plain version's too)
             timing = {"launches": 1}
-            timed = lambda fn: cuda_ms(fn, 1, 0)  # noqa: E731
+            kernel_ms = cuda_ms(kernel, 1, 0)
         else:
-            timing = TK_WS_GRAPH if plan == "workspace" else {}
-            timed = lambda fn: graph_ms(fn, **timing)  # noqa: E731
-        kernel_ms = timed(
-            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS))
-        # the same launch without the HOOI sweeps: the Grams of X and the
-        # HOSVD init
-        hosvd_ms = timed(
-            lambda: tk.tucker2_factors_batched(x, r0, r1, sweeps=0))
-        iters, warmup = (1, 0) if single else (5, 1)
-        plain_ms = cuda_ms(
-            lambda: tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS),
-            iters, warmup)
-        library_ms = cuda_ms(library, iters, warmup)
-        algorithm_flops = tk.factor_flops(shape, r0, r1, sweeps=SWEEPS)
-        flops = k1_flops(shape, r0, r1) if k == 1 else algorithm_flops
-        nbytes = 4 * (l * k * o * i + l * o * r0 + l * i * r1)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+            timing = CHECK_WS_GRAPH if plan == "workspace" else CHECK_GRAPH
+            kernel_ms = graph_ms(kernel, **timing)
+        plain_ms = cuda_ms(  # (the check above called it once)
+            lambda: tk.tucker2_factors_plain(x, r0, r1, sweeps=SWEEPS), 1, 0)
+        library_ms = cuda_ms(library, 1, 0 if single else 1)
+        flops, algorithm_flops, nbytes = tucker_work(shape, r0, r1)
         library_key = ("library_ms_batched_svd" if svd and k == 1 else
                        "library_ms_hosvd_only_svd_of_both_unfoldings")
         row = {"phase": "kernel", "name": "tucker2_factors_batched",
                "path": path, "shape_LKOI": list(shape), "ranks": [r0, r1],
                "plan": plan, **cluster,
                "timed_by": ("single launches" if single else
-                            f"graphs of {timing.get('launches', 25)}"),
+                            f"graphs of {timing['launches']}"),
                "z_rel_err": z_rel, "z_rel_tol": Z_REL_TOL,
                "subspace_err": sub, "subspace_tol": SUBSPACE_TOL,
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
-               "hosvd_ms": hosvd_ms, "plain_ms": plain_ms,
+               "plain_ms": plain_ms,
                library_key: library_ms, "library_ms": library_ms, **fits,
-               "flops": flops, "algorithm_flops": algorithm_flops,
-               "bytes": nbytes,
-               "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
-               "bytes_us": 1e6 * t_bytes,
-               "bound_share": 1e3 * max(t_ops, t_bytes) / kernel_ms,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+               "algorithm_flops": algorithm_flops,
+               **bound_fields(flops, nbytes, kernel_ms)}
         emit(row)
         rows.append(row)
     for shape, r0, r1 in extra:
@@ -552,7 +596,7 @@ def phase_kernel(seed: int, buckets, path: str, extra=NEAR_CAP_BUCKETS,
                "max_abs_err": max_abs}
         if extra_plan == "streamed":
             row["kernel_ms"] = graph_ms(lambda: tk.tucker2_factors_batched(
-                x, r0, r1, sweeps=SWEEPS))
+                x, r0, r1, sweeps=SWEEPS), **CHECK_GRAPH)
         emit(row)
     emit({"phase": "kernel_wall", "name": "tucker2_factors_batched",
           "path": path, "buckets": len(buckets),
@@ -580,12 +624,13 @@ def check_subspace(t, r):
 def phase_kernel_tt(seed: int, launches, program, path: str,
                     near_cap=NEAR_CAP_LAUNCHES):
     """The subspace kernel at every launch of `program`'s Z-step, then at
-    `near_cap`, then the whole TT sweep of one Z-step."""
+    `near_cap`, then the whole TT sweep of one Z-step; timed as
+    `phase_kernel` says."""
     t_start = time.perf_counter()
     rng = np.random.RandomState(seed)
     rows_out = []
     for shape, r in launches:
-        l, rows, cols = shape
+        _, rows, cols = shape
         t_np = rng.standard_normal(shape).astype(np.float32)
         t = torch.from_numpy(t_np / np.float32(np.sqrt(cols))).cuda()
         max_abs, proj, rel = check_subspace(t, r)
@@ -598,38 +643,28 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
                            lib.subspace_ws_max_clusters(rows, cols, r)}
         else:
             cluster = {}
-        per_rank = TT_BIG_GRAPH if r >= TT_BIG_RANK else {}
+        per_rank = (CHECK_WS_GRAPH if r >= TT_BIG_RANK
+                    or plan == "workspace" else CHECK_GRAPH)
         kernel_ms = graph_ms(
             lambda: sk.dominant_left_subspace_batched(t, r, iters=TT_ITERS),
             **per_rank)
-        # the same launch without the iteration: the Gram, the identity
-        # start and, in the tall case, the lift
-        gram_ms = graph_ms(
-            lambda: sk.dominant_left_subspace_batched(t, r, iters=0),
-            **per_rank)
-        plain_ms = cuda_ms(
-            lambda: sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS), 5, 1)
+        plain_ms = cuda_ms(  # (the check above called it once)
+            lambda: sk.dominant_left_subspace_plain(t, r, iters=TT_ITERS),
+            1, 0)
         library_ms = cuda_ms(
-            lambda: torch.linalg.svd(t, full_matrices=False), 5, 1)
-        algorithm_flops = sk.subspace_flops(shape, r, iters=TT_ITERS)
-        flops = subspace_least_flops(shape, r)
-        nbytes = 4 * (l * rows * cols + l * rows * r)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+            lambda: torch.linalg.svd(t, full_matrices=False), 1, 1)
+        flops, algorithm_flops, nbytes = subspace_work(shape, r)
         row = {"phase": "kernel", "name": "dominant_left_subspace_batched",
                "path": path, "plan": plan, **cluster,
                "shape_L_rows_cols": list(shape), "rank": r,
                "projector_err": proj, "projector_tol": TT_PROJ_TOL,
                "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
-               "graph_launches": per_rank.get("launches", 25),
+               "graph_launches": per_rank["launches"],
                "max_abs_err": max_abs, "kernel_ms": kernel_ms,
-               "gram_ms": gram_ms, "plain_ms": plain_ms,
+               "plain_ms": plain_ms,
                "library_ms_batched_svd": library_ms,
-               "flops": flops, "algorithm_flops": algorithm_flops,
-               "bytes": nbytes,
-               "bound_us": 1e6 * max(t_ops, t_bytes), "ops_us": 1e6 * t_ops,
-               "bytes_us": 1e6 * t_bytes,
-               "bound_share": 1e3 * max(t_ops, t_bytes) / kernel_ms,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+               "algorithm_flops": algorithm_flops,
+               **bound_fields(flops, nbytes, kernel_ms)}
         emit(row)
         rows_out.append(row)
     for shape, r in near_cap:
@@ -645,7 +680,7 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
               "projected_rel_err": rel, "projected_rel_tol": TT_REL_TOL,
               "max_abs_err": max_abs,
               "kernel_ms": graph_ms(lambda: sk.dominant_left_subspace_batched(
-                  t, r, iters=TT_ITERS))})
+                  t, r, iters=TT_ITERS), **CHECK_GRAPH)})
     # the whole batched TT-SVD sweep (kernel, residuals, reconstruction) of
     # one Z-step, bucket by bucket on random weights
     xs = []
@@ -655,7 +690,7 @@ def phase_kernel_tt(seed: int, launches, program, path: str,
         xs.append((torch.from_numpy(x).cuda(), g.spec))
     sweep_ms = cuda_ms(lambda: [
         sk.tt_project_batched(x, sp.tt_shapes, sp.tt_ranks, iters=TT_ITERS)
-        for x, sp in xs], 10)
+        for x, sp in xs], 1, 1)
     emit({"phase": "kernel", "name": "tt_project_batched", "path": path,
           "buckets": len(xs), "ms_per_z_step": sweep_ms})
     emit({"phase": "kernel_wall", "name": "dominant_left_subspace_batched",
@@ -1721,17 +1756,17 @@ MIX_ROW_TOL = 1e-5
 
 
 @contextlib.contextmanager
-def shared_cifar_sets():
-    """Makes each synthetic CIFAR set once for the whole run: the CIFAR
-    paths (ResNet32 TK and TT, MobileNetV2-CIFAR, ResNet56, the Stiefel
-    fine-tune) read the same bytes as when each made its own, without
-    making 50,000 images again (~75% of a ResNet32 path's wall time)."""
+def shared_sets():
+    """Makes each synthetic set once for the whole run: the paths read the
+    same bytes as when each made its own, without making them again (50,000
+    CIFAR images took ~75% of a ResNet32 path's wall time, and 512 + 128
+    ImageNet-geometry images 11 to 13 s, three times a path)."""
     from dnn_compression_tensor_admm_tpu_torch.data import datasets
     from dnn_compression_tensor_admm_tpu_torch.train import engine
     made, original = {}, datasets.load_dataset
 
     def load(name, train, synthetic_size=None, data_dir=None):
-        if not (name.startswith("synthetic-") and "cifar" in name):
+        if not name.startswith("synthetic-"):
             return original(name, train, synthetic_size, data_dir)
         key = (name, train, synthetic_size)
         if key not in made:
@@ -1790,19 +1825,13 @@ def check_mixed_batches(seen, steps: int, shard_labels) -> dict:
     return {"distinct_labels": len(labels), "max_row_sum_err": row_err}
 
 
-def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
-                      workdir: str):
-    """DeiT-tiny TT@2x through the CLI as `run.sh`'s recipe: shards
-    written by the port, ADMM streamed through the native loader with
-    `--profile-dir` and `--save-model`, then `--decompose` of that msgpack
-    and a fine-tune from the shards read whole, eval on the val shards,
-    and `--flops`."""
+def recipe_shards(workdir: str):
+    """The recipe's train and val sets written as DCTA shards under
+    `workdir`: (directory, {prefix: paths}, the train labels, seconds)."""
     from dnn_compression_tensor_admm_tpu_torch.data.records import (
         read_shard, write_shards)
-    from dnn_compression_tensor_admm_tpu_torch.utils.profiling import (
-        trace_summary)
     path = DEIT_R
-    t_start = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     shards = os.path.join(workdir, "deit_shards")
     sets = {}
     for train, prefix, n in ((True, "train", path["train_images"]),
@@ -1813,40 +1842,47 @@ def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
         del x
     shard_labels = set(np.concatenate(
         [read_shard(p)[1] for p in sets["train"]]).tolist())
-    shards_s = time.perf_counter() - t0
+    return shards, sets, shard_labels, time.perf_counter() - t0
+
+
+def recipe_probe(seed: int, shards: str, cache, model=DEIT_R["dense"],
+                 **extra) -> dict:
+    """One untraced epoch of the recipe's X-step, streamed (`cache` None)
+    or from the shards read whole, with its Mixup/CutMix and `extra`
+    settings: ms a step and the streamed route's loader times
+    (`tools/torch_kernel_times.py --probes`)."""
+    path = DEIT_R
+    cfg = TrainConfig(model=model, dataset=path["dataset"],
+                      shard_dir=shards, shard_cache=cache, epochs=1,
+                      steps_per_epoch=path["steps_per_epoch"],
+                      batch_size=path["batch_size"], opt="adamw",
+                      lr=path["lr"], mixup=0.8, cutmix=1.0,
+                      smoothing=0.1, loader_workers=path["loader_workers"],
+                      fmt="tt", ratio=path["ratio_arg"],
+                      compute_dtype="bfloat16", seed=seed,
+                      device="cuda", print_fn=log, **extra)
+    row = train_model(cfg)[1][-1]
+    return {"ms_per_step": 1000 * row["x_step_s"] / cfg.steps_per_epoch,
+            **{k: row[k] for k in ("loader_host_ms_per_batch",
+                                   "loader_wait_ms_per_step")
+               if k in row}}
+
+
+def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
+                      workdir: str):
+    """DeiT-tiny TT@2x through the CLI as `run.sh`'s recipe: shards
+    written by the port, ADMM streamed through the native loader with
+    `--profile-dir` and `--save-model`, then `--decompose` of that msgpack
+    and a fine-tune from the shards read whole, eval on the val shards,
+    and `--flops`. (The untraced probes of the X-step beside the trace
+    are `tools/torch_kernel_times.py --probes`.)"""
+    from dnn_compression_tensor_admm_tpu_torch.utils.profiling import (
+        trace_summary)
+    path = DEIT_R
+    t_start = time.perf_counter()
+    shards, sets, shard_labels, shards_s = recipe_shards(workdir)
     shard_bytes = {k: sum(os.path.getsize(p) for p in v)
                    for k, v in sets.items()}
-    def probe(cache, model=path["dense"], **extra) -> dict:
-        """One untraced epoch of the X-step, streamed (`cache` None) or
-        from the shards read whole, with the recipe's Mixup/CutMix and
-        `extra` settings: ms a step and the streamed route's loader
-        times."""
-        cfg = TrainConfig(model=model, dataset=path["dataset"],
-                          shard_dir=shards, shard_cache=cache, epochs=1,
-                          steps_per_epoch=path["steps_per_epoch"],
-                          batch_size=path["batch_size"], opt="adamw",
-                          lr=path["lr"], mixup=0.8, cutmix=1.0,
-                          smoothing=0.1, loader_workers=path["loader_workers"],
-                          fmt="tt", ratio=path["ratio_arg"],
-                          compute_dtype="bfloat16", seed=seed,
-                          device="cuda", print_fn=log, **extra)
-        row = train_model(cfg)[1][-1]
-        return {"ms_per_step": 1000 * row["x_step_s"] / cfg.steps_per_epoch,
-                **{k: row[k] for k in ("loader_host_ms_per_batch",
-                                       "loader_wait_ms_per_step")
-                   if k in row}}
-
-    # before any profiler runs in this process (a trace leaves the later
-    # steps of its process slower, PERF.md section 6): the dense model's
-    # X-step streamed and read whole, an ADMM epoch streamed (the traced
-    # epoch's workload) and the fine-tune's step (its model and
-    # augmentations, random weights); one dense probe again after the trace
-    probes = {"dense_streamed": probe(None), "dense_cached": probe("hbm"),
-              "admm_streamed": probe(None, admm=True),
-              "finetune_cached": probe(
-                  "hbm", model=path["model"], randaug_magnitude=9,
-                  randaug_std=0.5, erase_prob=0.25, repeated_aug=3,
-                  sampling="shuffle")}
     out_dir = os.path.join(workdir, "deit_recipe_models")
     profile_dir = os.path.join(workdir, "deit_recipe_profile")
     common = ["--dataset", path["dataset"], "--shard-dir", shards,
@@ -1907,7 +1943,6 @@ def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
         flops = cli_main(["--model", path["model"], "--ratio",
                           path["ratio_arg"], "--flops", "--dataset",
                           path["dataset"]])
-    probes["dense_cached_after_trace"] = probe("hbm")
     losses = ([h["train_loss"] for h in hist + ft_hist]
               + [h["test_loss"] for h in hist + ft_hist])
     if not all(np.isfinite(losses)):
@@ -1926,7 +1961,6 @@ def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
           "z_steps": z_steps, "kernel_launches": launches,
           "other_kernel_launches": other,
           "launches_per_z_step": launches_per_z_step,
-          "probes": probes,
           "admm_ms_per_step_streamed_profiled_epoch": (
               1000 * hist[0]["x_step_s"] / steps),
           "admm_ms_per_step_streamed_after_profile": (
@@ -1947,11 +1981,10 @@ def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
                                                  "device_busy_ms",
                                                  "idle_share",
                                                  "device_events")},
-                      # the traced epoch's device time a step against an
-                      # untraced step of the same workload
+                      # the traced epoch's device time a step (the
+                      # untraced step it is read against: the tool's
+                      # probes)
                       "device_busy_ms_per_step": busy_ms,
-                      "idle_share_of_untraced_step": 1 - busy_ms / (
-                          probes["admm_streamed"]["ms_per_step"]),
                       "top_ops": profile["top_ops"]},
           "compression_ratio": ratio,
           "finetune_train_loss": ft_hist[-1]["train_loss"],
@@ -2190,6 +2223,386 @@ def phase_export(seed: int, card: str, workdir: str) -> None:
                              f"limit is {EXPORT_WALL_LIMIT_S} s")
 
 
+# --------------------------------------------------------------------------
+# The multi-rank phase: the JAX package's mesh run (`parallel/`) at two
+# ranks, against one process.
+
+# ResNet32 TK@3x as the first main path runs it (bench.py's tk3x widths:
+# global batch 256, the kernel route, bf16), cut to 10,240 images: the 2 x
+# 20 steps read 10,240.
+MULTI = dict(ranks=2, synthetic_size=10_240, epochs=2, steps_per_epoch=20)
+CUT["r32_tk3_2rank"] = ("first projection + 2 ADMM epochs x 20 steps at a "
+                        "global batch of 256 over 2 ranks, 10,240 images")
+# The 2-rank run is held to the 1-process run over its first X-step, before
+# the two part: the config's one step (from the first projection, the
+# same weights, seed and batch) in float32 with TF32 off, as the CPU tests
+# hold a 2-rank step to the JAX package's. In bf16 one step already moves
+# apart at rounding level (each rank's half-batch gradient is rounded to
+# bf16 before the two are averaged, and BatchNorm biases' gradients nearly
+# cancel), and the 2 x 20-step run is chaotic at that level: its distance
+# from the 1-process run is printed (`drift_after_40_steps`), not held. The
+# step is held on three readings, each of which a fault of the
+# data-parallel X-step moves: the step's loss (relative difference), each
+# parameter's update (||dW_2 - dW_1|| / ||dW_1||, the largest over the
+# parameters) and each BatchNorm running statistic after the step
+# (||A - B|| / ||B||, the largest over the buffers). The ranks also run
+# the step with each of PLANTED_FAULTS, and the phase fails unless each
+# of them fails the check (PERF.md gives the card's readings).
+EARLY_TOL = {"loss": 1e-4, "update": 2e-2, "bn_stats": 1e-3}
+# per_rank_batchnorm: each rank normalises by its own rows (plain DDP);
+# summed_gradients: the gradients summed over the ranks, not averaged;
+# half_batch: every rank takes the first rows of the global batch
+PLANTED_FAULTS = ("per_rank_batchnorm", "summed_gradients", "half_batch")
+
+
+# One launch shape per plan of each kernel (a single layer), for the
+# zero-layer check
+ZERO_LAYER_TK = {"resident": ((1, 9, 32, 16), 24, 16),
+                 "streamed": ((1, 9, 144, 144), 40, 40),
+                 "workspace": ((1, 9, 16, 328), 8, 75)}
+ZERO_LAYER_TT = {"padded": ((1, 288, 16), 16),
+                 "unpadded": ((1, 193, 197), 33),
+                 "workspace": ((1, 180, 192), 96)}
+
+
+def check_zero_layers() -> dict:
+    """Both kernels on a layer of zeros at one shape per plan: {plan:
+    whether the factors (the subspace) came back finite and Z = 0}. The
+    JAX step pads each bucket with zero layers and relies on every
+    projection mapping 0 to 0; the port launches nothing for padding, but
+    a layer of zeros must still come back a finite 0 (the Newton-Schulz
+    steps divide by a trace + 1e-30)."""
+    out = {}
+    for plan, (shape, r0, r1) in ZERO_LAYER_TK.items():
+        if tk.plan_name(*shape[1:], r0, r1) != plan:
+            raise AssertionError(f"{shape} {r0}/{r1} is not a {plan} bucket")
+        x = torch.zeros(shape, device="cuda")
+        u0, u1 = tk.tucker2_factors_batched(x, r0, r1, sweeps=SWEEPS)
+        z = tk.tucker2_reconstruct(x, u0, u1)
+        out[f"tucker2_{plan}"] = bool(torch.isfinite(u0).all()
+                                      and torch.isfinite(u1).all()
+                                      and not z.any())
+    for plan, (shape, r) in ZERO_LAYER_TT.items():
+        if sk.plan_name(*shape[1:], r) != plan:
+            raise AssertionError(f"{shape} r={r} is not a {plan} launch")
+        q = sk.dominant_left_subspace_batched(
+            torch.zeros(shape, device="cuda"), r, iters=TT_ITERS)
+        out[f"subspace_{plan}"] = bool(torch.isfinite(q).all())
+    return out
+
+
+def multi_rank_config(seed: int, checkpoint_dir: Optional[str],
+                      device: str = "cuda") -> TrainConfig:
+    return TrainConfig(model="resnet32", dataset="synthetic-cifar10",
+                       synthetic_size=MULTI["synthetic_size"], batch_size=256,
+                       epochs=MULTI["epochs"],
+                       steps_per_epoch=MULTI["steps_per_epoch"],
+                       opt="momentum", lr=0.1, smoothing=0.1, admm=True,
+                       rho=1e-3, fmt="tk", ratio="3", admm_method="kernel",
+                       admm_hooi_iters=6, compute_dtype="bfloat16",
+                       seed=seed, device=device,
+                       checkpoint_dir=checkpoint_dir, print_fn=log)
+
+
+def early_step(seed: int, device: str = "cuda", mesh=None) -> dict:
+    """The multi-rank run's first X-step alone, in float32 with TF32 off:
+    {"loss": its loss, "state": the model's state dict after it (CPU)}."""
+    cfg = dataclasses.replace(multi_rank_config(seed, None, device),
+                              epochs=1, steps_per_epoch=1, compute_dtype=None)
+    with full_f32():
+        model, hist = train_model(cfg, mesh=mesh)
+    return {"loss": hist[0]["train_loss"],
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def early_drift(got: dict, ref: dict, init: dict) -> dict:
+    """`early_step` of the ranks against one process's (see EARLY_TOL)."""
+    def norm(t):
+        return torch.linalg.vector_norm(t.double()).item()
+
+    params = [n for n in init if "running_" not in n
+              and init[n].is_floating_point()]
+    stats = [n for n in init if "running_" in n]
+    a, b = got["state"], ref["state"]
+    return {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "update": max(norm(a[n] - b[n]) / norm(b[n] - init[n])
+                          for n in params),
+            "bn_stats": max(norm(a[n] - b[n]) / norm(b[n]) for n in stats)}
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """One of PLANTED_FAULTS planted in this process's data-parallel
+    X-step for the block ('none' plants nothing): the check's proof that
+    it catches such a fault."""
+    from dnn_compression_tensor_admm_tpu_torch.train import engine
+    saved = engine.convert_global_batchnorm, engine.all_reduce_grads, Mesh.rows
+    if fault == "per_rank_batchnorm":
+        engine.convert_global_batchnorm = lambda model, group, n: model
+    elif fault == "summed_gradients":
+        def summed(params, group, n_ranks):
+            params = list(params)
+            saved[1](params, group, n_ranks)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(n_ranks)
+        engine.all_reduce_grads = summed
+    elif fault == "half_batch":
+        Mesh.rows = lambda self, b: (0, b // self.n_data)
+    elif fault != "none":
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        engine.convert_global_batchnorm, engine.all_reduce_grads, Mesh.rows = \
+            saved
+
+
+def multi_zstep_inputs(fmt: str, seed: int):
+    """ResNet32 @3x in `fmt` from `seed` on the card: (params, program,
+    state) with U = 0.01 N(0, 1) drawn on the host and Z = W."""
+    model = create_model("resnet32",
+                         generator=torch.Generator().manual_seed(seed)).cuda()
+    params = dict(model.named_parameters())
+    program = build_program(params, get_rank_plan("resnet32", fmt, "3"))
+    state = admm_init(params, program)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for n in program.names:
+        state.u[n] = 0.01 * torch.randn(params[n].shape, generator=gen).cuda()
+    return params, program, state
+
+
+def launches_of_block(program, fmt: str, rank: int, ranks: int) -> int:
+    """A rank's launches in one sharded Z-step: a bucket's (TK) or each of
+    its sweep steps' (TT, full-rank steps launch nothing) where its block
+    of the bucket holds a layer."""
+    n = 0
+    for g in program.groups:
+        lo, hi, _ = Mesh(1, ranks, rank).block(len(g.names))
+        if hi > lo:
+            n += 1 if fmt == "tk" else sum(
+                r != rows for rows, _, r in sk.sweep_steps(g.spec.tt_shapes,
+                                                           g.spec.tt_ranks))
+    return n
+
+
+def _multi_rank(rank: int, world: int, init_method: str, workdir: str,
+                seed: int, backend: str) -> None:
+    """One rank of `phase_multi_rank`, in a process of its own: the 2-rank
+    ADMM run (rank 0 writes its train state), its first step alone, sound
+    and with each planted fault, then one sharded Z/U step of each
+    program; its results to `workdir/multi_rank{rank}.pt`."""
+    topo = dist.init_distributed("cuda:0" if backend == "gloo" else "cuda",
+                                 backend=backend, init_method=init_method,
+                                 rank=rank, world_size=world)
+    try:
+        out = {"device": str(topo.device), "backend": topo.backend}
+        mesh = make_mesh(n_layer=1)  # 2 data ranks
+        tk.tucker2_factors_batched.launches = 0
+        sk.dominant_left_subspace_batched.launches = 0
+        t0 = time.perf_counter()
+        model, hist = train_model(multi_rank_config(
+            seed, os.path.join(workdir, "multi_run"), str(topo.device)),
+            mesh=mesh)
+        torch.cuda.synchronize()
+        out["run"] = {
+            "hist": hist, "wall_s": time.perf_counter() - t0,
+            "launches": {"tucker2": tk.tucker2_factors_batched.launches,
+                         "subspace": sk.dominant_left_subspace_batched.launches},
+            "replicated": dist.same_on_every_rank(
+                list(model.state_dict().values()))}
+        out["early"] = {}
+        for fault in ("none", *PLANTED_FAULTS):
+            with planted(fault):
+                out["early"][fault] = early_step(seed, str(topo.device), mesh)
+        zmesh = make_mesh(n_layer=world)  # the Z/U step flattens the mesh
+        for fmt in ("tk", "tt"):
+            params, program, state = multi_zstep_inputs(fmt, seed)
+            tk.tucker2_factors_batched.launches = 0
+            sk.dominant_left_subspace_batched.launches = 0
+            dist.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, res = admm_update(params, state, program, update_u=True,
+                                     method="kernel", n_iter=6, mesh=zmesh)
+            torch.cuda.synchronize()
+            out[fmt] = {
+                "ms": 1000 * (time.perf_counter() - t0),
+                "z": {n: t.cpu() for n, t in state.z.items()},
+                "u": {n: t.cpu() for n, t in state.u.items()},
+                "res": {n: t.cpu() for n, t in res.items()},
+                "nonfinite": int(state.nonfinite),
+                "collectives": dist.counts(),
+                "launches": {
+                    "tucker2": tk.tucker2_factors_batched.launches,
+                    "subspace": sk.dominant_left_subspace_batched.launches}}
+        torch.save(out, os.path.join(workdir, f"multi_rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
+    """ResNet32 TK@3x ADMM over 2 ranks (`parallel/`, spawned processes):
+    the data-parallel X-step with BatchNorm over the global batch, the
+    layer-sharded Z/U step and the evaluation over ranks. Its first X-step
+    is held to the 1-process step within EARLY_TOL, and each planted
+    fault must fail that check; the 2 x 20-step run's distance from the
+    1-process run is printed, its ranks must end replicated and launch the
+    kernel on their own blocks. Then one sharded Z/U step of ResNet32's TK
+    and TT programs, which must give the 1-process step's Z, U and norms
+    bit for bit, each rank launching the kernel of the program on its own
+    blocks; and both kernels on a layer of zeros at each plan
+    (`check_zero_layers`). With one card visible the ranks share it over
+    gloo (NCCL refuses two ranks on one GPU), which runs every collective
+    of the port on CUDA tensors; that measures correctness, not
+    scaling."""
+    t_start = time.perf_counter()
+    ranks = MULTI["ranks"]
+    gpus = torch.cuda.device_count()
+    backend = "nccl" if gpus >= ranks else "gloo"
+    ref_dir = os.path.join(workdir, "multi_ref")
+    tk.tucker2_factors_batched.launches = 0
+    sk.dominant_left_subspace_batched.launches = 0
+    t0 = time.perf_counter()
+    _, ref_hist = train_model(multi_rank_config(seed, ref_dir))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_launches = tk.tucker2_factors_batched.launches
+    ref_early = early_step(seed)
+    ref_zsteps = {}
+    for fmt in ("tk", "tt"):
+        params, program, state = multi_zstep_inputs(fmt, seed)
+        ref_zsteps[fmt] = (program, *admm_update(
+            params, state, program, update_u=True, method="kernel",
+            n_iter=6))
+    del params, state
+    zero_layers = check_zero_layers()
+    torch.cuda.empty_cache()  # the ranks' processes share the card
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=workdir) as rendezvous:
+        spawn(_multi_rank, ranks, file_init_method(rendezvous), workdir,
+              seed, backend, timeout=400)
+    ranks_s = time.perf_counter() - t0
+    outs = [torch.load(os.path.join(workdir, f"multi_rank{r}.pt"),
+                       weights_only=False) for r in range(ranks)]
+    failures = []  # raised after the row is out
+    if not all(zero_layers.values()):
+        failures.append(f"a layer of zeros does not come back a finite 0: "
+                        f"{zero_layers}")
+
+    # the first X-step against one process's, sound and with each fault
+    init = create_model("resnet32", generator=torch.Generator().manual_seed(
+        seed)).state_dict()
+    early = {fault: early_drift(got, ref_early, init)
+             for fault, got in outs[0]["early"].items()}
+    if not all(early["none"][k] <= EARLY_TOL[k] for k in EARLY_TOL):
+        failures.append(f"the 2-rank first step is {early['none']} from the "
+                        f"1-process step (tolerance {EARLY_TOL})")
+    for fault in PLANTED_FAULTS:
+        if all(early[fault][k] <= EARLY_TOL[k] for k in EARLY_TOL):
+            failures.append(f"the planted fault {fault} passes the check: "
+                            f"{early[fault]}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            outs[0]["early"]["none"]["state"].values(),
+            outs[1]["early"]["none"]["state"].values())):
+        failures.append("the ranks' first steps end apart")
+
+    # the 2 x 20-step run: replicated, launches counted, its distance from
+    # the 1-process run printed
+    template = _template_state(create_model("resnet32").state_dict(),
+                               {"model": "resnet32", "ratio": "3"})
+    names = [n for n, _ in create_model("resnet32").named_parameters()]
+    ref = load_train_state(ref_dir, template)[0]
+    got = load_train_state(os.path.join(workdir, "multi_run"), template)[0]
+    ref_losses = [h["train_loss"] for h in ref_hist]
+    losses = [h["train_loss"] for h in outs[0]["run"]["hist"]]
+    if got.step != ref.step or len(losses) != len(ref_losses):
+        failures.append(f"the 2-rank run took {got.step} steps over "
+                        f"{len(losses)} epochs")
+    drift = {"params": _rel_dist({n: got.model[n] for n in names},
+                                 {n: ref.model[n] for n in names}),
+             "z": _rel_dist(got.admm.z, ref.admm.z),
+             "u": _rel_dist(got.admm.u, ref.admm.u),
+             "loss": [abs(a - b) / abs(b)
+                      for a, b in zip(losses, ref_losses)]}
+    program_tk = ref_zsteps["tk"][0]
+    z_steps = 1 + MULTI["epochs"]
+    for r, out in enumerate(outs):
+        run = out["run"]
+        want = z_steps * launches_of_block(program_tk, "tk", r, ranks)
+        if (not run["replicated"] or run["launches"]["tucker2"] != want
+                or run["launches"]["subspace"] != 0
+                or [h["train_loss"] for h in run["hist"]] != losses):
+            failures.append(f"rank {r} of the 2-rank run: {run['launches']} "
+                            f"launches (Tucker-2 expected {want}), replicated "
+                            f"{run['replicated']}")
+    # the sharded Z/U steps against the 1-process step, bit for bit
+    zrows = {}
+    for fmt, kernel in (("tk", "tucker2"), ("tt", "subspace")):
+        program, ref_state, ref_res = ref_zsteps[fmt]
+        other = "subspace" if kernel == "tucker2" else "tucker2"
+        zrows[fmt] = {"buckets": len(program.groups),
+                      "layers": len(program.names), "bit_for_bit": [],
+                      "launches_per_rank": [], "ms_per_rank_host_clock": [],
+                      "all_gathers_per_rank": []}
+        for r, out in enumerate(outs):
+            z = out[fmt]
+            want = launches_of_block(program, fmt, r, ranks)
+            equal = all(
+                torch.equal(z["z"][n], ref_state.z[n].cpu())
+                and torch.equal(z["u"][n], ref_state.u[n].cpu())
+                and torch.equal(z["res"][n], ref_res[n].cpu())
+                for n in program.names)
+            for k, v in (("bit_for_bit", equal),
+                         ("launches_per_rank", z["launches"][kernel]),
+                         ("ms_per_rank_host_clock", z["ms"]),
+                         ("all_gathers_per_rank",
+                          z["collectives"]["all_gather"])):
+                zrows[fmt][k].append(v)
+            if (not equal or z["nonfinite"] != int(ref_state.nonfinite)
+                    or z["launches"][kernel] != want or want == 0
+                    or z["launches"][other] != 0
+                    or z["collectives"]["all_gather"]
+                    != 3 * len(program.groups)):
+                failures.append(
+                    f"rank {r}'s sharded {fmt} Z/U step: bit for bit "
+                    f"{equal}, launches {z['launches']} (expected {want}), "
+                    f"collectives {z['collectives']}")
+    steps = MULTI["steps_per_epoch"]
+    emit({"phase": "multi_rank", "card": card, "model": "resnet32 tk@3x",
+          "ranks": ranks, "gpus_visible": gpus, "backend": backend,
+          "devices": [o["device"] for o in outs],
+          "note": ("two ranks sharing one card measure correctness, not "
+                   "scaling" if backend == "gloo" else
+                   "one GPU per rank"),
+          "global_batch": 256, "depth_cut": CUT["r32_tk3_2rank"],
+          "first_step_vs_one_process": early["none"],
+          "first_step_planted_faults": {f: early[f] for f in PLANTED_FAULTS},
+          "first_step_tolerance": EARLY_TOL,
+          "first_step_loss": {"one_process": ref_early["loss"],
+                              **{f: outs[0]["early"][f]["loss"]
+                                 for f in early}},
+          "drift_after_40_steps": drift,
+          "train_loss_one_process": ref_losses,
+          "train_loss_two_ranks": losses,
+          "launches_one_process": ref_launches,
+          "launches_per_rank": [o["run"]["launches"]["tucker2"] for o in outs],
+          "x_step_ms_per_rank": [
+              1000 * o["run"]["hist"][-1]["x_step_s"] / steps for o in outs],
+          "x_step_ms_one_process": 1000 * ref_hist[-1]["x_step_s"] / steps,
+          "z_step_ms_per_rank": [1000 * o["run"]["hist"][-1]["z_step_s"]
+                                 for o in outs],
+          "z_step_ms_one_process": 1000 * ref_hist[-1]["z_step_s"],
+          "sharded_zstep": zrows, "zero_layer_finite_zero": zero_layers,
+          "one_process_run_s": ref_s,
+          "ranks_wall_s": ranks_s,
+          "ranks_run_wall_s": [o["run"]["wall_s"] for o in outs],
+          "failures": failures, "wall_s": time.perf_counter() - t_start})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 RECORDED_MS = {
     "first_version_ms_per_z_step": {"tucker2_factors_batched": 7.85,
                                     "dominant_left_subspace_batched": 15.13},
@@ -2237,7 +2650,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     emit({"phase": "device", "name": kind, "count": count, "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "wall_s": time.perf_counter() - t_start})
 
     t0 = time.perf_counter()
     libraries = ("tucker2_factors", "tucker2_factors_ws", "subspace",
@@ -2455,8 +2869,8 @@ def main() -> int:
                                    near_cap=())
     launches_mbv2_tt_z = phase_zstep(args.seed, "mobilenetv2", "tt", "2",
                                      len(launches_mbv2_tt))
-    # each synthetic CIFAR set made once for all the phases that read it
-    with shared_cifar_sets() as cifar_sets, \
+    # each synthetic set made once for all the phases that read it
+    with shared_sets() as sets, \
             tempfile.TemporaryDirectory() as workdir:
         phase_stiefel(args.seed, smi)
         launches_tk_main = phase_main(args.seed, smi, "tk", len(buckets),
@@ -2482,7 +2896,8 @@ def main() -> int:
                                                  len(launches_deit), workdir)
         phase_nlp(args.seed, smi, workdir)
         phase_export(args.seed, smi, workdir)
-        emit({"phase": "shared_sets", "made": [list(k) for k in cifar_sets]})
+        phase_multi_rank(args.seed, smi, workdir)
+        emit({"phase": "shared_sets", "made": [list(k) for k in sets]})
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"phase": "recorded", "source": "PERF.md, not this run",
@@ -2527,7 +2942,6 @@ def main() -> int:
         one = kernel_summary(name, path, source,
                              ref + "tucker_kernel.py:142", n, rows,
                              library_key)
-        one["hosvd_ms"] = sum(r["hosvd_ms"] for r in rows)
         entries.append(one)
     # (13 DeiT-TT launches take the workspace plan, its own source)
     for name, path, n, rows, source in (
@@ -2554,7 +2968,6 @@ def main() -> int:
         one = kernel_summary(name, path, source,
                              ref + "subspace_kernel.py:85", n, rows,
                              "library_ms_batched_svd")
-        one["gram_ms"] = sum(r["gram_ms"] for r in rows)
         entries.append(one)
     emit({"kernels": entries})
     print(smi, flush=True)

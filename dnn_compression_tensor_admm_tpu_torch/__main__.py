@@ -1,3 +1,7 @@
 from .cli.main import main
+from .parallel import shutdown
 
-main()
+try:
+    main()
+finally:
+    shutdown()  # leave the process group of a multi-rank launch

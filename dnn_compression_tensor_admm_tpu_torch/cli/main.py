@@ -34,6 +34,12 @@ streams `train-*.dcta` shards (made with `data/records.py::write_shards`)
 through the native loader, which the port builds from
 `native/dataloader.cc` at first use, and evaluates on `val-*.dcta`;
 `--shard-cache hbm` reads them whole onto the device-resident route.
+Several ranks: `torchrun --nproc-per-node N -m
+dnn_compression_tensor_admm_tpu_torch ...` runs the JAX package's mesh
+run, one process a rank (NCCL with one GPU each, or gloo with `--device
+cpu`): `--layer-shards L` ranks along the mesh's 'layer' axis (the Z/U
+step's layers are sharded over all ranks), the rest along 'data' (the
+global `--batch-size` cut over them); only rank 0 prints and writes.
 `--flops` prints the model's FLOPs and parameters (and the dense model's
 beside a compressed one) and exits; `--profile-dir D` writes a
 `torch.profiler` Chrome trace of the first epoch's X-step to
@@ -165,6 +171,9 @@ def parse_args(argv=None):
                    help="write a torch.profiler trace of the first epoch's "
                         "X-step to DIR/trace.json (later epochs of the "
                         "process run slower after it: trace a short run)")
+    p.add_argument("--layer-shards", default=1, type=int,
+                   help="ranks along the mesh 'layer' axis (ADMM Z-step "
+                        "layer sharding); the rest go to 'data'")
     p.add_argument("--shard-dir", default=None, type=str,
                    help="directory of DCTA record shards (train-*.dcta / "
                         "val-*.dcta) streamed by the native loader")
@@ -224,18 +233,30 @@ def export_all(args, model, info, num_classes: int) -> dict:
 def main(argv=None):
     args = parse_args(argv)
 
-
     from ..configs.resolver import get_rank_plan
     from ..data.augment import parse_randaugment
     from ..data.datasets import dataset_info, load_dataset
     from ..models import (compression_ratio, create_model, decompose_params,
                           parse_compressed_name)
+    from ..parallel import init_distributed, is_main_process, make_mesh
     from ..train import TrainConfig, eval_runtime, evaluate_model, train_model
     from ..utils.checkpoint import load_any_variables, save_variables
-    from ..utils.device import resolve_device
     from ..utils.jax_weights import state_dict_to_jax
 
-    device = resolve_device(args.device)
+    # the process group first (a no-op in one process), then the grid
+    topo = init_distributed(args.device)
+    device = topo.device
+    main_rank = is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
+    mesh = None
+    if topo.world_size > 1:
+        try:
+            mesh = make_mesh(args.layer_shards)
+        except ValueError as e:
+            raise SystemExit(f"ERROR: {e}") from None
+        say(json.dumps({"mesh": {"data": mesh.n_data, "layer": mesh.n_layer},
+                        "world_size": topo.world_size,
+                        "backend": topo.backend}))
     compressed = parse_compressed_name(args.model)
     if args.admm and compressed is not None:
         raise SystemExit("ERROR: --admm requires an uncompressed model name")
@@ -256,7 +277,7 @@ def main(argv=None):
             rep["dense_flops"] = drep["flops"]
             rep["param_ratio"] = drep["params"] / rep["params"]
             rep["flop_ratio"] = drep["flops"] / rep["flops"]
-        print(json.dumps(rep))
+        say(json.dumps(rep))
         return rep
 
     def template(name, **model_kw):
@@ -279,7 +300,7 @@ def main(argv=None):
         init_state = decompose_params(dense.to(device).state_dict(), plan)
         model = create_model(args.model, num_classes=num_classes, **kw)
         model.load_state_dict(init_state)
-        print(f"decomposed {args.model_path}: compression "
+        say(f"decomposed {args.model_path}: compression "
               f"{compression_ratio(dense, model):.2f}x")
     elif args.pretrained:
         if not args.model_path:
@@ -298,7 +319,7 @@ def main(argv=None):
         model.load_state_dict(init_state)
         model.to(device)
         if exports:
-            r = export_all(args, model, info, num_classes)
+            r = export_all(args, model, info, num_classes) if main_rank else {}
             if not (args.eval or args.runtime):
                 return r
         if args.runtime:
@@ -307,8 +328,9 @@ def main(argv=None):
         else:
             x, y, _ = load_dataset(args.dataset, False, args.synthetic_size,
                                    args.data_dir)
-            r = evaluate_model(model, x, y, info, compute_dtype=compute_dtype)
-        print(json.dumps(r))
+            r = evaluate_model(model, x, y, info, compute_dtype=compute_dtype,
+                               mesh=mesh)
+        say(json.dumps(r))
         return r
 
     randaug = parse_randaugment(args.aa)
@@ -351,12 +373,12 @@ def main(argv=None):
     if args.save_log:
         os.makedirs(args.output_dir, exist_ok=True)
         cfg.log_path = os.path.join(args.output_dir, f"{tag}_{ts}.log")
-    model, history = train_model(cfg, init_state_dict=init_state)
-    if args.save_model:
+    model, history = train_model(cfg, init_state_dict=init_state, mesh=mesh)
+    if args.save_model and main_rank:
         os.makedirs(args.output_dir, exist_ok=True)
         path = os.path.join(args.output_dir, f"{tag}_{ts}_model.msgpack")
         save_variables(path, state_dict_to_jax(model.state_dict()))
-        print(f"saved model to {path}")
+        say(f"saved model to {path}")
     return model, history
 
 

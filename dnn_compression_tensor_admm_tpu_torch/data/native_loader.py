@@ -68,6 +68,11 @@ def get_lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int]
+    lib.dcta_loader_create_strided.restype = ctypes.c_void_p
+    lib.dcta_loader_create_strided.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.dcta_loader_batch_spec.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
@@ -84,17 +89,25 @@ class NativeLoader:
     """Iterates (images [B, H, W, C] uint8, labels [B] int32, n_valid):
     `workers` threads read, shuffle (from `seed`) and batch the shards,
     `PREFETCH` batches ahead. With `loop` it goes on past the last record;
-    with `drop_last` a short last batch is dropped."""
+    with `drop_last` a short last batch is dropped. With `stride` > 1 it
+    serves only rows offset::stride of the shards' global sample index
+    (`parallel.dist.partition_shard_paths`: disjoint across offsets)."""
 
     def __init__(self, shard_paths: Sequence[str], batch_size: int,
                  workers: int = 4, seed: int = 0,
-                 drop_last: bool = False, loop: bool = False):
+                 drop_last: bool = False, loop: bool = False,
+                 stride: int = 1, offset: int = 0):
         self._lib = get_lib()
         arr = (ctypes.c_char_p * len(shard_paths))(
             *[os.fsencode(p) for p in shard_paths])
-        self._ptr = self._lib.dcta_loader_create(
-            arr, len(shard_paths), batch_size, workers, PREFETCH, seed,
-            int(drop_last), int(loop))
+        if stride > 1:
+            self._ptr = self._lib.dcta_loader_create_strided(
+                arr, len(shard_paths), batch_size, workers, PREFETCH, seed,
+                int(drop_last), int(loop), stride, offset)
+        else:
+            self._ptr = self._lib.dcta_loader_create(
+                arr, len(shard_paths), batch_size, workers, PREFETCH, seed,
+                int(drop_last), int(loop))
         if not self._ptr:
             raise RuntimeError(f"cannot open the shards "
                                f"{list(shard_paths)[:2]}...")

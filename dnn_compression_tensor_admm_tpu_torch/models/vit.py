@@ -10,12 +10,14 @@ or Tucker-2 linears iff their canonical name ('blocks.0.attn.qkv.weight',
 package: LayerNorm eps 1e-6, exact GELU, attention written out with its
 softmax in float32, and the head in float32 whatever the autocast type.
 Drop path draws from a generator the caller passes to `forward`, never
-from the global one.
+from the global one; a data-parallel step passes a `BatchRows` instead,
+and drop path draws the masks of the whole global batch and keeps this
+rank's rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -38,17 +40,33 @@ def _layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=1e-6)
 
 
-def drop_path(x: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+class BatchRows(NamedTuple):
+    """The `generator` of a data-parallel step: x holds rows
+    [lo, lo + len(x)) of a batch of `total`, and drop path draws all
+    `total` masks from `generator`, as one process running the whole
+    batch would, and keeps x's."""
+    generator: torch.Generator
+    total: int
+    lo: int
+
+
+Draws = Union[torch.Generator, BatchRows, None]
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: Draws) -> torch.Tensor:
     """Zero whole samples with probability `rate`, scale the rest by
-    1/(1 - rate); `generator` draws the mask on x's device."""
+    1/(1 - rate); `generator` draws the mask on x's device (a `BatchRows`:
+    the global batch's masks, of which x's rows are kept)."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("drop path in training needs a generator")
     keep = 1.0 - rate
-    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device,
-                      generator=generator) < keep
+    total, lo = x.shape[0], 0
+    if isinstance(generator, BatchRows):
+        generator, total, lo = generator
+    mask = torch.rand((total,) + (1,) * (x.dim() - 1), device=x.device,
+                      generator=generator)[lo:lo + x.shape[0]] < keep
     return x * mask.to(x.dtype) / keep
 
 
@@ -103,8 +121,7 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), f"{prefix}.mlp", plan, mode,
                        generator)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Draws) -> torch.Tensor:
         rate = self.drop_path if self.training else 0.0
         x = x + drop_path(self.attn(self.norm1(x)), rate, generator)
         return x + drop_path(self.mlp(self.norm2(x)), rate, generator)
@@ -149,9 +166,10 @@ class VisionTransformer(nn.Module):
         _trunc_normal_(self.head.weight, generator)
         nn.init.zeros_(self.head.bias)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """`generator` draws the drop-path masks in training."""
+    def forward(self, x: torch.Tensor, generator: Draws = None
+                ) -> torch.Tensor:
+        """`generator` draws the drop-path masks in training (a
+        `BatchRows` in a data-parallel step)."""
         y = self.patch_embed(x)
         cls = self.cls_token.expand(y.shape[0], -1, -1).to(y.dtype)
         y = torch.cat([cls, y], dim=1) + self.pos_embed.to(y.dtype)

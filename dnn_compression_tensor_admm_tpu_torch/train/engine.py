@@ -24,6 +24,16 @@ BatchNorm buffers). With `checkpoint_dir` the whole train state
 the generators) is written after each epoch's row; `resume` restores it
 and goes on at the next epoch, with the same batches, crops, flips, lr and
 Z-steps as a run that never stopped.
+
+With a `mesh` (`parallel/mesh.py`, one process per rank) the run is the
+JAX package's mesh run: `batch_size` is the global batch, which every rank
+draws and augments from identically seeded generators (a streamed one is
+gathered from the data ranks' strided loaders) and cuts along 'data'; the
+BatchNorms normalise over the global batch and the gradients are averaged
+over the data ranks (`parallel/data_parallel.py`), so n ranks compute what
+one computes up to the order of the reductions. The Z/U step is sharded
+over layers (`admm_update(mesh=)`), evaluation over the data ranks' rows,
+and only the main process logs and writes.
 """
 
 from __future__ import annotations
@@ -51,8 +61,12 @@ from ..data.device_pipeline import (DevicePrefetcher, augment_batch,
                                     batch_at_views, normalize,
                                     random_crop_flip, sample_batch,
                                     sample_batch_repeated, shuffle_epoch)
-from ..data.records import read_shard, shard_shape
+from ..data.records import read_shard, shard_sample_count, shard_shape
 from ..models import create_model, parse_compressed_name
+from ..models.vit import BatchRows
+from ..parallel import dist
+from ..parallel.data_parallel import (all_reduce_grads,
+                                      convert_global_batchnorm, gather_rows)
 from ..utils.device import resolve_device
 from ..utils.profiling import PhaseTimer, trace
 from .losses import (DISTILLATION_TYPES, cross_entropy, distillation_loss,
@@ -174,9 +188,18 @@ def _model_device(model: torch.nn.Module) -> torch.device:
 @torch.no_grad()
 def evaluate_model(model: torch.nn.Module, x_np: np.ndarray, y_np: np.ndarray,
                    info: DatasetInfo, batch_size: int = 512,
-                   compute_dtype: Optional[str] = None) -> Dict[str, float]:
+                   compute_dtype: Optional[str] = None,
+                   mesh=None) -> Dict[str, float]:
     """Top-1/top-5 accuracy (%) and mean CE over a uint8 NHWC eval set,
-    on the model's device."""
+    on the model's device. With a `mesh` of several data ranks, each
+    evaluates the rows d::n_data in batches of batch_size / n_data and the
+    sums are all-reduced over the data ranks (the JAX package's
+    `_evaluate_on_mesh`): every sample counts once, an odd tail too."""
+    dp = mesh is not None and mesh.n_data > 1
+    if dp:
+        x_np = x_np[mesh.data_index::mesh.n_data]
+        y_np = y_np[mesh.data_index::mesh.n_data]
+        batch_size = max(1, batch_size // mesh.n_data)
     dev = _model_device(model)
     images = torch.from_numpy(x_np).to(dev)
     labels = torch.from_numpy(y_np).long().to(dev)
@@ -194,6 +217,10 @@ def evaluate_model(model: torch.nn.Module, x_np: np.ndarray, y_np: np.ndarray,
         t5 += (top == y[:, None]).any(-1).sum()
         ls += F.cross_entropy(logits, y, reduction="sum")
     n = images.shape[0]
+    if dp:
+        sums = torch.stack([t1, t5, ls, torch.tensor(float(n), device=dev)])
+        dist.all_reduce(sums, mesh.data_group)
+        t1, t5, ls, n = sums[0], sums[1], sums[2], sums[3].item()
     return {"acc1": 100.0 * t1.item() / n, "acc5": 100.0 * t5.item() / n,
             "loss": ls.item() / n}
 
@@ -258,14 +285,19 @@ def _make_teacher(cfg: TrainConfig, num_classes: int,
 
 def train_model(cfg: TrainConfig, *,
                 init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                max_epochs: Optional[int] = None):
+                max_epochs: Optional[int] = None, mesh=None):
     """Train `cfg.model` (ADMM with `cfg.admm`) -> (model, history).
 
     `init_state_dict` (e.g. from `decompose_params`) replaces the random
     init for the fine-tune phase. `max_epochs` stops the run after that
     many epochs (counted from the first, a resumed run's included) while
-    the schedule and the rho boost still count `cfg.epochs`."""
-    log = cfg.print_fn
+    the schedule and the rho boost still count `cfg.epochs`. `mesh`: this
+    process's rank on a (data, layer) grid (see the module docstring);
+    every rank returns the same history."""
+    main = mesh is None or mesh.rank == 0
+    log = cfg.print_fn if main else (lambda *a, **k: None)
+    dp = mesh is not None and mesh.n_data > 1
+    rows = mesh.rows(cfg.batch_size) if dp else (0, cfg.batch_size)
     device = resolve_device(cfg.device)
     if cfg.sampling not in SAMPLING:
         raise ValueError(f"unknown sampling {cfg.sampling!r}; choose from "
@@ -298,14 +330,28 @@ def train_model(cfg: TrainConfig, *,
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict)
     model.to(device)
+    if dp:
+        convert_global_batchnorm(model, mesh.data_group, mesh.n_data)
     params = dict(model.named_parameters())
-    if streaming:
+    # on a mesh the ranks of layer index 0 read the shards (each data
+    # rank its part) and the others take the global batch from them, as
+    # the JAX mesh replicates it along 'layer': two loaders of the same
+    # rows would hand them out in the order their threads finish
+    reads = streaming and (mesh is None or mesh.layer_index == 0)
+    if reads:
         from ..data.native_loader import NativeLoader
-        loader = NativeLoader(train, cfg.batch_size,
-                              workers=cfg.loader_workers, seed=cfg.seed,
-                              drop_last=True, loop=True)
+        paths, seed, stride, offset = dist.partition_shard_paths(
+            train, mesh.data_index if dp else 0, mesh.n_data if dp else 1,
+            cfg.seed)
+        loader = NativeLoader(paths, rows[1] - rows[0],
+                              workers=cfg.loader_workers, seed=seed,
+                              drop_last=True, loop=True, stride=stride,
+                              offset=offset)
         stream = DevicePrefetcher(loader, device)
         n_train = loader.total
+    if streaming:
+        if mesh is not None:  # the same steps on every rank
+            n_train = sum(shard_sample_count(p) for p in train)
     else:
         images = torch.from_numpy(x_tr).to(device)
         labels = torch.from_numpy(y_tr).long().to(device)
@@ -361,7 +407,7 @@ def train_model(cfg: TrainConfig, *,
     elif program is not None:
         admm, _ = admm_update(params, admm, program, update_u=False,
                               method=cfg.admm_method,
-                              n_iter=cfg.admm_hooi_iters)
+                              n_iter=cfg.admm_hooi_iters, mesh=mesh)
 
     criterion = _criterion(cfg)
     repeats = cfg.repeated_aug
@@ -369,12 +415,27 @@ def train_model(cfg: TrainConfig, *,
     timer = PhaseTimer()
 
     def epoch_batches():
-        """The epoch's (uint8 NHWC images, labels) a step: streamed, or
-        picked from the device-resident set by the epoch's sampling mode
-        ('replacement' where the set is smaller than a batch)."""
+        """The epoch's global (uint8 NHWC images, labels) a step: streamed
+        (gathered from the data ranks' slices), or picked from the
+        device-resident set by the epoch's sampling mode ('replacement'
+        where the set is smaller than a batch)."""
         if streaming:
             for _ in range(steps):
-                yield next(stream)
+                if reads:
+                    xb, yb = next(stream)
+                    if dp:
+                        xb = gather_rows(xb, mesh.data_group)
+                        yb = gather_rows(yb, mesh.data_group)
+                if mesh is not None and mesh.n_layer > 1:
+                    if not reads:
+                        xb = torch.empty((cfg.batch_size, *held),
+                                         dtype=torch.uint8, device=device)
+                        yb = torch.empty(cfg.batch_size, dtype=torch.long,
+                                         device=device)
+                    src = mesh.data_index * mesh.n_layer  # its layer 0
+                    dist.broadcast(xb, src, mesh.layer_group)
+                    dist.broadcast(yb, src, mesh.layer_group)
+                yield xb, yb
             return
         n = images.shape[0]
         mode = cfg.sampling if n >= cfg.batch_size else "replacement"
@@ -396,12 +457,15 @@ def train_model(cfg: TrainConfig, *,
             yield images[idx], labels[idx]
 
     def one_step(x, target, step, rho):
-        """One optimizer step on augmented `x` -> (step + 1, loss, logits)."""
+        """One optimizer step on augmented `x` -> (step + 1, loss, logits);
+        data-parallel, x is this rank's rows of the global batch and the
+        loss its rows' mean plus the penalty."""
         lr = schedule(step)
         for group in opt.param_groups:
             group["lr"] = lr
         with _autocast(device, cfg.compute_dtype):
-            logits = model(x, generator=gen)
+            logits = model(x, generator=BatchRows(gen, cfg.batch_size,
+                                                  rows[0]) if dp else gen)
         loss = criterion(logits, target)
         if teacher is not None:
             with torch.no_grad(), _autocast(device, cfg.compute_dtype):
@@ -416,6 +480,8 @@ def train_model(cfg: TrainConfig, *,
             loss = loss + orthogonal_penalty(params, rho)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if dp:
+            all_reduce_grads(params.values(), mesh.data_group, mesh.n_data)
         if cfg.clip_grad is not None:
             torch.nn.utils.clip_grad_norm_(clipped, cfg.clip_grad)
         opt.step()
@@ -440,7 +506,8 @@ def train_model(cfg: TrainConfig, *,
                 admm, residuals = admm_update(params, admm, program,
                                               update_u=True,
                                               method=cfg.admm_method,
-                                              n_iter=cfg.admm_hooi_iters)
+                                              n_iter=cfg.admm_hooi_iters,
+                                              mesh=mesh)
                 names = sorted(residuals)
                 vals = torch.stack([residuals[n] for n in names]).tolist()
                 row["z_step_s"] = time.perf_counter() - t0
@@ -457,8 +524,9 @@ def train_model(cfg: TrainConfig, *,
             model.train()
             loss_sum = torch.zeros((), device=device)
             acc_sum = torch.zeros((), device=device)
-            profiled = cfg.profile_dir is not None and epoch == start_epoch
-            if streaming:
+            profiled = (cfg.profile_dir is not None and epoch == start_epoch
+                        and main)
+            if reads:
                 host_s, batches = stream.host_s, stream.batches
                 wait_s = stream.wait_s
             with (trace(cfg.profile_dir) if profiled
@@ -483,13 +551,22 @@ def train_model(cfg: TrainConfig, *,
                                             mixup_alpha=cfg.mixup,
                                             cutmix_alpha=cfg.cutmix),
                             num_classes=num_classes, smoothing=cfg.smoothing)
+                    if dp:  # this rank's rows of the global batch
+                        x, target, yb = (t[rows[0]:rows[1]]
+                                         for t in (x, target, yb))
                     step, loss, logits = one_step(x, target, step, rho)
                     loss_sum += loss.detach()
                     acc_sum += (logits.argmax(-1) == yb).float().mean()
             train_loss = loss_sum.item() / steps
+            train_acc = acc_sum.item() / steps
+            if dp:  # the means over the data ranks
+                means = dist.all_reduce_metrics(
+                    {"loss": train_loss, "acc": train_acc}, mesh.data_group,
+                    device)
+                train_loss, train_acc = means["loss"], means["acc"]
             row["x_step_s"] = time.perf_counter() - t_x
             timer.add("x_step", row["x_step_s"])
-            if streaming:
+            if reads:
                 row["loader_host_ms_per_batch"] = (
                     1000 * (stream.host_s - host_s)
                     / max(1, stream.batches - batches))
@@ -500,30 +577,32 @@ def train_model(cfg: TrainConfig, *,
                                                     "trace.json")
             if not math.isfinite(train_loss):
                 raise FloatingPointError(f"loss is {train_loss}, stopping")
-            row.update(train_loss=train_loss, train_acc=acc_sum.item() / steps,
+            row.update(train_loss=train_loss, train_acc=train_acc,
                        epoch_time_s=time.perf_counter() - t0)
             if x_va is not None and ((epoch + 1) % cfg.eval_every == 0
                                      or epoch + 1 == epochs):
                 ev = evaluate_model(model, x_va, y_va, info,
-                                    compute_dtype=cfg.compute_dtype)
+                                    compute_dtype=cfg.compute_dtype,
+                                    mesh=mesh)
                 row.update({f"test_{k}": v for k, v in ev.items()})
                 if ema is not None:
                     with _swapped(params, ema):
                         ev = evaluate_model(model, x_va, y_va, info,
-                                            compute_dtype=cfg.compute_dtype)
+                                            compute_dtype=cfg.compute_dtype,
+                                            mesh=mesh)
                     row.update({f"ema_test_{k}": v for k, v in ev.items()})
             history.append(row)
             log(json.dumps(row))
-            if cfg.checkpoint_dir:
+            if cfg.checkpoint_dir and main:
                 save_train_state(cfg.checkpoint_dir, train_state(step, epoch),
                                  {"model": cfg.model})
-            if cfg.log_path:
+            if cfg.log_path and main:
                 with open(cfg.log_path, "a") as f:
                     f.write(json.dumps(row) + "\n")
     finally:
-        if streaming:
+        if reads:
             stream.close()
             loader.close()
-    if cfg.profile_dir:
+    if cfg.profile_dir and main:
         timer.log(log)
     return model, history

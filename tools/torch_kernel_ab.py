@@ -61,6 +61,7 @@ from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.precision import full_f32  # noqa: E402
+from torch_kernel_times import FEW_LAUNCHES  # noqa: E402  (tools/ is on the path)
 
 
 
@@ -256,7 +257,7 @@ def main() -> int:
                              sweeps=sweeps)
 
         both = plan != "workspace" or base_ws
-        graph = cs.TK_WS_GRAPH if plan == "workspace" else None
+        graph = FEW_LAUNCHES if plan == "workspace" else None
         p0, p1 = tk.tucker2_factors_plain(x, r0, r1, sweeps=cs.SWEEPS)
         row = {"kernel": "tucker2_factors", "path": path,
                "shape": list(shape), "ranks": [r0, r1], "plan": plan}
