@@ -144,7 +144,16 @@ prints one JSON line per phase:
    with its launches counted, its distance from the 1-process run
    printed; then one sharded Z/U step of ResNet32's TK and TT programs,
    bit for bit the 1-process step's, each rank launching the kernel on
-   its own blocks.
+   its own blocks;
+8. fused   — `--epochs-per-dispatch` (`train/capture.py`) on ResNet32
+   TK@3x and DeiT-tiny TT@2x at full width: a chunk of 2 epochs x 3 steps
+   (each epoch's Z/U step and X-steps replayed from CUDA graphs) against
+   the per-epoch route in float32 (TF32 off, cuDNN deterministic) from
+   the same weights and seed, each epoch's loss and the weights, Z and U
+   within FUSED_TOL, and three planted faults (FUSED_FAULTS) that must
+   each fail that gate; every replay under the sync debug mode 'error',
+   5 and 33 launches a Z-step in both routes; then both routes in bf16
+   at 2 x 20 steps, ms a step and ADMM it/s printed. Under 60 s.
 
 Each phase prints its `wall_s`. Kernel times in this check are device
 times from CUDA graphs of a few launches (CHECK_GRAPH), the plain
@@ -1179,10 +1188,11 @@ CUT["run_flagship_sh"] = ("200 ADMM epochs of 196 steps, then 150 fine-tune "
 @contextlib.contextmanager
 def recorded_lr():
     """The lr of every optimizer step taken inside the block, in order
-    (a global step hook: it reads `param_groups` after each step)."""
+    (a global step hook: it reads `param_groups` after each step; the lr
+    there is a 0-d tensor on the card, read back per step)."""
     lrs = []
     handle = register_optimizer_step_post_hook(
-        lambda opt, args, kwargs: lrs.append(opt.param_groups[0]["lr"]))
+        lambda opt, args, kwargs: lrs.append(float(opt.param_groups[0]["lr"])))
     try:
         yield lrs
     finally:
@@ -1456,7 +1466,9 @@ def phase_r56(seed: int, card: str, launches_per_z_step: int, workdir: str):
     finetune_s = time.perf_counter() - t0
     schedule = make_schedule("step", path["ft_lr"], path["ft_epochs"],
                              path["ft_steps"], decay_epochs=1)
-    if list(ft_lrs) != [schedule(i) for i in range(len(ft_lrs))] or len(
+    # the optimizer reads the schedule from a float32 table on the card
+    if list(ft_lrs) != [float(np.float32(schedule(i)))
+                        for i in range(len(ft_lrs))] or len(
             ft_lrs) != path["ft_epochs"] * path["ft_steps"]:
         raise AssertionError(f"fine-tune lr {list(ft_lrs)}")
     ema_rows = [h for h in ft_hist if "ema_test_loss" in h]
@@ -2603,6 +2615,254 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
         raise AssertionError("; ".join(failures))
 
 
+# Fused epochs (`--epochs-per-dispatch`, `train/capture.py`) on two main
+# paths at full width, ResNet32 TK@3x (`tk`) and DeiT-tiny TT@2x (`deit`),
+# each with its evaluation past the last epoch, so that one chunk holds
+# every epoch. The gate: a chunk of gate_epochs x gate_steps in float32
+# (TF32 off, cuDNN deterministic) against the per-epoch route from the
+# same weights and seed: each epoch's loss (relative difference) and the
+# weights, Z and U (||A - B|| / ||B||) within FUSED_TOL. Each of
+# FUSED_FAULTS, planted here by substitution, must fail it: Z and U
+# written out of place (the step's graph keeps the first Z), the lr
+# written from the host (frozen at its capture value), the device
+# generator not registered with the graphs. Then both routes in bf16 at
+# timed_epochs x timed_steps, timed and printed only.
+FUSED = dict(paths=("tk", "deit"), gate_epochs=2, gate_steps=3,
+             timed_epochs=2, timed_steps=20)
+FUSED_TOL = {"loss": 1e-5, "params": 1e-4, "z": 1e-4, "u": 1e-4}
+FUSED_FAULTS = ("zu_out_of_place", "lr_frozen", "generator_not_registered")
+FUSED_WALL_LIMIT_S = 60.0
+
+
+def fused_config(key: str, seed: int, epochs: int, steps: int,
+                 per_dispatch: int, compute_dtype) -> TrainConfig:
+    path = PATHS[key]
+    return TrainConfig(model=path["dense"], dataset=path["dataset"],
+                       synthetic_size=path["synthetic_size"],
+                       batch_size=path["batch_size"], epochs=epochs,
+                       steps_per_epoch=steps, opt=path["opt"], lr=path["lr"],
+                       smoothing=0.1, admm=True, rho=1e-3, fmt=path["fmt"],
+                       ratio=path["ratio_arg"], admm_method="kernel",
+                       admm_hooi_iters=6, eval_every=epochs + 1,
+                       epochs_per_dispatch=per_dispatch,
+                       compute_dtype=compute_dtype, seed=seed, device="cuda",
+                       print_fn=log)
+
+
+@contextlib.contextmanager
+def planted_fused(fault: str):
+    """One of FUSED_FAULTS planted in the fused route for the block
+    ('none' plants nothing)."""
+    from dnn_compression_tensor_admm_tpu_torch.train import (capture, engine,
+                                                             optim)
+    saved = (engine.admm_update_, optim.LrTable.__init__,
+             optim.LrTable.advance, capture.register_generators)
+    if fault == "zu_out_of_place":
+        def out_of_place(params, state, program, **kw):
+            new, residuals = admm_update(params, state, program, **kw)
+            state.z.update(new.z)
+            state.u.update(new.u)
+            state.nonfinite = new.nonfinite
+            return residuals
+        engine.admm_update_ = out_of_place
+    elif fault == "lr_frozen":
+        def init(self, schedule, total_steps, device, step=0):
+            saved[1](self, schedule, total_steps, device, step)
+            self.host = [[schedule(s) for s in range(total_steps)], step]
+
+        def advance(self):  # a Python float: a capture keeps its value
+            values, at = self.host
+            self.lr.fill_(values[at])
+            self.host[1] = at + 1
+            self.step += 1
+        optim.LrTable.__init__, optim.LrTable.advance = init, advance
+    elif fault == "generator_not_registered":
+        capture.register_generators = lambda graph, generators: None
+    elif fault != "none":
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        (engine.admm_update_, optim.LrTable.__init__, optim.LrTable.advance,
+         capture.register_generators) = saved
+
+
+@contextlib.contextmanager
+def observed_fused():
+    """Keeps the run's ADMM state (the one its Z/U steps write), its
+    chunk runner, and the sync debug mode at each graph replay."""
+    from dnn_compression_tensor_admm_tpu_torch.train import capture, engine
+    seen = {"modes": []}
+    saved = engine.admm_update_, capture.EpochChunks.run, capture._Graph.replay
+
+    def update(params, state, program, **kw):
+        seen["state"] = state
+        return saved[0](params, state, program, **kw)
+
+    def run(self, k):
+        seen["chunks"] = self
+        return saved[1](self, k)
+
+    def replay(self):
+        seen["modes"].append(torch.cuda.get_sync_debug_mode())
+        saved[2](self)
+
+    engine.admm_update_ = update
+    capture.EpochChunks.run, capture._Graph.replay = run, replay
+    try:
+        yield seen
+    finally:
+        engine.admm_update_ = saved[0]
+        capture.EpochChunks.run, capture._Graph.replay = saved[1:]
+
+
+def fused_run(key: str, seed: int, per_dispatch: int, compute_dtype,
+              epochs: int, steps: int, fault: str = "none") -> dict:
+    """One ADMM run of PATHS[key]: its rows, weights, Z and U, launches
+    of both kernels, wall time, and the fused route's capture time and
+    replays."""
+    path = PATHS[key]
+    cfg = fused_config(key, seed, epochs, steps, per_dispatch, compute_dtype)
+    tk.tucker2_factors_batched.launches = 0
+    sk.dominant_left_subspace_batched.launches = 0
+    t0 = time.perf_counter()
+    with planted_fused(fault), observed_fused() as seen:
+        model, hist = train_model(cfg)
+        torch.cuda.synchronize()
+    state = seen["state"]
+    chunks = seen.get("chunks")
+    return {"hist": hist, "losses": [h["train_loss"] for h in hist],
+            "params": {n: p.detach().clone()
+                       for n, p in model.named_parameters()},
+            "z": dict(state.z), "u": dict(state.u),
+            "launches": path["kernel"].launches,
+            "other": path["other"].launches,
+            "wall_s": time.perf_counter() - t0,
+            "capture_s": chunks.capture_s if chunks else None,
+            "replays": len(seen["modes"]),
+            "replays_in_error_mode": seen["modes"].count(2)}
+
+
+@contextlib.contextmanager
+def deterministic_f32():
+    """float32 products with TF32 off and cuDNN deterministic."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with full_f32():
+            yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def fused_gate(got: dict, ref: dict) -> dict:
+    """A fused run's readings against the per-epoch run's (FUSED_TOL)."""
+    return {"loss": max(abs(a - b) / abs(b)
+                        for a, b in zip(got["losses"], ref["losses"])),
+            "params": _rel_dist(got["params"], ref["params"]),
+            "z": _rel_dist(got["z"], ref["z"]),
+            "u": _rel_dist(got["u"], ref["u"])}
+
+
+def fused_timing(run: dict, steps: int, fused: bool) -> dict:
+    """ms a step and ADMM it/s: the per-epoch route's last epoch (its
+    Z/U step and `steps` X-steps), or the fused chunk's replays (the
+    chunk less its first epoch's eager calls and captures: k - 1 Z/U
+    steps and k * steps - 1 X-steps)."""
+    rows = run["hist"]
+    if fused:
+        k = len(rows)
+        s = k * rows[-1]["epoch_time_s"] - run["capture_s"]
+        n = k * steps - 1
+        out = {"chunk_ms_per_step": 1000 * rows[-1]["epoch_time_s"] / steps,
+               "capture_s": run["capture_s"]}
+    else:
+        s, n = rows[-1]["epoch_time_s"], steps
+        out = {}
+    return {"ms_per_step": 1000 * s / n, "admm_it_per_s": n / s, **out,
+            "train_loss": run["losses"]}
+
+
+def phase_fused(seed: int, card: str) -> dict:
+    """Fused epochs on the card (see FUSED): the gate, its planted
+    faults, the sync debug mode at every replay, both kernels' launches a
+    Z-step in both routes, and both routes timed in bf16. Returns each
+    path's kernel launches in its fused gate run (captured launches
+    counted at each replay)."""
+    t_start = time.perf_counter()
+    failures, rows, launches = [], {}, {}
+    g_epochs, g_steps = FUSED["gate_epochs"], FUSED["gate_steps"]
+    t_epochs, t_steps = FUSED["timed_epochs"], FUSED["timed_steps"]
+    for key in FUSED["paths"]:
+        path = PATHS[key]
+        per_z = {"tk": 5, "deit": 33}[key]
+        with deterministic_f32():
+            ref = fused_run(key, seed, 1, None, g_epochs, g_steps)
+            got = fused_run(key, seed, 8, None, g_epochs, g_steps)
+            planted = {}
+            for fault in FUSED_FAULTS:
+                try:
+                    planted[fault] = fused_gate(fused_run(
+                        key, seed, 8, None, g_epochs, g_steps, fault), ref)
+                except Exception as e:  # a fault that stops the run fails
+                    planted[fault] = {"raised": f"{type(e).__name__}: "
+                                                f"{str(e)[:300]}"}
+        readings = fused_gate(got, ref)
+        launches[key] = got["launches"]
+        if any(readings[k] > FUSED_TOL[k] for k in FUSED_TOL):
+            failures.append(f"{key}: the fused chunk is {readings} from the "
+                            f"per-epoch route (tolerance {FUSED_TOL})")
+        for fault, r in planted.items():
+            if "raised" not in r and all(r[k] <= FUSED_TOL[k]
+                                         for k in FUSED_TOL):
+                failures.append(f"{key}: the planted fault {fault} passes "
+                                f"the gate: {r}")
+        want = (g_epochs + 1) * per_z
+        for route, run in (("per_epoch", ref), ("fused", got)):
+            if run["launches"] != want or run["other"] != 0:
+                failures.append(f"{key} {route}: {run['launches']} launches "
+                                f"of the kernel (expected {want}), "
+                                f"{run['other']} of the other")
+        # the replays after the captures: epoch 1's last steps, then
+        # epoch 2's Z/U step and steps
+        replays = (g_steps - 1) + (g_epochs - 1) * (g_steps + 1)
+        if (got["replays"], got["replays_in_error_mode"]) != (replays,
+                                                               replays):
+            failures.append(f"{key}: {got['replays']} replays, "
+                            f"{got['replays_in_error_mode']} of them under "
+                            f"the sync debug mode 'error' (expected "
+                            f"{replays})")
+        timed = {}
+        for route, per_dispatch in (("per_epoch", 1), ("fused", 8)):
+            run = fused_run(key, seed, per_dispatch, "bfloat16", t_epochs,
+                            t_steps)
+            timed[route] = fused_timing(run, t_steps, per_dispatch > 1)
+        rows[key] = {
+            "model": path["name"], "batch": path["batch_size"],
+            "gate": {"epochs": g_epochs, "steps": g_steps,
+                     "per_epoch_losses": ref["losses"],
+                     "fused_losses": got["losses"], "readings": readings,
+                     "tolerance": FUSED_TOL},
+            "planted_faults": planted,
+            "launches_per_z_step": {
+                "per_epoch": ref["launches"] / (g_epochs + 1),
+                "fused": got["launches"] / (g_epochs + 1)},
+            "replays": got["replays"],
+            "replays_in_sync_error_mode": got["replays_in_error_mode"],
+            "capture_s_float32": got["capture_s"],
+            "timed_bf16": {"epochs": t_epochs, "steps": t_steps, **timed}}
+    wall_s = time.perf_counter() - t_start
+    if wall_s > FUSED_WALL_LIMIT_S:
+        failures.append(f"the fused phase took {wall_s:.1f} s, over "
+                        f"{FUSED_WALL_LIMIT_S}")
+    emit({"phase": "fused", "card": card, **rows, "failures": failures,
+          "wall_s": wall_s})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 RECORDED_MS = {
     "first_version_ms_per_z_step": {"tucker2_factors_batched": 7.85,
                                     "dominant_left_subspace_batched": 15.13},
@@ -2897,6 +3157,7 @@ def main() -> int:
         phase_nlp(args.seed, smi, workdir)
         phase_export(args.seed, smi, workdir)
         phase_multi_rank(args.seed, smi, workdir)
+        launches_fused = phase_fused(args.seed, smi)
         emit({"phase": "shared_sets", "made": [list(k) for k in sets]})
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
@@ -2930,6 +3191,11 @@ def main() -> int:
             ("tucker2_factors_batched@r56_tk3", R56["name"],
              launches_r56_main, rows_r56, src + "tucker2_factors.cu",
              hosvd_key),
+            # the fused phase's chunk: 3 Z-steps, 2 of them eager and one
+            # replayed from a CUDA graph
+            ("tucker2_factors_batched@tk3_fused", "resnet32 tk@3x (fused)",
+             launches_fused["tk"], rows_tk, src + "tucker2_factors.cu",
+             hosvd_key),
             ("tucker2_factors_batched@mbv2_inet_svd2",
              PATHS["mbv2_inet_svd"]["name"], launches_mbv2_inet_main,
              rows_zoo["mbv2_inet_svd"],
@@ -2954,6 +3220,9 @@ def main() -> int:
             ("dominant_left_subspace_batched@deit_tt2_recipe", DEIT_R["name"],
              launches_deit_recipe, rows_deit,
              f"{src}subspace.cu, {src}subspace_ws.cu"),
+            ("dominant_left_subspace_batched@deit_tt2_fused",
+             "deit_tiny_patch16_224 tt@2x (fused)", launches_fused["deit"],
+             rows_deit, f"{src}subspace.cu, {src}subspace_ws.cu"),
             ("dominant_left_subspace_batched@r50_tt3",
              PATHS["r50_tt3"]["name"], launches_r50_main, rows_r50,
              f"{src}subspace.cu, {src}subspace_ws.cu"),

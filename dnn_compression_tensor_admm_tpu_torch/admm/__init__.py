@@ -1,8 +1,8 @@
 from .engine import (METHODS, AdmmState, ProjectionProgram, adjust_rho,
                      admm_grad_add, admm_init, admm_penalty, admm_update,
-                     build_program, tk_ranks)
+                     admm_update_, build_program, tk_ranks)
 from .regularizers import orthogonal_penalty
 
 __all__ = ["METHODS", "AdmmState", "ProjectionProgram", "adjust_rho",
            "admm_grad_add", "admm_init", "admm_penalty", "admm_update",
-           "build_program", "orthogonal_penalty", "tk_ranks"]
+           "admm_update_", "build_program", "orthogonal_penalty", "tk_ranks"]

@@ -300,6 +300,24 @@ def admm_update(params: Mapping[str, torch.Tensor], state: AdmmState,
     return AdmmState(u=new_u, z=new_z, nonfinite=nonfinite), residuals
 
 
+@torch.no_grad()
+def admm_update_(params: Mapping[str, torch.Tensor], state: AdmmState,
+                 program: ProjectionProgram, **kw) -> Dict[str, torch.Tensor]:
+    """`admm_update` written into `state`'s own tensors: its Z, U and
+    `nonfinite` keep their addresses (a captured X-step reads them there),
+    bit for bit `admm_update`'s values, with nothing read to the host.
+    Returns the residuals {name: ||W - Z||} as 0-d tensors."""
+    new, residuals = admm_update(params, state, program, **kw)
+    if state.nonfinite is None:
+        state.nonfinite = torch.zeros((), dtype=torch.long,
+                                      device=new.nonfinite.device)
+    state.nonfinite.copy_(new.nonfinite)
+    for n in program.names:
+        state.z[n].copy_(new.z[n])
+        state.u[n].copy_(new.u[n])
+    return residuals
+
+
 def admm_penalty(params: Mapping[str, torch.Tensor], state: AdmmState,
                  program: ProjectionProgram, rho: float) -> torch.Tensor:
     """0.5 * rho * sum_l ||W_l - Z_l + U_l||^2, differentiable in W."""

@@ -44,7 +44,12 @@ global `--batch-size` cut over them); only rank 0 prints and writes.
 beside a compressed one) and exits; `--profile-dir D` writes a
 `torch.profiler` Chrome trace of the first epoch's X-step to
 `D/trace.json` (the later epochs of that process run slower: trace a
-short run).
+short run). `--epochs-per-dispatch N` (default 8, as the JAX CLI) runs
+up to N epochs as one chunk where nothing is observed per epoch: each
+epoch's Z/U step and X-steps replayed from CUDA graphs on the card, one
+read at the chunk's end (`train/capture.py`); a mesh of several ranks,
+Mixup/CutMix and a Z/U method other than `kernel` stay per epoch and say
+so. The flags are the JAX CLI's, and `--device`.
 """
 
 from __future__ import annotations
@@ -109,6 +114,11 @@ def parse_args(argv=None):
                    help="RandomErasing probability")
     p.add_argument("--repeated-aug", default=0, type=int,
                    help="repeated-augmentation views per image (RASampler)")
+    p.add_argument("--epochs-per-dispatch", default=8, type=int,
+                   help="fuse up to N (Z-step + epoch) units into one chunk "
+                        "replayed on the card from CUDA graphs when no "
+                        "per-epoch observability (eval/log/checkpoint/"
+                        "verbose) is requested; 1 disables")
     p.add_argument("--sampling", default="perm",
                    choices=["perm", "shuffle", "replacement"],
                    help="'perm' gathers a slice of the epoch's permutation "
@@ -362,6 +372,7 @@ def main(argv=None):
                             if args.distillation_type != "none"
                             and args.teacher_path else None),
         ema_decay=args.ema_decay, eval_every=args.eval_every,
+        epochs_per_dispatch=args.epochs_per_dispatch,
         checkpoint_dir=args.checkpoint_dir, resume=args.resume,
         seed=args.seed,
         compute_dtype=compute_dtype,

@@ -16,12 +16,21 @@ and RandomErasing draw per image on the images' device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """float32 `values` on `device`, copied there once: a step captured in
+    a CUDA graph may not copy from the host, so the eager step before the
+    capture makes every constant the step uses."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def _one_hot_smoothed(labels: torch.Tensor, num_classes: int,
@@ -186,8 +195,8 @@ def _affine(op: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
         "shear_y": (one, zero, zero, -shear, one, zero),
         "translate_x": (one, zero, -shift, zero, one, zero),
         "translate_y": (one, zero, zero, zero, one, -shift)}
-    out = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
-                       device=op.device).repeat(b, 1)
+    out = device_constant((1.0, 0.0, 0.0, 0.0, 1.0, 0.0),
+                          op.device).repeat(b, 1)
     for k, name in enumerate(OPS[N_COLOUR:], start=N_COLOUR):
         out = torch.where((op == k)[:, None], torch.stack(mats[name], 1), out)
     return out.view(b, 2, 3)
@@ -272,8 +281,8 @@ def brightness(img, level):
 
 def sharpness(img, level):
     c = img.shape[1]
-    k = torch.tensor([[1.0, 1.0, 1.0], [1.0, 5.0, 1.0], [1.0, 1.0, 1.0]],
-                     device=img.device) / 13.0
+    k = device_constant((1.0, 1.0, 1.0, 1.0, 5.0, 1.0, 1.0, 1.0, 1.0),
+                        img.device).view(3, 3) / 13.0
     blur = F.conv2d(img, k.expand(c, 1, 3, 3), padding=1, groups=c)
     return _blend(img, blur, _enhance(level))
 

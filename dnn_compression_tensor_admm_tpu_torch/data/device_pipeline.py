@@ -18,8 +18,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .augment import (EraseDraws, RandAugmentDraws, rand_augment,
-                      random_erasing)
+from .augment import (EraseDraws, RandAugmentDraws, device_constant,
+                      rand_augment, random_erasing)
 
 
 def pl_cdiv(a: int, b: int) -> int:
@@ -54,6 +54,22 @@ def batch_at_views(x: torch.Tensor, step: int, batch_size: int,
     return batch_at_repeated(x, step, batch_size, repeats)
 
 
+def batch_rows_at(step: torch.Tensor, n: int, batch_size: int,
+                  repeats: int = 0) -> torch.Tensor:
+    """The rows [B] of a set of n that `batch_at_views` takes at step
+    `step`, a 0-d int64 tensor on the device: start (step * base) %
+    (n - base + 1), base = B (ceil(B / repeats) where repeats > 1), each
+    row filling `repeats` consecutive slots. Computed on the device, so a
+    captured step takes the rows of its own step at each replay."""
+    base = batch_size if repeats <= 1 else pl_cdiv(batch_size, repeats)
+    if n < base:
+        raise ValueError(f"a set of {n} rows has no batch of {base}")
+    slot = torch.arange(batch_size, device=step.device)
+    if repeats > 1:
+        slot = slot // repeats
+    return (step * base) % (n - base + 1) + slot
+
+
 def sample_batch(n: int, generator: torch.Generator,
                  batch_size: int) -> torch.Tensor:
     """Uniform with-replacement row indices [B] into a set of n rows."""
@@ -63,9 +79,10 @@ def sample_batch(n: int, generator: torch.Generator,
 
 def sample_batch_repeated(n: int, generator: torch.Generator,
                           batch_size: int, repeats: int = 3) -> torch.Tensor:
-    """ceil(B / repeats) uniform rows, each filling `repeats` slots."""
+    """ceil(B / repeats) uniform rows, each filling `repeats` slots (a
+    gather, which reads nothing to the host)."""
     base = sample_batch(n, generator, pl_cdiv(batch_size, repeats))
-    return base.repeat_interleave(repeats)[:batch_size]
+    return base[torch.arange(batch_size, device=base.device) // repeats]
 
 
 def shuffle_epoch(images: torch.Tensor, labels: torch.Tensor,
@@ -91,8 +108,8 @@ def random_crop_flip(batch_size: int, generator: torch.Generator,
 def normalize(x: torch.Tensor, mean: Sequence[float],
               std: Sequence[float]) -> torch.Tensor:
     """uint8 NHWC -> normalised float32 NCHW."""
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device) * 255.0
-    s = torch.tensor(std, dtype=torch.float32, device=x.device) * 255.0
+    m = device_constant(tuple(mean), x.device) * 255.0
+    s = device_constant(tuple(std), x.device) * 255.0
     return ((x.float() - m) / s).permute(0, 3, 1, 2).contiguous()
 
 
@@ -119,8 +136,8 @@ def augment_batch(x_u8: torch.Tensor, offsets: torch.Tensor,
         out = normalize(crop, mean, std)
     else:
         xf = rand_augment(crop.permute(0, 3, 1, 2).float() / 255.0, randaug)
-        m = torch.tensor(mean, dtype=torch.float32, device=x_u8.device)
-        s = torch.tensor(std, dtype=torch.float32, device=x_u8.device)
+        m = device_constant(tuple(mean), x_u8.device)
+        s = device_constant(tuple(std), x_u8.device)
         out = ((xf - m[:, None, None]) / s[:, None, None]).contiguous()
     return out if erase is None else random_erasing(out, erase)
 

@@ -128,12 +128,13 @@ class Block(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, patch_size: int, dim: int):
+    def __init__(self, patch_size: int, dim: int,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.proj = nn.Conv2d(3, dim, patch_size, stride=patch_size)
         # LeCun-normal kernel and zero bias, flax's Conv defaults
         nn.init.kaiming_normal_(self.proj.weight, mode="fan_in",
-                                nonlinearity="linear")
+                                nonlinearity="linear", generator=generator)
         nn.init.zeros_(self.proj.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +153,7 @@ class VisionTransformer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         n_patch = (img_size // patch_size) ** 2
-        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, generator)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.empty(1, n_patch + 1, embed_dim))
         _trunc_normal_(self.cls_token, generator)

@@ -29,6 +29,7 @@ import torch
 from ..precision import full_f32
 from ..ttd import clamp_tt_ranks
 from . import build
+from .launches import count_launch
 from .tucker_kernel import (MAX_SMEM_BYTES, MAX_SMEM_FLOATS, _eye, _own_cap,
                             _ns_inv_sqrt, _orth_iter, ns_flops, orth_flops)
 
@@ -325,7 +326,8 @@ def dominant_left_subspace_batched(t: torch.Tensor, r: int, *,
     A full-rank request (r == rows) returns the broadcast identity and
     launches nothing. Otherwise a CUDA tensor goes through the CUDA kernel
     (or raises) and a CPU tensor through the plain version.
-    `dominant_left_subspace_batched.launches` counts kernel launches."""
+    `dominant_left_subspace_batched.launches` counts kernel launches, a
+    captured one at each replay (`launches.py`)."""
     if t.dim() != 3:
         raise ValueError(f"expected t [L, rows, cols], got shape {tuple(t.shape)}")
     if t.dtype != torch.float32:
@@ -347,11 +349,12 @@ def dominant_left_subspace_batched(t: torch.Tensor, r: int, *,
         q = launch(_library(), t, r, iters=iters)
     else:
         q = launch_ws(_ws_library(), t, r, iters=iters)
-    dominant_left_subspace_batched.launches += 1
+    count_launch(dominant_left_subspace_batched)
     return q
 
 
 dominant_left_subspace_batched.launches = 0
+dominant_left_subspace_batched.captured = 0
 
 
 def _subspace_of(t: torch.Tensor, r: int, iters: int,

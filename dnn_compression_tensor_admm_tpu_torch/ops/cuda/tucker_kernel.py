@@ -26,6 +26,7 @@ import torch
 
 from ..precision import full_f32
 from . import build
+from .launches import count_launch
 
 # Dynamic shared memory one block may use on Hopper (H100/H200: 227 KB).
 MAX_SMEM_BYTES = 232_448
@@ -415,7 +416,7 @@ def tucker2_factors_batched(x: torch.Tensor, r0: int, r1: int, *,
 
     A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
     through the plain version. `tucker2_factors_batched.launches` counts
-    kernel launches."""
+    kernel launches, a captured one at each replay (`launches.py`)."""
     if x.dim() != 4:
         raise ValueError(f"expected x [L, K, O, I], got shape {tuple(x.shape)}")
     if x.dtype != torch.float32:
@@ -437,11 +438,12 @@ def tucker2_factors_batched(x: torch.Tensor, r0: int, r1: int, *,
         u0, u1 = launch(_library(), x, r0, r1, sweeps=sweeps)
     else:
         u0, u1 = launch_ws(_ws_library(), x, r0, r1, sweeps=sweeps)
-    tucker2_factors_batched.launches += 1
+    count_launch(tucker2_factors_batched)
     return u0, u1
 
 
 tucker2_factors_batched.launches = 0
+tucker2_factors_batched.captured = 0
 
 
 @full_f32()

@@ -15,7 +15,17 @@ route). Then crop, flip, RandAugment, normalise and RandomErasing on the
 device, and Mixup/CutMix against soft targets. The host reads back a few
 scalars per epoch. Every model's forward takes that device generator; a
 ViT draws its drop path from it, a ResNet ignores it. `profile_dir`
-traces the first epoch's X-step (`utils/profiling.py`).
+traces the first epoch's X-step (`utils/profiling.py`). The lr of each
+step comes from a table on the device (`optim.LrTable`), and the Z/U step
+writes Z and U in place (`admm_update_`).
+
+Where the host observes nothing per epoch, up to `epochs_per_dispatch`
+epochs run as one fused chunk (`train/capture.py`, the JAX package's
+`run_epochs`): on the card each epoch's Z/U step and X-steps are replayed
+from CUDA graphs with no host read, the rows (`epoch`, `train_loss`,
+`train_acc`, `epoch_time_s` = the chunk's time / k) are read at the
+chunk's end, and the evaluation runs after its last epoch. On the CPU the
+same chunk runs eagerly, bit for bit the per-epoch route.
 
 With `ema_decay` > 0 an EMA shadow of the parameters follows each
 optimizer step and is evaluated beside them (`ema_test_*`, with the live
@@ -52,13 +62,14 @@ import torch
 import torch.nn.functional as F
 
 from ..admm import (AdmmState, admm_init, admm_penalty, admm_update,
-                    adjust_rho, build_program, orthogonal_penalty)
+                    admm_update_, adjust_rho, build_program,
+                    orthogonal_penalty)
 from ..configs.resolver import get_rank_plan
 from ..data.augment import (draw_mix, draw_rand_augment,
                             draw_random_erasing, mixup_cutmix)
 from ..data.datasets import DatasetInfo, dataset_info, load_dataset
 from ..data.device_pipeline import (DevicePrefetcher, augment_batch,
-                                    batch_at_views, normalize,
+                                    batch_at_views, batch_rows_at, normalize,
                                     random_crop_flip, sample_batch,
                                     sample_batch_repeated, shuffle_epoch)
 from ..data.records import read_shard, shard_sample_count, shard_shape
@@ -69,9 +80,10 @@ from ..parallel.data_parallel import (all_reduce_grads,
                                       convert_global_batchnorm, gather_rows)
 from ..utils.device import resolve_device
 from ..utils.profiling import PhaseTimer, trace
+from . import capture
 from .losses import (DISTILLATION_TYPES, cross_entropy, distillation_loss,
                      soft_target_cross_entropy)
-from .optim import make_schedule, make_train_optimizer
+from .optim import LrTable, make_schedule, make_train_optimizer
 from .state import TrainState, load_train_state, save_train_state
 
 
@@ -128,6 +140,7 @@ class TrainConfig:
     profile_dir: Optional[str] = None  # a trace of the first epoch's X-step
     ema_decay: float = 0.0  # > 0: an EMA shadow of the parameters
     eval_every: int = 1  # evaluate every N epochs and after the last
+    epochs_per_dispatch: int = 8  # epochs a fused chunk (train/capture.py)
     checkpoint_dir: Optional[str] = None  # the train state after each epoch
     resume: Optional[str] = None  # a checkpoint_dir to go on from
     seed: int = 0
@@ -171,9 +184,11 @@ def _load_shards(cfg: TrainConfig):
     return (read(train) if cfg.shard_cache == "hbm" else train), x_va, y_va
 
 
-def _autocast(device: torch.device, compute_dtype: Optional[str]):
+def _autocast(device: torch.device, compute_dtype: Optional[str],
+              cache_enabled: bool = True):
     return torch.autocast(device.type, dtype=torch.bfloat16,
-                          enabled=compute_dtype == "bfloat16")
+                          enabled=compute_dtype == "bfloat16",
+                          cache_enabled=cache_enabled)
 
 
 def _sync(device: torch.device) -> None:
@@ -360,11 +375,15 @@ def train_model(cfg: TrainConfig, *,
     schedule = make_schedule(cfg.sched, cfg.lr, cfg.epochs, steps,
                              cfg.warmup_epochs, cfg.min_lr, cfg.decay_epochs,
                              cfg.decay_rate)
-    # a Stiefel model ('stf*', the JAX package's rule) keeps its factors
-    # on the manifold; the clip covers the other parameters
+    # the lr of every step, read on the device by the optimizer; a
+    # Stiefel model ('stf*', the JAX package's rule) keeps its factors on
+    # the manifold, and the clip covers the other parameters
+    lrs = LrTable(schedule, max(cfg.epochs, max_epochs or 0, 1) * steps,
+                  device)
     opt, clipped = make_train_optimizer(
-        model.named_parameters(), cfg.lr, opt=cfg.opt, momentum=cfg.momentum,
-        weight_decay=cfg.weight_decay, stiefel=cfg.model.startswith("stf"))
+        model.named_parameters(), lrs.lr, opt=cfg.opt,
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+        stiefel=cfg.model.startswith("stf"))
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     teacher = _make_teacher(cfg, num_classes, device)
     # a copy of its own: the shadow never aliases the parameters
@@ -392,6 +411,7 @@ def train_model(cfg: TrainConfig, *,
                              f"not {cfg.model}")
         model.load_state_dict(saved.model)
         opt.load_state_dict(saved.optimizer)
+        lrs.attach(opt)
         if saved.admm is not None:
             admm = AdmmState(
                 u={n: t.to(device) for n, t in saved.admm.u.items()},
@@ -403,6 +423,7 @@ def train_model(cfg: TrainConfig, *,
         gen.set_state(saved.rng["device"])
         init_gen.set_state(saved.rng["cpu"])
         step, start_epoch = saved.step, saved.epoch + 1
+        lrs.step.fill_(step)
         log(f"resumed from {cfg.resume} at epoch {start_epoch}")
     elif program is not None:
         admm, _ = admm_update(params, admm, program, update_u=False,
@@ -456,19 +477,19 @@ def train_model(cfg: TrainConfig, *,
                 idx = sample_batch(n, gen, cfg.batch_size)
             yield images[idx], labels[idx]
 
-    def one_step(x, target, step, rho):
-        """One optimizer step on augmented `x` -> (step + 1, loss, logits);
-        data-parallel, x is this rank's rows of the global batch and the
-        loss its rows' mean plus the penalty."""
-        lr = schedule(step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        with _autocast(device, cfg.compute_dtype):
+    def one_step(x, target, rho):
+        """One optimizer step on augmented `x` -> (loss, logits), reading
+        nothing to the host (a fused chunk captures it); data-parallel, x
+        is this rank's rows of the global batch and the loss its rows'
+        mean plus the penalty."""
+        lrs.advance()
+        with _autocast(device, cfg.compute_dtype, cache_enabled=False):
             logits = model(x, generator=BatchRows(gen, cfg.batch_size,
                                                   rows[0]) if dp else gen)
         loss = criterion(logits, target)
         if teacher is not None:
-            with torch.no_grad(), _autocast(device, cfg.compute_dtype):
+            with torch.no_grad(), _autocast(device, cfg.compute_dtype,
+                                            cache_enabled=False):
                 t_logits = teacher(x)
             loss = distillation_loss(loss, logits, t_logits,
                                      cfg.distillation_type,
@@ -492,22 +513,138 @@ def train_model(cfg: TrainConfig, *,
                 torch._foreach_mul_(shadow, cfg.ema_decay)
                 torch._foreach_add_(
                     shadow, torch._foreach_mul(live, 1 - cfg.ema_decay))
-        return step + 1, loss, logits
+        return loss, logits
+
+    def train_batch(xb, yb, rho):
+        """Augment one global batch (uint8 NHWC) and take an optimizer
+        step on it -> (loss, accuracy), 0-d on the device (of this rank's
+        rows where data-parallel)."""
+        b, h, w, c = xb.shape
+        offsets, flips = random_crop_flip(b, gen)
+        ra = er = None
+        if cfg.randaug_magnitude > 0:
+            ra = draw_rand_augment(b, gen, magnitude=cfg.randaug_magnitude,
+                                   mag_std=cfg.randaug_std)
+        if cfg.erase_prob > 0:
+            er = draw_random_erasing((b, c, h, w), gen, prob=cfg.erase_prob)
+        x = augment_batch(xb, offsets, flips, mean=info.mean, std=info.std,
+                          randaug=ra, erase=er)
+        target = yb
+        if mix:  # one lambda a batch, from the host generator
+            x, target = mixup_cutmix(
+                x, yb, draw_mix(init_gen, h, w, mixup_alpha=cfg.mixup,
+                                cutmix_alpha=cfg.cutmix),
+                num_classes=num_classes, smoothing=cfg.smoothing)
+        if dp:  # this rank's rows of the global batch
+            x, target, yb = (t[rows[0]:rows[1]] for t in (x, target, yb))
+        loss, logits = one_step(x, target, rho)
+        return loss.detach(), (logits.argmax(-1) == yb).float().mean()
+
+    def epoch_chunks():
+        """The run's fused chunks (`train/capture.py`) on the
+        device-resident set: the rows of each step picked at a counter on
+        the device, the epoch's permutation or shuffled copy drawn into
+        buffers of its own, the Z/U step written in place."""
+        n = images.shape[0]
+        mode = cfg.sampling if n >= cfg.batch_size else "replacement"
+        sums = torch.zeros(2, device=device)  # the epoch's loss, accuracy
+        at = torch.zeros((), dtype=torch.long, device=device)  # its step
+        order = (torch.empty(n, dtype=torch.long, device=device)
+                 if mode == "perm" else None)
+        shuffled = ((torch.empty_like(images), torch.empty_like(labels))
+                    if mode == "shuffle" else None)
+
+        def epoch_start():
+            if program is not None:
+                admm_update_(params, admm, program, update_u=True,
+                             method=cfg.admm_method,
+                             n_iter=cfg.admm_hooi_iters)
+            if mode == "perm":
+                order.copy_(torch.randperm(n, device=device, generator=gen))
+            elif mode == "shuffle":
+                for buf, t in zip(shuffled, shuffle_epoch(images, labels,
+                                                          gen)):
+                    buf.copy_(t)
+            sums.zero_()
+            at.zero_()
+
+        def x_step():
+            if mode == "replacement":
+                idx = (sample_batch_repeated(n, gen, cfg.batch_size, repeats)
+                       if repeats > 1 else sample_batch(n, gen,
+                                                        cfg.batch_size))
+            else:  # `epoch_batches`' rows, at the device's counter
+                idx = batch_rows_at(at, n, cfg.batch_size, repeats)
+                if mode == "perm":
+                    idx = order[idx]
+            xs, ys = shuffled if mode == "shuffle" else (images, labels)
+            loss, acc = train_batch(xs[idx], ys[idx], cfg.rho)
+            sums[0] += loss
+            sums[1] += acc
+            at.add_(1)
+
+        return capture.EpochChunks(epoch_start, x_step, sums, steps, (gen,))
+
+    def evaluates(epoch: int) -> bool:
+        return x_va is not None and ((epoch + 1) % cfg.eval_every == 0
+                                     or epoch + 1 == epochs)
+
+    def evaluate_into(row: dict) -> None:
+        ev = evaluate_model(model, x_va, y_va, info,
+                            compute_dtype=cfg.compute_dtype, mesh=mesh)
+        row.update({f"test_{k}": v for k, v in ev.items()})
+        if ema is not None:
+            with _swapped(params, ema):
+                ev = evaluate_model(model, x_va, y_va, info,
+                                    compute_dtype=cfg.compute_dtype,
+                                    mesh=mesh)
+            row.update({f"ema_test_{k}": v for k, v in ev.items()})
 
     history = []
     epochs = max_epochs or cfg.epochs
+    fuse = capture.chunkable(cfg, streaming)
+    chunks = None
+    fused_until = start_epoch
     try:
         for epoch in range(start_epoch, epochs):
+            if epoch < fused_until:
+                continue
+            k = (capture.chunk_size(cfg, epoch, epochs, x_va is not None)
+                 if fuse else 1)
+            why = capture.exclusion(cfg, mesh) if k > 1 else None
+            if why:  # logged once: the run goes on per epoch
+                log(f"--epochs-per-dispatch: the per-epoch route ({why})")
+                fuse, k = False, 1
+            if k > 1:  # k epochs on the card, one read at the end
+                chunks = chunks or epoch_chunks()
+                t0 = time.perf_counter()
+                model.train()
+                sums = chunks.run(k)
+                dt = (time.perf_counter() - t0) / k
+                step += k * steps
+                for j, (loss_sum, acc_sum) in enumerate(sums):
+                    train_loss = loss_sum / steps
+                    if not math.isfinite(train_loss):
+                        raise FloatingPointError(
+                            f"loss is {train_loss}, stopping")
+                    row = {"epoch": epoch + j + 1, "train_loss": train_loss,
+                           "train_acc": acc_sum / steps, "epoch_time_s": dt}
+                    if j == k - 1 and evaluates(epoch + j):
+                        evaluate_into(row)
+                    history.append(row)
+                    log(json.dumps(row))
+                fused_until = epoch + k
+                continue
             t0 = time.perf_counter()
             row = {"epoch": epoch + 1}
             rho = (adjust_rho(epoch, cfg.epochs, cfg.rho)
                    if cfg.adjust_rho_late else cfg.rho)
             if cfg.admm:
-                admm, residuals = admm_update(params, admm, program,
-                                              update_u=True,
-                                              method=cfg.admm_method,
-                                              n_iter=cfg.admm_hooi_iters,
-                                              mesh=mesh)
+                residuals = admm_update_(params, admm, program,
+                                         update_u=True,
+                                         method=cfg.admm_method,
+                                         n_iter=cfg.admm_hooi_iters,
+                                         mesh=mesh)
                 names = sorted(residuals)
                 vals = torch.stack([residuals[n] for n in names]).tolist()
                 row["z_step_s"] = time.perf_counter() - t0
@@ -532,31 +669,10 @@ def train_model(cfg: TrainConfig, *,
             with (trace(cfg.profile_dir) if profiled
                   else contextlib.nullcontext()):
                 for xb, yb in epoch_batches():
-                    b, h, w, c = xb.shape
-                    offsets, flips = random_crop_flip(b, gen)
-                    ra = er = None
-                    if cfg.randaug_magnitude > 0:
-                        ra = draw_rand_augment(b, gen,
-                                               magnitude=cfg.randaug_magnitude,
-                                               mag_std=cfg.randaug_std)
-                    if cfg.erase_prob > 0:
-                        er = draw_random_erasing((b, c, h, w), gen,
-                                                 prob=cfg.erase_prob)
-                    x = augment_batch(xb, offsets, flips, mean=info.mean,
-                                      std=info.std, randaug=ra, erase=er)
-                    target = yb
-                    if mix:  # one lambda a batch, from the host generator
-                        x, target = mixup_cutmix(
-                            x, yb, draw_mix(init_gen, h, w,
-                                            mixup_alpha=cfg.mixup,
-                                            cutmix_alpha=cfg.cutmix),
-                            num_classes=num_classes, smoothing=cfg.smoothing)
-                    if dp:  # this rank's rows of the global batch
-                        x, target, yb = (t[rows[0]:rows[1]]
-                                         for t in (x, target, yb))
-                    step, loss, logits = one_step(x, target, step, rho)
-                    loss_sum += loss.detach()
-                    acc_sum += (logits.argmax(-1) == yb).float().mean()
+                    loss, acc = train_batch(xb, yb, rho)
+                    step += 1
+                    loss_sum += loss
+                    acc_sum += acc
             train_loss = loss_sum.item() / steps
             train_acc = acc_sum.item() / steps
             if dp:  # the means over the data ranks
@@ -579,18 +695,8 @@ def train_model(cfg: TrainConfig, *,
                 raise FloatingPointError(f"loss is {train_loss}, stopping")
             row.update(train_loss=train_loss, train_acc=train_acc,
                        epoch_time_s=time.perf_counter() - t0)
-            if x_va is not None and ((epoch + 1) % cfg.eval_every == 0
-                                     or epoch + 1 == epochs):
-                ev = evaluate_model(model, x_va, y_va, info,
-                                    compute_dtype=cfg.compute_dtype,
-                                    mesh=mesh)
-                row.update({f"test_{k}": v for k, v in ev.items()})
-                if ema is not None:
-                    with _swapped(params, ema):
-                        ev = evaluate_model(model, x_va, y_va, info,
-                                            compute_dtype=cfg.compute_dtype,
-                                            mesh=mesh)
-                    row.update({f"ema_test_{k}": v for k, v in ev.items()})
+            if evaluates(epoch):
+                evaluate_into(row)
             history.append(row)
             log(json.dumps(row))
             if cfg.checkpoint_dir and main:

@@ -98,19 +98,56 @@ def make_schedule(kind: str, base_lr: float, epochs: int,
     raise ValueError(f"unknown schedule {kind!r}; choose from {SCHEDULES}")
 
 
-def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, *,
-                   opt: str = "momentum", momentum: float = 0.9,
+class LrTable:
+    """The schedule's lr at every step of a run, float32 on the device,
+    and a step counter on the device that indexes it: `advance()` writes
+    the lr of the counter's step into `lr`, the 0-d tensor every param
+    group holds (`attach`), and counts the step. Nothing is read to the
+    host, so a step captured in a CUDA graph takes its own step's lr at
+    each replay."""
+
+    def __init__(self, schedule: Callable[[int], float], total_steps: int,
+                 device: torch.device, step: int = 0):
+        self.table = torch.tensor([schedule(s) for s in range(total_steps)],
+                                  dtype=torch.float32, device=device)
+        self.step = torch.tensor(step, dtype=torch.long, device=device)
+        self.lr = self.table[min(step, total_steps - 1)].clone()
+
+    def attach(self, optimizer) -> None:
+        """Every param group of `optimizer` reads `lr` (again after a
+        `load_state_dict`, which puts the saved value in its place)."""
+        for group in optimizer.param_groups:
+            group["lr"] = self.lr
+
+    def advance(self) -> None:
+        self.lr.copy_(self.table.index_select(0, self.step.view(1))[0])
+        self.step += 1
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter],
+                   lr: float | torch.Tensor, *, opt: str = "momentum",
+                   momentum: float = 0.9,
                    weight_decay: float = 1e-4) -> torch.optim.Optimizer:
+    """`opt` at `lr`, a float or a 0-d tensor (`LrTable.lr`). A tensor lr
+    on a card is read there: SGD takes torch's fused kernel (the foreach
+    one reads a tensor lr back to the host), Adam and AdamW
+    `capturable=True`; on the CPU both take the single-tensor loop."""
+    sgd_kw, adam_kw = {}, {}
+    if isinstance(lr, torch.Tensor):
+        card = lr.device.type == "cuda"
+        sgd_kw = {"fused": True} if card else {"foreach": False}
+        adam_kw = ({"capturable": True, "foreach": True} if card
+                   else {"foreach": False})
     if opt in ("momentum", "sgd"):
         return torch.optim.SGD(params, lr=lr, momentum=momentum,
                                weight_decay=weight_decay,
-                               nesterov=opt == "sgd")
+                               nesterov=opt == "sgd", **sgd_kw)
     if opt == "adamw":
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=weight_decay)
+                                 weight_decay=weight_decay, **adam_kw)
     if opt == "adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=0.0)
+                                weight_decay=0.0, **adam_kw)
     raise ValueError(f"unknown optimizer {opt!r}; choose from {OPTIMIZERS}")
 
 
@@ -201,7 +238,8 @@ class WithStiefel:
         self.stiefel.load_state_dict(state["stiefel"])
 
 
-def make_train_optimizer(named_params, lr: float, *, opt: str = "momentum",
+def make_train_optimizer(named_params, lr: float | torch.Tensor, *,
+                         opt: str = "momentum",
                          momentum: float = 0.9, weight_decay: float = 1e-4,
                          stiefel: bool = False):
     """(optimizer, the parameters a clip by global norm covers). With

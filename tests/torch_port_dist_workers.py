@@ -92,10 +92,12 @@ def xstep(model, program, state, x, y, mesh=None):
 def train_config(**kw) -> TrainConfig:
     """ResNet20 TK@3x ADMM for 2 epochs x 3 steps at a global batch of 16
     on 128 synthetic images, float32, the kernel route, evaluated after
-    epoch 2 on 32."""
+    epoch 2 on 32; per epoch, as a mesh runs it, so that one process's
+    rows carry the Z/U step's residuals too."""
     return TrainConfig(model="resnet20", dataset="synthetic-cifar10",
                        synthetic_size=128, batch_size=16, epochs=2,
-                       steps_per_epoch=3, eval_every=2, admm=True, fmt="tk",
+                       steps_per_epoch=3, eval_every=2,
+                       epochs_per_dispatch=1, admm=True, fmt="tk",
                        ratio="3", admm_method="kernel", admm_hooi_iters=6,
                        lr=0.01, smoothing=0.1, compute_dtype=None,
                        device="cpu",

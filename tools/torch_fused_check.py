@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""`chip_smoke.py`'s fused-epochs phase alone, on one card.
+
+    python3 tools/torch_fused_check.py [--seed S] [--paths tk deit]
+        [--extra stiefel augment]
+
+Builds the four kernel libraries (four nvcc processes at once), then runs
+`chip_smoke.phase_fused` on the chosen main paths (default both: ResNet32
+TK@3x and DeiT-tiny TT@2x): the fused chunk against the per-epoch route
+in float32, the planted faults, the sync debug mode at every replay, the
+launches a Z-step, and both routes timed in bf16. `--extra` first holds
+runs that no path of the phase reaches to the per-epoch route the same
+way, 2 epochs x 3 steps in float32 from the same weights and seed:
+`stiefel`, a fine-tune of `stftkc_resnet32` (Riemannian SGD and its QR
+retraction), and `augment`, DeiT-tiny TT@2x ADMM with the recipe
+fine-tune's RandAugment, erasing, 3 repeated views and the shuffled
+sampling. Prints the card's `nvidia-smi` name and power limit, then a
+JSON line a check; exits non-zero where one fails. Without CUDA it exits
+1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import dataclasses
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.train import (  # noqa: E402
+    TrainConfig, train_model)
+
+
+def extra_config(name: str, seed: int, per_dispatch: int) -> TrainConfig:
+    if name == "stiefel":
+        return TrainConfig(model="stftkc_resnet32",
+                           dataset="synthetic-cifar10", batch_size=256,
+                           epochs=2, steps_per_epoch=3, opt="momentum",
+                           lr=0.01, smoothing=0.1, eval_every=3,
+                           epochs_per_dispatch=per_dispatch,
+                           compute_dtype=None, seed=seed, device="cuda",
+                           print_fn=cs.log)
+    return dataclasses.replace(
+        cs.fused_config("deit", seed, 2, 3, per_dispatch, None),
+        randaug_magnitude=9, randaug_std=0.5, erase_prob=0.25,
+        repeated_aug=3, sampling="shuffle")
+
+
+def extra(name: str, seed: int, card: str) -> dict:
+    """One `--extra` run fused against per epoch, float32."""
+    t0 = time.perf_counter()
+    runs = []
+    with cs.deterministic_f32():
+        for per_dispatch in (1, 8):
+            model, hist = train_model(extra_config(name, seed, per_dispatch))
+            runs.append(([h["train_loss"] for h in hist],
+                         {n: p.detach().clone()
+                          for n, p in model.named_parameters()}))
+    (ref_losses, ref), (losses, got) = runs
+    out = {"loss": max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref_losses)),
+           "params": cs._rel_dist(got, ref)}
+    failed = any(out[k] > cs.FUSED_TOL[k] for k in out)
+    return {"phase": f"fused_{name}", "card": card,
+            "fused_vs_per_epoch": out,
+            "tolerance": {k: cs.FUSED_TOL[k] for k in out},
+            "failed": failed, "wall_s": time.perf_counter() - t0}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paths", nargs="*", default=list(cs.FUSED["paths"]),
+                    choices=list(cs.FUSED["paths"]))
+    ap.add_argument("--extra", nargs="*", default=[],
+                    choices=["stiefel", "augment"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_fused_check: CUDA is not available", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdin=subprocess.DEVNULL, capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        list(pool.map(build.build, ("tucker2_factors", "tucker2_factors_ws",
+                                    "subspace", "subspace_ws")))
+    cs.FUSED["paths"] = tuple(args.paths)
+    with cs.shared_sets():
+        rows = [extra(name, args.seed, card) for name in args.extra]
+        for row in rows:
+            cs.emit(row)
+        cs.phase_fused(args.seed, card)
+    return 1 if any(row["failed"] for row in rows) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

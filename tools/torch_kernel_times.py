@@ -25,8 +25,14 @@ recipe's shards and times an untraced epoch of its dense X-step streamed
 and read whole, its ADMM X-step streamed and its fine-tune's step, then
 traces one streamed ADMM epoch (`utils/profiling.py`) and reads the
 card's busy time a step against the untraced ADMM step's time
-(`idle_share`), and times the dense step again after the trace. Each line
-carries the card's name and power limit. Without CUDA it exits 1.
+(`idle_share`), and times the dense step again after the trace. It also
+times ResNet32 TK@3x and DeiT-tiny TT@2x ADMM (bf16, 4 epochs x 20 steps,
+an evaluation after epoch 2) on the per-epoch route and fused
+(`--epochs-per-dispatch`: the second chunk, replays alone), before any
+trace, then traces the per-epoch route's first epoch of X-steps and the
+fused route's second chunk for the card's busy time a step
+(`"phase": "fused_probes"`). Each line carries the card's name and power
+limit. Without CUDA it exits 1.
 """
 
 import faulthandler
@@ -38,6 +44,7 @@ if __name__ == "__main__":
 import argparse  # noqa: E402
 import concurrent.futures  # noqa: E402
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -328,6 +335,90 @@ def probes(seed: int, card: str) -> dict:
     return {"phase": "probes", "card": card, "model": path["name"], **out}
 
 
+# the fused probes' runs: an evaluation after epoch 2 ends the first chunk,
+# so the second chunk is replays alone
+FUSED_PROBE = dict(epochs=4, eval_every=2, steps=20)
+
+
+def fused_probe_config(key: str, seed: int, per_dispatch: int, **kw):
+    cfg = cs.fused_config(key, seed, FUSED_PROBE["epochs"],
+                          FUSED_PROBE["steps"], per_dispatch, "bfloat16")
+    return dataclasses.replace(cfg, eval_every=FUSED_PROBE["eval_every"],
+                               **kw)
+
+
+@contextlib.contextmanager
+def traced_second_chunk(logdir: str):
+    """The run's second fused chunk inside a `torch.profiler` trace."""
+    from dnn_compression_tensor_admm_tpu_torch.train import capture
+    from dnn_compression_tensor_admm_tpu_torch.utils.profiling import trace
+    run, calls = capture.EpochChunks.run, []
+
+    def traced(self, k):
+        calls.append(k)
+        if len(calls) != 2:
+            return run(self, k)
+        with trace(logdir):
+            return run(self, k)
+
+    capture.EpochChunks.run = traced
+    try:
+        yield calls
+    finally:
+        capture.EpochChunks.run = run
+
+
+def fused_untraced(seed: int) -> dict:
+    """ms a step of both routes, before any trace: the per-epoch route's
+    epochs 3-4 (a Z/U step and 20 X-steps each, and its X-steps alone),
+    the fused route's second chunk (its Z/U steps included)."""
+    from dnn_compression_tensor_admm_tpu_torch.train import train_model
+    steps, out = FUSED_PROBE["steps"], {}
+    with cs.shared_sets():
+        for key in cs.FUSED["paths"]:
+            per = train_model(fused_probe_config(key, seed, 1))[1][2:]
+            fused = train_model(fused_probe_config(key, seed, 8))[1][-1]
+            out[key] = {
+                "model": cs.PATHS[key]["name"],
+                "per_epoch_ms_per_step": [1000 * h["epoch_time_s"] / steps
+                                          for h in per],
+                "per_epoch_x_ms_per_step": [1000 * h["x_step_s"] / steps
+                                            for h in per],
+                "fused_ms_per_step": 1000 * fused["epoch_time_s"] / steps}
+    return out
+
+
+def fused_traced(seed: int, card: str, out: dict, workdir: str) -> dict:
+    """`fused_untraced`'s rows with the card's busy time a step from
+    traces: the per-epoch route's first epoch of X-steps (`profile_dir`,
+    which keeps that run per epoch) and the fused route's second chunk
+    (Z/U steps included); idle = 1 - busy / the untraced ms."""
+    from dnn_compression_tensor_admm_tpu_torch.train import train_model
+    from dnn_compression_tensor_admm_tpu_torch.utils.profiling import (
+        trace_summary)
+    steps = FUSED_PROBE["steps"]
+    with cs.shared_sets():
+        for key in cs.FUSED["paths"]:
+            logdir = os.path.join(workdir, f"{key}_per_epoch")
+            row = train_model(fused_probe_config(
+                key, seed, 1, epochs=1, profile_dir=logdir))[1][0]
+            busy = trace_summary(row["profile_trace"])["device_busy_ms"]
+            logdir = os.path.join(workdir, f"{key}_fused")
+            with traced_second_chunk(logdir) as calls:
+                train_model(fused_probe_config(key, seed, 8))
+            fused_busy = trace_summary(os.path.join(logdir, "trace.json"))
+            o = out[key]
+            o["per_epoch_busy_ms_per_x_step"] = busy / steps
+            o["per_epoch_idle_share"] = 1 - busy / steps / min(
+                o["per_epoch_x_ms_per_step"])
+            o["fused_busy_ms_per_step"] = (fused_busy["device_busy_ms"]
+                                           / (calls[1] * steps))
+            o["fused_idle_share"] = (1 - o["fused_busy_ms_per_step"]
+                                     / o["fused_ms_per_step"])
+            o["fused_trace_top_ops"] = fused_busy["top_ops"][:5]
+    return {"phase": "fused_probes", "card": card, "bf16": FUSED_PROBE, **out}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", nargs="*", default=None,
@@ -390,7 +481,14 @@ def main() -> int:
     if args.probes:
         cs.emit = emit  # the probes' rows too
         t0 = time.perf_counter()
+        untraced = fused_untraced(args.seed)  # before the recipe's trace
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         emit({**probes(args.seed, card), "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            emit({**fused_traced(args.seed, card, untraced, workdir),
+                  "wall_s": fused_s + time.perf_counter() - t0})
     if out:
         out.close()
     faulthandler.cancel_dump_traceback_later()
