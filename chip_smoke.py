@@ -145,15 +145,28 @@ prints one JSON line per phase:
    printed; then one sharded Z/U step of ResNet32's TK and TT programs,
    bit for bit the 1-process step's, each rank launching the kernel on
    its own blocks;
-8. fused   — `--epochs-per-dispatch` (`train/capture.py`) on ResNet32
-   TK@3x and DeiT-tiny TT@2x at full width: a chunk of 2 epochs x 3 steps
-   (each epoch's Z/U step and X-steps replayed from CUDA graphs) against
-   the per-epoch route in float32 (TF32 off, cuDNN deterministic) from
-   the same weights and seed, each epoch's loss and the weights, Z and U
-   within FUSED_TOL, and three planted faults (FUSED_FAULTS) that must
-   each fail that gate; every replay under the sync debug mode 'error',
-   5 and 33 launches a Z-step in both routes; then both routes in bf16
-   at 2 x 20 steps, ms a step and ADMM it/s printed. Under 60 s.
+8. fused   — the captured X-step (`train/capture.py`) and fused epochs
+   (`--epochs-per-dispatch`) on ResNet32 TK@3x and DeiT-tiny TT@2x (with
+   Mixup 0.8 and CutMix 1.0) at full width: 2 epochs x 3 steps on the
+   captured per-epoch route (each step replayed from a CUDA graph between
+   eager Z/U steps) and as one fused chunk (each epoch's Z/U step and
+   X-steps replayed) against the eager reference loop in float32 (TF32
+   off, cuDNN deterministic) from the same weights and seed, each epoch's
+   loss and the weights, Z and U within FUSED_TOL, the same on a run whose
+   late rho boost falls inside it, and the recipe path's streamed step
+   from the shards against the eager loop; planted faults (FUSED_FAULTS on
+   the chunk, CAPTURE_FAULTS on the captured step: rho frozen at its
+   capture, the Mixup/CutMix draws taken once, the streamed buffers not
+   refreshed) must each fail that gate; every replay under the sync debug
+   mode 'error', 5 and 33 launches a Z-step in every route; then every
+   route in bf16 at 2 x 20 steps, ms a step, ADMM it/s and peak memory
+   printed. Under 150 s.
+
+Every phase that trains runs the captured route: the X-step is replayed
+from a CUDA graph after one eager call (the main phases' per-epoch runs,
+the recipe's streamed one, the fine-tunes), so the per-step observations
+of the resume and recipe checks are kept after each replay
+(`replay_taps`).
 
 Each phase prints its `wall_s`. Kernel times in this check are device
 times from CUDA graphs of a few launches (CHECK_GRAPH), the plain
@@ -1188,15 +1201,58 @@ CUT["run_flagship_sh"] = ("200 ADMM epochs of 196 steps, then 150 fine-tune "
 @contextlib.contextmanager
 def recorded_lr():
     """The lr of every optimizer step taken inside the block, in order
-    (a global step hook: it reads `param_groups` after each step; the lr
-    there is a 0-d tensor on the card, read back per step)."""
-    lrs = []
-    handle = register_optimizer_step_post_hook(
-        lambda opt, args, kwargs: lrs.append(float(opt.param_groups[0]["lr"])))
+    (a global step hook: it keeps the lr in `param_groups`, a 0-d tensor
+    on the card, after each step, a captured step's after each replay;
+    read back at the block's end)."""
+    kept = []
+    with replay_taps() as tap:
+        def hook(opt, args, kwargs):
+            lr = opt.param_groups[0]["lr"]
+            if isinstance(lr, torch.Tensor):
+                tap(kept, [lr])
+            else:
+                kept.append([lr])
+        handle = register_optimizer_step_post_hook(hook)
+        lrs = []
+        try:
+            yield lrs
+        finally:
+            handle.remove()
+            lrs[:] = [float(v[0]) for v in kept]
+
+
+@contextlib.contextmanager
+def replay_taps():
+    """Per-step observations that hold when the step is captured: a
+    captured step's Python runs once, at its capture. `tap(out, tensors)`
+    appends copies of `tensors` to the list `out` at once, or, inside a
+    capture, after each replay of the graph being captured."""
+    from dnn_compression_tensor_admm_tpu_torch.train import capture
+    init, replay = capture._Graph.__init__, capture._Graph.replay
+    pending = []
+
+    def tap(out, tensors):
+        if torch.cuda.is_current_stream_capturing():
+            pending.append((out, tensors))
+        else:
+            out.append([t.detach().clone() for t in tensors])
+
+    def graph_init(self, fn, generators):
+        pending.clear()
+        init(self, fn, generators)
+        self.taps = list(pending)
+        pending.clear()
+
+    def graph_replay(self):
+        replay(self)
+        for out, tensors in getattr(self, "taps", ()):
+            out.append([t.detach().clone() for t in tensors])
+
+    capture._Graph.__init__, capture._Graph.replay = graph_init, graph_replay
     try:
-        yield lrs
+        yield tap
     finally:
-        handle.remove()
+        capture._Graph.__init__, capture._Graph.replay = init, replay
 
 
 def _rel_dist(a, b) -> float:
@@ -1500,7 +1556,9 @@ def phase_r56(seed: int, card: str, launches_per_z_step: int, workdir: str):
     trained_tt = phase_kernel_trained(dense, path["dense"], "tt",
                                       path["ratio_arg"], "resnet56 tt@3x")
     steps = path["steps_per_epoch"]
-    last = hist2[-1]
+    # the rates from the uninterrupted run's last epoch: the resumed run's
+    # one epoch holds its step's capture
+    last = ref_hist[-1]
     emit({"phase": "main", "card": card, "model": path["name"],
           "batch": path["batch_size"], "optimizer": "momentum",
           "lr": path["lr"], "finetune": {"lr": path["ft_lr"], "opt": "sgd",
@@ -1797,26 +1855,29 @@ def shared_sets():
 
 @contextlib.contextmanager
 def observed_mixing():
-    """Records what reaches Mixup/CutMix in the engine, a step at a time:
-    the images' shape, the labels and the targets' worst row sum (kept on
-    the card; read after the block)."""
+    """Records what reaches Mixup/CutMix in the engine, a step at a time
+    (`replay_taps`): the images' shape, the labels and the targets' worst
+    row sum (kept on the card; read after the block)."""
     from dnn_compression_tensor_admm_tpu_torch.train import engine
     seen = {"shapes": set(), "labels": [], "row_err": []}
+    kept = []
     original = engine.mixup_cutmix
 
     def mixing(x, labels, draws, **kw):
         out, target = original(x, labels, draws, **kw)
         seen["shapes"].add((tuple(x.shape), tuple(labels.shape),
                             tuple(target.shape)))
-        seen["labels"].append(labels)
-        seen["row_err"].append((target.sum(-1) - 1).abs().max())
+        tap(kept, [labels, (target.sum(-1) - 1).abs().max()])
         return out, target
 
-    engine.mixup_cutmix = mixing
-    try:
-        yield seen
-    finally:
-        engine.mixup_cutmix = original
+    with replay_taps() as tap:
+        engine.mixup_cutmix = mixing
+        try:
+            yield seen
+        finally:
+            engine.mixup_cutmix = original
+            seen["labels"] = [k[0] for k in kept]
+            seen["row_err"] = [k[1] for k in kept]
 
 
 def check_mixed_batches(seen, steps: int, shard_labels) -> dict:
@@ -1858,14 +1919,15 @@ def recipe_shards(workdir: str):
 
 
 def recipe_probe(seed: int, shards: str, cache, model=DEIT_R["dense"],
-                 **extra) -> dict:
-    """One untraced epoch of the recipe's X-step, streamed (`cache` None)
-    or from the shards read whole, with its Mixup/CutMix and `extra`
-    settings: ms a step and the streamed route's loader times
+                 eager: bool = False, **extra) -> dict:
+    """The recipe's X-step untraced, streamed (`cache` None) or from the
+    shards read whole, with its Mixup/CutMix and `extra` settings,
+    captured or in the eager loop: ms a step of the second of two epochs
+    (the first holds the capture) and the streamed route's loader times
     (`tools/torch_kernel_times.py --probes`)."""
     path = DEIT_R
     cfg = TrainConfig(model=model, dataset=path["dataset"],
-                      shard_dir=shards, shard_cache=cache, epochs=1,
+                      shard_dir=shards, shard_cache=cache, epochs=2,
                       steps_per_epoch=path["steps_per_epoch"],
                       batch_size=path["batch_size"], opt="adamw",
                       lr=path["lr"], mixup=0.8, cutmix=1.0,
@@ -1873,7 +1935,7 @@ def recipe_probe(seed: int, shards: str, cache, model=DEIT_R["dense"],
                       fmt="tt", ratio=path["ratio_arg"],
                       compute_dtype="bfloat16", seed=seed,
                       device="cuda", print_fn=log, **extra)
-    row = train_model(cfg)[1][-1]
+    row = train_model(cfg, eager=eager)[1][-1]
     return {"ms_per_step": 1000 * row["x_step_s"] / cfg.steps_per_epoch,
             **{k: row[k] for k in ("loader_host_ms_per_batch",
                                    "loader_wait_ms_per_step")
@@ -1931,7 +1993,8 @@ def phase_deit_recipe(seed: int, card: str, launches_per_z_step: int,
     profile = trace_summary(trace_path, top=10)
     if not profile["device_events"]:
         raise AssertionError("the trace holds no device op")
-    busy_ms = profile["device_busy_ms"] / path["steps_per_epoch"]
+    # the traced steps: the first epoch's replays
+    busy_ms = profile["device_busy_ms"] / hist[0]["profile_steps"]
     (ckpt,) = [os.path.join(out_dir, f) for f in os.listdir(out_dir)
                if f.endswith("_model.msgpack")]
 
@@ -2615,27 +2678,39 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
         raise AssertionError("; ".join(failures))
 
 
-# Fused epochs (`--epochs-per-dispatch`, `train/capture.py`) on two main
-# paths at full width, ResNet32 TK@3x (`tk`) and DeiT-tiny TT@2x (`deit`),
-# each with its evaluation past the last epoch, so that one chunk holds
-# every epoch. The gate: a chunk of gate_epochs x gate_steps in float32
-# (TF32 off, cuDNN deterministic) against the per-epoch route from the
+# The captured X-step and fused epochs (`train/capture.py`) on two main
+# paths at full width, ResNet32 TK@3x (`tk`) and DeiT-tiny TT@2x (`deit`,
+# with Mixup 0.8 and CutMix 1.0: FUSED_MIX), each with its evaluation past
+# the last epoch, so that one chunk holds every epoch; and the recipe
+# path's streamed step (`recipe`: DeiT-tiny TT@2x from the DCTA shards,
+# Mixup/CutMix, one loader thread, whose order is the seed's). The gate:
+# gate_epochs x gate_steps in float32 (TF32 off, cuDNN deterministic), the
+# eager reference loop (`train_model(eager=True)`: each step on its own
+# batch tensors, rho a float) against the captured per-epoch route and the
+# fused chunk (the streamed route: against its captured step) from the
 # same weights and seed: each epoch's loss (relative difference) and the
-# weights, Z and U (||A - B|| / ||B||) within FUSED_TOL. Each of
-# FUSED_FAULTS, planted here by substitution, must fail it: Z and U
-# written out of place (the step's graph keeps the first Z), the lr
-# written from the host (frozen at its capture value), the device
-# generator not registered with the graphs. Then both routes in bf16 at
-# timed_epochs x timed_steps, timed and printed only.
+# weights, Z and U (||A - B|| / ||B||) within FUSED_TOL; the same on a run
+# whose late rho boost falls inside it (the schedule over 1 epoch, the run
+# 2: epoch 2 at 5 rho). Each planted fault must fail the gate or stop the
+# run: FUSED_FAULTS on the fused chunk (Z and U written out of place, the
+# lr written from the host, the device generator not registered),
+# CAPTURE_FAULTS on the captured step (rho frozen at its capture, on the
+# boosted run; the Mixup/CutMix draws taken once, at the capture; the
+# streamed batch's buffers not refreshed). Then each route in bf16 at
+# timed_epochs x timed_steps (the recipe's with its 4 loader threads),
+# timed with its peak memory and printed only.
 FUSED = dict(paths=("tk", "deit"), gate_epochs=2, gate_steps=3,
              timed_epochs=2, timed_steps=20)
+FUSED_MIX = {"deit": dict(mixup=0.8, cutmix=1.0)}
 FUSED_TOL = {"loss": 1e-5, "params": 1e-4, "z": 1e-4, "u": 1e-4}
 FUSED_FAULTS = ("zu_out_of_place", "lr_frozen", "generator_not_registered")
-FUSED_WALL_LIMIT_S = 60.0
+CAPTURE_FAULTS = {"tk": ("rho_frozen",), "deit": ("rho_frozen", "mix_frozen"),
+                  "recipe": ("buffer_stale",)}
+FUSED_WALL_LIMIT_S = 150.0
 
 
 def fused_config(key: str, seed: int, epochs: int, steps: int,
-                 per_dispatch: int, compute_dtype) -> TrainConfig:
+                 per_dispatch: int, compute_dtype, **extra) -> TrainConfig:
     path = PATHS[key]
     return TrainConfig(model=path["dense"], dataset=path["dataset"],
                        synthetic_size=path["synthetic_size"],
@@ -2646,17 +2721,34 @@ def fused_config(key: str, seed: int, epochs: int, steps: int,
                        admm_hooi_iters=6, eval_every=epochs + 1,
                        epochs_per_dispatch=per_dispatch,
                        compute_dtype=compute_dtype, seed=seed, device="cuda",
-                       print_fn=log)
+                       print_fn=log, **extra)
+
+
+def streamed_config(seed: int, shards: str, epochs: int, steps: int,
+                    compute_dtype, workers: int) -> TrainConfig:
+    """The recipe path's ADMM streamed from `shards` (Mixup/CutMix)."""
+    path = DEIT_R
+    return TrainConfig(model=path["dense"], dataset=path["dataset"],
+                       shard_dir=shards, batch_size=path["batch_size"],
+                       epochs=epochs, steps_per_epoch=steps, opt="adamw",
+                       lr=path["lr"], mixup=0.8, cutmix=1.0, smoothing=0.1,
+                       loader_workers=workers, admm=True, rho=1e-3,
+                       fmt="tt", ratio=path["ratio_arg"],
+                       admm_method="kernel", admm_hooi_iters=6,
+                       eval_every=epochs + 1, compute_dtype=compute_dtype,
+                       seed=seed, device="cuda", print_fn=log)
 
 
 @contextlib.contextmanager
 def planted_fused(fault: str):
-    """One of FUSED_FAULTS planted in the fused route for the block
-    ('none' plants nothing)."""
+    """One of FUSED_FAULTS or CAPTURE_FAULTS planted for the block ('none'
+    plants nothing)."""
     from dnn_compression_tensor_admm_tpu_torch.train import (capture, engine,
                                                              optim)
     saved = (engine.admm_update_, optim.LrTable.__init__,
-             optim.LrTable.advance, capture.register_generators)
+             optim.LrTable.advance, capture.register_generators,
+             engine.admm_penalty, engine.draw_mix, capture.StaticBatch.load)
+    held = []  # what a fault keeps from the eager call before the capture
     if fault == "zu_out_of_place":
         def out_of_place(params, state, program, **kw):
             new, residuals = admm_update(params, state, program, **kw)
@@ -2678,22 +2770,42 @@ def planted_fused(fault: str):
         optim.LrTable.__init__, optim.LrTable.advance = init, advance
     elif fault == "generator_not_registered":
         capture.register_generators = lambda graph, generators: None
+    elif fault == "rho_frozen":
+        def penalty(params, state, program, rho):  # a float at the capture
+            if not torch.cuda.is_current_stream_capturing():
+                held[:] = [float(rho)]
+            return saved[4](params, state, program, held[0])
+        engine.admm_penalty = penalty
+    elif fault == "mix_frozen":
+        def draws(generator, h, w, **kw):  # the eager step's, replayed
+            if not torch.cuda.is_current_stream_capturing():
+                held[:] = [saved[5](generator, h, w, **kw)]
+            return held[0]
+        engine.draw_mix = draws
+    elif fault == "buffer_stale":
+        def load(self, xb, yb):  # the first batch only
+            if self.x is None:
+                saved[6](self, xb, yb)
+        capture.StaticBatch.load = load
     elif fault != "none":
         raise ValueError(f"unknown fault {fault!r}")
     try:
         yield
     finally:
         (engine.admm_update_, optim.LrTable.__init__, optim.LrTable.advance,
-         capture.register_generators) = saved
+         capture.register_generators, engine.admm_penalty, engine.draw_mix,
+         capture.StaticBatch.load) = saved
 
 
 @contextlib.contextmanager
 def observed_fused():
     """Keeps the run's ADMM state (the one its Z/U steps write), its
-    chunk runner, and the sync debug mode at each graph replay."""
+    chunk runner and captured step, and the sync debug mode at each graph
+    replay."""
     from dnn_compression_tensor_admm_tpu_torch.train import capture, engine
     seen = {"modes": []}
-    saved = engine.admm_update_, capture.EpochChunks.run, capture._Graph.replay
+    saved = (engine.admm_update_, capture.EpochChunks.run,
+             capture._Graph.replay, capture.CapturedStep.prime)
 
     def update(params, state, program, **kw):
         seen["state"] = state
@@ -2707,38 +2819,44 @@ def observed_fused():
         seen["modes"].append(torch.cuda.get_sync_debug_mode())
         saved[2](self)
 
+    def prime(self):
+        seen["step"] = self
+        saved[3](self)
+
     engine.admm_update_ = update
-    capture.EpochChunks.run, capture._Graph.replay = run, replay
+    (capture.EpochChunks.run, capture._Graph.replay,
+     capture.CapturedStep.prime) = run, replay, prime
     try:
         yield seen
     finally:
         engine.admm_update_ = saved[0]
-        capture.EpochChunks.run, capture._Graph.replay = saved[1:]
+        (capture.EpochChunks.run, capture._Graph.replay,
+         capture.CapturedStep.prime) = saved[1:]
 
 
-def fused_run(key: str, seed: int, per_dispatch: int, compute_dtype,
-              epochs: int, steps: int, fault: str = "none") -> dict:
-    """One ADMM run of PATHS[key]: its rows, weights, Z and U, launches
-    of both kernels, wall time, and the fused route's capture time and
-    replays."""
-    path = PATHS[key]
-    cfg = fused_config(key, seed, epochs, steps, per_dispatch, compute_dtype)
+def fused_run(cfg: TrainConfig, kernel, other, *, eager: bool = False,
+              fault: str = "none", max_epochs: Optional[int] = None) -> dict:
+    """One ADMM run of `cfg`: its rows, weights, Z and U, launches of
+    both kernels, wall time, peak device memory, the captures' time and
+    the replays."""
     tk.tucker2_factors_batched.launches = 0
     sk.dominant_left_subspace_batched.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with planted_fused(fault), observed_fused() as seen:
-        model, hist = train_model(cfg)
+        model, hist = train_model(cfg, eager=eager, max_epochs=max_epochs)
         torch.cuda.synchronize()
     state = seen["state"]
-    chunks = seen.get("chunks")
+    chunks, step = seen.get("chunks"), seen.get("step")
     return {"hist": hist, "losses": [h["train_loss"] for h in hist],
             "params": {n: p.detach().clone()
                        for n, p in model.named_parameters()},
             "z": dict(state.z), "u": dict(state.u),
-            "launches": path["kernel"].launches,
-            "other": path["other"].launches,
+            "launches": kernel.launches, "other": other.launches,
             "wall_s": time.perf_counter() - t0,
-            "capture_s": chunks.capture_s if chunks else None,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "capture_s": (chunks.capture_s if chunks
+                          else step.capture_s if step else None),
             "replays": len(seen["modes"]),
             "replays_in_error_mode": seen["modes"].count(2)}
 
@@ -2757,7 +2875,7 @@ def deterministic_f32():
 
 
 def fused_gate(got: dict, ref: dict) -> dict:
-    """A fused run's readings against the per-epoch run's (FUSED_TOL)."""
+    """A run's readings against the eager reference's (FUSED_TOL)."""
     return {"loss": max(abs(a - b) / abs(b)
                         for a, b in zip(got["losses"], ref["losses"])),
             "params": _rel_dist(got["params"], ref["params"]),
@@ -2766,10 +2884,11 @@ def fused_gate(got: dict, ref: dict) -> dict:
 
 
 def fused_timing(run: dict, steps: int, fused: bool) -> dict:
-    """ms a step and ADMM it/s: the per-epoch route's last epoch (its
-    Z/U step and `steps` X-steps), or the fused chunk's replays (the
-    chunk less its first epoch's eager calls and captures: k - 1 Z/U
-    steps and k * steps - 1 X-steps)."""
+    """ms a step and ADMM it/s: a per-epoch route's last epoch (its Z/U
+    step and `steps` X-steps, replayed where captured), or the fused
+    chunk's replays (the chunk less its first epoch's eager calls and
+    captures: k - 1 Z/U steps and k * steps - 1 X-steps); the run's peak
+    device memory."""
     rows = run["hist"]
     if fused:
         k = len(rows)
@@ -2779,79 +2898,140 @@ def fused_timing(run: dict, steps: int, fused: bool) -> dict:
                "capture_s": run["capture_s"]}
     else:
         s, n = rows[-1]["epoch_time_s"], steps
-        out = {}
+        out = {"capture_s": run["capture_s"]}
+        if "loader_wait_ms_per_step" in rows[-1]:
+            out["loader_wait_ms_per_step"] = rows[-1][
+                "loader_wait_ms_per_step"]
     return {"ms_per_step": 1000 * s / n, "admm_it_per_s": n / s, **out,
+            "peak_mem_bytes": run["peak_mem_bytes"],
             "train_loss": run["losses"]}
 
 
-def phase_fused(seed: int, card: str) -> dict:
-    """Fused epochs on the card (see FUSED): the gate, its planted
-    faults, the sync debug mode at every replay, both kernels' launches a
-    Z-step in both routes, and both routes timed in bf16. Returns each
-    path's kernel launches in its fused gate run (captured launches
-    counted at each replay)."""
+def gate_failures(name: str, readings: dict, planted: dict, runs: dict,
+                  launches: int, replays: dict) -> list:
+    """What fails the gate of one path: a route's readings past FUSED_TOL,
+    a planted fault that passes it, launches a Z-step off `launches` x
+    (Z-steps), replays not all under the sync debug mode 'error'."""
+    failures = []
+    for route, r in readings.items():
+        if any(r[k] > FUSED_TOL[k] for k in FUSED_TOL):
+            failures.append(f"{name} {route}: {r} from the eager loop "
+                            f"(tolerance {FUSED_TOL})")
+    for fault, r in planted.items():
+        if "raised" not in r and all(r[k] <= FUSED_TOL[k]
+                                     for k in FUSED_TOL):
+            failures.append(f"{name}: the planted fault {fault} passes the "
+                            f"gate: {r}")
+    for route, run in runs.items():
+        want = (len(run["hist"]) + 1) * launches
+        if run["launches"] != want or run["other"] != 0:
+            failures.append(f"{name} {route}: {run['launches']} launches of "
+                            f"the kernel (expected {want}), {run['other']} "
+                            "of the other")
+        if (run["replays"], run["replays_in_error_mode"]) != (
+                replays[route], replays[route]):
+            failures.append(f"{name} {route}: {run['replays']} replays, "
+                            f"{run['replays_in_error_mode']} of them under "
+                            f"the sync debug mode 'error' (expected "
+                            f"{replays[route]})")
+    return failures
+
+
+def planted_runs(faults, run_fault, ref: dict) -> dict:
+    """Each fault's gate readings against `ref`, or what it raised."""
+    out = {}
+    for fault in faults:
+        try:
+            out[fault] = fused_gate(run_fault(fault), ref)
+        except Exception as e:  # a fault that stops the run fails
+            out[fault] = {"raised": f"{type(e).__name__}: {str(e)[:300]}"}
+    return out
+
+
+def phase_fused(seed: int, card: str, workdir: str) -> dict:
+    """The captured X-step and fused epochs on the card (see FUSED): the
+    gate of each route against the eager loop, its planted faults, the
+    sync debug mode at every replay, both kernels' launches a Z-step in
+    every route, and every route timed in bf16. Returns each path's
+    kernel launches in its fused gate run (captured launches counted at
+    each replay)."""
     t_start = time.perf_counter()
     failures, rows, launches = [], {}, {}
     g_epochs, g_steps = FUSED["gate_epochs"], FUSED["gate_steps"]
     t_epochs, t_steps = FUSED["timed_epochs"], FUSED["timed_steps"]
+    # replays of a gate run: the per-epoch route's steps after the first
+    # (primed eagerly); the fused chunk's too and epoch 2's start
+    per_epoch_replays = g_epochs * g_steps - 1
+    replays = {"eager": 0, "per_epoch": per_epoch_replays,
+               "fused": per_epoch_replays + g_epochs - 1,
+               "per_epoch_rho_boost": per_epoch_replays,
+               "eager_rho_boost": 0}
     for key in FUSED["paths"]:
         path = PATHS[key]
         per_z = {"tk": 5, "deit": 33}[key]
+        mix = FUSED_MIX.get(key, {})
+
+        def config(per_dispatch, dtype=None, epochs=g_epochs, steps=g_steps,
+                   **extra):
+            return fused_config(key, seed, epochs, steps, per_dispatch,
+                                dtype, **mix, **extra)
+
+        def run(cfg, **kw):
+            return fused_run(cfg, path["kernel"], path["other"], **kw)
+
+        boost = dict(epochs=1, adjust_rho_late=True)  # epoch 2 at 5 rho
         with deterministic_f32():
-            ref = fused_run(key, seed, 1, None, g_epochs, g_steps)
-            got = fused_run(key, seed, 8, None, g_epochs, g_steps)
-            planted = {}
-            for fault in FUSED_FAULTS:
-                try:
-                    planted[fault] = fused_gate(fused_run(
-                        key, seed, 8, None, g_epochs, g_steps, fault), ref)
-                except Exception as e:  # a fault that stops the run fails
-                    planted[fault] = {"raised": f"{type(e).__name__}: "
-                                                f"{str(e)[:300]}"}
-        readings = fused_gate(got, ref)
-        launches[key] = got["launches"]
-        if any(readings[k] > FUSED_TOL[k] for k in FUSED_TOL):
-            failures.append(f"{key}: the fused chunk is {readings} from the "
-                            f"per-epoch route (tolerance {FUSED_TOL})")
-        for fault, r in planted.items():
-            if "raised" not in r and all(r[k] <= FUSED_TOL[k]
-                                         for k in FUSED_TOL):
-                failures.append(f"{key}: the planted fault {fault} passes "
-                                f"the gate: {r}")
-        want = (g_epochs + 1) * per_z
-        for route, run in (("per_epoch", ref), ("fused", got)):
-            if run["launches"] != want or run["other"] != 0:
-                failures.append(f"{key} {route}: {run['launches']} launches "
-                                f"of the kernel (expected {want}), "
-                                f"{run['other']} of the other")
-        # the replays after the captures: epoch 1's last steps, then
-        # epoch 2's Z/U step and steps
-        replays = (g_steps - 1) + (g_epochs - 1) * (g_steps + 1)
-        if (got["replays"], got["replays_in_error_mode"]) != (replays,
-                                                               replays):
-            failures.append(f"{key}: {got['replays']} replays, "
-                            f"{got['replays_in_error_mode']} of them under "
-                            f"the sync debug mode 'error' (expected "
-                            f"{replays})")
+            runs = {"eager": run(config(1), eager=True),
+                    "per_epoch": run(config(1)),
+                    "fused": run(config(8)),
+                    "eager_rho_boost": run(config(1, **boost), eager=True,
+                                           max_epochs=g_epochs),
+                    "per_epoch_rho_boost": run(config(1, **boost),
+                                               max_epochs=g_epochs)}
+            ref, ref_boost = runs["eager"], runs["eager_rho_boost"]
+            planted = planted_runs(FUSED_FAULTS, lambda f: run(
+                config(8), fault=f), ref)
+            for fault in CAPTURE_FAULTS[key]:  # rho's on the boosted run
+                boosted = fault == "rho_frozen"
+                planted.update(planted_runs((fault,), lambda f: run(
+                    config(1, **(boost if boosted else {})), fault=f,
+                    max_epochs=g_epochs), ref_boost if boosted else ref))
+        readings = {"per_epoch": fused_gate(runs["per_epoch"], ref),
+                    "fused": fused_gate(runs["fused"], ref),
+                    "per_epoch_rho_boost": fused_gate(
+                        runs["per_epoch_rho_boost"], ref_boost)}
+        launches[key] = runs["fused"]["launches"]
+        failures += gate_failures(key, readings, planted, runs, per_z,
+                                  replays)
+        rhos = [h["rho"] for h in runs["per_epoch_rho_boost"]["hist"]]
+        if rhos != [1e-3, 5e-3]:
+            failures.append(f"{key}: the boosted run's rho by epoch {rhos}")
+        if mix and any(h["mix_failed_draws"] for r in runs.values()
+                       for h in r["hist"]):
+            failures.append(f"{key}: a Mixup/CutMix draw failed")
         timed = {}
-        for route, per_dispatch in (("per_epoch", 1), ("fused", 8)):
-            run = fused_run(key, seed, per_dispatch, "bfloat16", t_epochs,
-                            t_steps)
-            timed[route] = fused_timing(run, t_steps, per_dispatch > 1)
+        for route, per_dispatch in (("eager", 1), ("per_epoch", 1),
+                                    ("fused", 8)):
+            r = run(config(per_dispatch, "bfloat16", t_epochs, t_steps),
+                    eager=route == "eager")
+            timed[route] = fused_timing(r, t_steps, route == "fused")
         rows[key] = {
-            "model": path["name"], "batch": path["batch_size"],
+            "model": path["name"], "batch": path["batch_size"], **mix,
             "gate": {"epochs": g_epochs, "steps": g_steps,
-                     "per_epoch_losses": ref["losses"],
-                     "fused_losses": got["losses"], "readings": readings,
-                     "tolerance": FUSED_TOL},
+                     "losses": {k: r["losses"] for k, r in runs.items()},
+                     "readings": readings, "tolerance": FUSED_TOL},
             "planted_faults": planted,
             "launches_per_z_step": {
-                "per_epoch": ref["launches"] / (g_epochs + 1),
-                "fused": got["launches"] / (g_epochs + 1)},
-            "replays": got["replays"],
-            "replays_in_sync_error_mode": got["replays_in_error_mode"],
-            "capture_s_float32": got["capture_s"],
+                k: r["launches"] / (len(r["hist"]) + 1)
+                for k, r in runs.items()},
+            "replays": {k: r["replays"] for k, r in runs.items()},
+            "replays_in_sync_error_mode": {
+                k: r["replays_in_error_mode"] for k, r in runs.items()},
+            "capture_s_float32": {k: runs[k]["capture_s"]
+                                  for k in ("per_epoch", "fused")},
             "timed_bf16": {"epochs": t_epochs, "steps": t_steps, **timed}}
+    rows["recipe"], recipe_failures = streamed_gate(seed, workdir)
+    failures += recipe_failures
     wall_s = time.perf_counter() - t_start
     if wall_s > FUSED_WALL_LIMIT_S:
         failures.append(f"the fused phase took {wall_s:.1f} s, over "
@@ -2861,6 +3041,55 @@ def phase_fused(seed: int, card: str) -> dict:
     if failures:
         raise AssertionError("; ".join(failures))
     return launches
+
+
+def streamed_gate(seed: int, workdir: str):
+    """The recipe path's captured streamed step against the eager loop
+    (float32, one loader thread), its planted fault, and both timed in
+    bf16 with the recipe's loader threads -> (row, failures)."""
+    path = DEIT_R
+    shards = recipe_shards(workdir)[0]
+    g_epochs, g_steps = FUSED["gate_epochs"], FUSED["gate_steps"]
+    t_epochs, t_steps = FUSED["timed_epochs"], FUSED["timed_steps"]
+
+    def run(epochs, steps, dtype, workers, **kw):
+        return fused_run(streamed_config(seed, shards, epochs, steps, dtype,
+                                         workers),
+                         sk.dominant_left_subspace_batched,
+                         tk.tucker2_factors_batched, **kw)
+
+    with deterministic_f32():
+        runs = {"eager": run(g_epochs, g_steps, None, 1, eager=True),
+                "streamed": run(g_epochs, g_steps, None, 1)}
+        planted = planted_runs(CAPTURE_FAULTS["recipe"], lambda f: run(
+            g_epochs, g_steps, None, 1, fault=f), runs["eager"])
+    readings = {"streamed": fused_gate(runs["streamed"], runs["eager"])}
+    failures = gate_failures("recipe", readings, planted, runs, 33,
+                             {"eager": 0,
+                              "streamed": g_epochs * g_steps - 1})
+    if any(h["mix_failed_draws"] for r in runs.values() for h in r["hist"]):
+        failures.append("recipe: a Mixup/CutMix draw failed")
+    timed = {route: fused_timing(run(t_epochs, t_steps, "bfloat16",
+                                     path["loader_workers"],
+                                     eager=route == "eager"), t_steps, False)
+             for route in ("eager", "streamed")}
+    return {"model": path["name"], "batch": path["batch_size"],
+            "mixup": 0.8, "cutmix": 1.0,
+            "gate": {"epochs": g_epochs, "steps": g_steps,
+                     "loader_workers": 1,
+                     "losses": {k: r["losses"] for k, r in runs.items()},
+                     "readings": readings, "tolerance": FUSED_TOL},
+            "planted_faults": planted,
+            "launches_per_z_step": {
+                k: r["launches"] / (len(r["hist"]) + 1)
+                for k, r in runs.items()},
+            "replays": {k: r["replays"] for k, r in runs.items()},
+            "replays_in_sync_error_mode": {
+                k: r["replays_in_error_mode"] for k, r in runs.items()},
+            "capture_s_float32": runs["streamed"]["capture_s"],
+            "timed_bf16": {"epochs": t_epochs, "steps": t_steps,
+                           "loader_workers": path["loader_workers"],
+                           **timed}}, failures
 
 
 RECORDED_MS = {
@@ -3157,7 +3386,7 @@ def main() -> int:
         phase_nlp(args.seed, smi, workdir)
         phase_export(args.seed, smi, workdir)
         phase_multi_rank(args.seed, smi, workdir)
-        launches_fused = phase_fused(args.seed, smi)
+        launches_fused = phase_fused(args.seed, smi, workdir)
         emit({"phase": "shared_sets", "made": [list(k) for k in sets]})
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})

@@ -28,7 +28,7 @@ conv's [O, I] view or a linear's weight.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -319,8 +319,12 @@ def admm_update_(params: Mapping[str, torch.Tensor], state: AdmmState,
 
 
 def admm_penalty(params: Mapping[str, torch.Tensor], state: AdmmState,
-                 program: ProjectionProgram, rho: float) -> torch.Tensor:
-    """0.5 * rho * sum_l ||W_l - Z_l + U_l||^2, differentiable in W."""
+                 program: ProjectionProgram,
+                 rho: Union[float, torch.Tensor]) -> torch.Tensor:
+    """0.5 * rho * sum_l ||W_l - Z_l + U_l||^2, differentiable in W. `rho`
+    may be a 0-d float32 tensor, read on the device (a captured step then
+    takes each epoch's value): bit for bit the float's penalty, since
+    halving commutes with rounding to float32."""
     total = 0.0
     for name in program.names:
         d = params[name] - state.z[name] + state.u[name]

@@ -7,7 +7,7 @@ for every first/last factor P it adds ``0.5 * rho * ||P P^T - I||^2``.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Union
 
 import torch
 
@@ -15,14 +15,15 @@ FACTOR_SUFFIXES = ("first_factor", "last_factor")
 
 
 def orthogonal_penalty(params: Mapping[str, torch.Tensor],
-                       rho: float) -> torch.Tensor:
+                       rho: Union[float, torch.Tensor]) -> torch.Tensor:
     """0.5 * rho * sum over factor matrices P of ||P P^T - I||^2,
     differentiable in the factors.
 
     Takes the 2-D parameters whose names end in 'first_factor' or
     'last_factor' (the port keeps the JAX package's names and layout for
     both, `utils/jax_weights.py`); the Gram is the wide orientation's, r x r
-    for P [r, n] with r <= n, and of P^T for a tall P."""
+    for P [r, n] with r <= n, and of P^T for a tall P. `rho` may be a 0-d
+    tensor on the device, as `admm_penalty`'s."""
     total = 0.0
     for name, p in params.items():
         if not name.endswith(FACTOR_SUFFIXES) or p.dim() != 2:

@@ -8,9 +8,9 @@ number it needs from an explicit `torch.Generator`, and the apply function
 is deterministic in those draws. So the same draws can be fed to this
 module and to the JAX package's functions. Images are NCHW float32.
 
-Mixup/CutMix draws one lambda a batch (timm's batch mode), on the host
-generator: a few Python numbers a step and no device sync. RandAugment
-and RandomErasing draw per image on the images' device.
+Every draw is made on the device of its generator, Mixup/CutMix's too
+(one lambda a batch, timm's batch mode): a step that augments reads
+nothing to the host, so it can be captured in a CUDA graph and replayed.
 """
 
 from __future__ import annotations
@@ -18,9 +18,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,27 +46,48 @@ def _one_hot_smoothed(labels: torch.Tensor, num_classes: int,
 
 @dataclasses.dataclass(frozen=True)
 class MixDraws:
-    """One batch's Mixup/CutMix draws: which of the two, each one's lambda,
-    and the box centre (row, column) of CutMix."""
-    use_cutmix: bool
-    lam_mix: float
-    lam_cut: float
-    cy: int
-    cx: int
+    """One batch's Mixup/CutMix draws: which of the two (a bool where only
+    one is on, else a 0-d bool tensor), each one's lambda, the box centre
+    (row, column) of CutMix, and `failed`, the count of its Beta draws in
+    which no candidate was accepted (`sample_beta`). The numbers are 0-d
+    tensors on the device, or Python numbers (the tests feed the JAX
+    package's draws)."""
+    use_cutmix: Union[bool, torch.Tensor]
+    lam_mix: Union[float, torch.Tensor]
+    lam_cut: Union[float, torch.Tensor]
+    cy: Union[int, torch.Tensor]
+    cx: Union[int, torch.Tensor]
+    failed: Optional[torch.Tensor] = None
 
 
-def sample_beta(alpha: float, generator: torch.Generator) -> float:
-    """One Beta(alpha, alpha) number from `generator` (a CPU generator), by
-    Johnk's rejection from pairs of uniforms, in log space."""
-    while True:
-        u, v = torch.rand(2, dtype=torch.float64, generator=generator).tolist()
-        if u == 0.0 or v == 0.0:
-            continue
-        lx, ly = math.log(u) / alpha, math.log(v) / alpha
-        m = max(lx, ly)
-        s = math.exp(lx - m) + math.exp(ly - m)
-        if m + math.log(s) <= 0.0:  # x + y <= 1
-            return math.exp(lx - m) / s
+BETA_CANDIDATES = 256  # Johnk candidate pairs a Beta draw
+
+
+def sample_beta(alpha: float, generator: torch.Generator, shape=(),
+                candidates: int = BETA_CANDIDATES):
+    """Beta(alpha, alpha) numbers of `shape` on `generator`'s device, by
+    Johnk's method in log space over a fixed number of candidate pairs of
+    float64 uniforms each: x = u^(1/a), y = v^(1/a), accepted where
+    x + y <= 1, the value x / (x + y) of the first accepted pair. No host
+    read, no loop. -> (float32 values, int64 count of the numbers with no
+    accepted candidate, which take their first pair's ratio).
+
+    A pair is accepted with probability G(a + 1)^2 / G(2a + 1), so a
+    number has no accepted pair of 256 with probability 1e-333 at
+    a = 0.2, 1.7e-104 at 0.8, 8.6e-78 at 1.0 and 5.4e-21 at 2.0 (run.sh
+    passes 0.8 and 1.0; a zero alpha is 1e-6, accepted at once): the
+    count is 0 in law at the alphas users pass, and reports a draw that
+    failed all the same."""
+    uv = torch.rand((*shape, candidates, 2), dtype=torch.float64,
+                    device=generator.device, generator=generator)
+    logs = uv.log() / alpha
+    m = logs.amax(-1, keepdim=True)
+    e = (logs - m).exp()
+    s = e.sum(-1)
+    ok = (m.squeeze(-1) + s.log() <= 0.0) & (uv > 0).all(-1)
+    first = ok.int().argmax(-1, keepdim=True)  # the first accepted, or 0
+    value = (e[..., 0] / s).gather(-1, first).squeeze(-1)
+    return value.float(), (~ok.any(-1)).sum()
 
 
 SWITCH_PROB = 0.5  # CutMix's share of the batches where both are on
@@ -75,59 +95,76 @@ SWITCH_PROB = 0.5  # CutMix's share of the batches where both are on
 
 def draw_mix(generator: torch.Generator, h: int, w: int, *,
              mixup_alpha: float, cutmix_alpha: float) -> MixDraws:
-    """The draws of `mixup_cutmix`: CutMix with SWITCH_PROB where both
-    are on, else the one that is on; lambda ~ Beta(alpha, alpha) (a zero
-    alpha is 1e-6, as the JAX package's); the box centre uniform."""
-    def uniform():
-        return torch.rand((), dtype=torch.float64, generator=generator).item()
-
+    """The draws of `mixup_cutmix`, on `generator`'s device: CutMix with
+    SWITCH_PROB where both are on, else the one that is on; lambda ~
+    Beta(alpha, alpha) (a zero alpha is 1e-6, as the JAX package's); the
+    box centre uniform."""
+    dev = generator.device
     if cutmix_alpha > 0.0 and mixup_alpha > 0.0:
-        use_cutmix = uniform() < SWITCH_PROB
+        use_cutmix = torch.rand((), device=dev,
+                                generator=generator) < SWITCH_PROB
     else:
         use_cutmix = cutmix_alpha > 0.0
-    lam_mix = sample_beta(max(mixup_alpha, 1e-6), generator)
-    lam_cut = sample_beta(max(cutmix_alpha, 1e-6), generator)
-    cy = int(torch.randint(0, h, (), generator=generator))
-    cx = int(torch.randint(0, w, (), generator=generator))
-    return MixDraws(use_cutmix, lam_mix, lam_cut, cy, cx)
+    lam_mix, failed_mix = sample_beta(max(mixup_alpha, 1e-6), generator)
+    lam_cut, failed_cut = sample_beta(max(cutmix_alpha, 1e-6), generator)
+    cy = torch.randint(0, h, (), device=dev, generator=generator)
+    cx = torch.randint(0, w, (), device=dev, generator=generator)
+    return MixDraws(use_cutmix, lam_mix, lam_cut, cy, cx,
+                    failed_mix + failed_cut)
 
 
-def cutmix_box(draws: MixDraws, h: int, w: int) -> Tuple[int, int, int, int]:
-    """Rows [y0, y1) and columns [x0, x1) of the CutMix box: sides
-    sqrt(1 - lambda) of the image's (float32, truncated), about the
-    drawn centre, clipped to the image."""
-    ratio = np.sqrt(np.float32(1.0) - np.float32(draws.lam_cut))
-    cut_h = int(np.float32(h) * ratio)
-    cut_w = int(np.float32(w) * ratio)
-    y0 = min(max(draws.cy - cut_h // 2, 0), h)
-    y1 = min(max(draws.cy + cut_h // 2, 0), h)
-    x0 = min(max(draws.cx - cut_w // 2, 0), w)
-    x1 = min(max(draws.cx + cut_w // 2, 0), w)
-    return y0, y1, x0, x1
+def cutmix_box(lam_cut: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor,
+               h: int, w: int):
+    """Rows [y0, y1) and columns [x0, x1) of the CutMix box as int64
+    tensors: sides sqrt(1 - lambda) of the image's (float32, truncated),
+    about the drawn centre, clipped to the image."""
+    ratio = torch.sqrt(1.0 - lam_cut)
+    half_h = (h * ratio).long() // 2
+    half_w = (w * ratio).long() // 2
+    return ((cy - half_h).clamp(0, h), (cy + half_h).clamp(0, h),
+            (cx - half_w).clamp(0, w), (cx + half_w).clamp(0, w))
 
 
 def mixup_cutmix(x: torch.Tensor, labels: torch.Tensor,
                  draws: Optional[MixDraws], *, num_classes: int,
                  smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """timm's batch-mode Mixup/CutMix of NCHW `x` with the flipped batch
-    as partner -> (x_mixed, soft targets [B, C]). CutMix pastes the
-    partner's box and recomputes lambda from the clipped box's area; the
-    targets are smoothed one-hots mixed by lambda. `draws` None: `x` and
-    the smoothed targets unchanged."""
+    as partner -> (x_mixed, soft targets [B, C]), as the JAX package
+    computes it: CutMix pastes the partner's box through a mask of
+    `arange` comparisons and recomputes lambda from the clipped box's
+    area; the branch is chosen by `torch.where` (or statically where
+    `use_cutmix` is a bool); the targets are smoothed one-hots mixed by
+    lambda. `draws` None: `x` and the smoothed targets unchanged."""
     y = _one_hot_smoothed(labels, num_classes, smoothing)
     if draws is None:
         return x, y
+
+    def tensor(v, dtype):
+        return (v if isinstance(v, torch.Tensor)
+                else torch.tensor(v, dtype=dtype, device=x.device))
+
     x_flip, y_flip = x.flip(0), y.flip(0)
-    if draws.use_cutmix:
+    use = draws.use_cutmix
+    if use is not True:
+        lam_mix = tensor(draws.lam_mix, torch.float32)
+        x_mix = lam_mix * x + (1 - lam_mix) * x_flip
+    if use is not False:
         h, w = x.shape[-2:]
-        y0, y1, x0, x1 = cutmix_box(draws, h, w)
-        out = x.clone()
-        out[..., y0:y1, x0:x1] = x_flip[..., y0:y1, x0:x1]
-        lam = float(np.float32(1.0) - np.float32((y1 - y0) * (x1 - x0))
-                    / np.float32(h * w))
+        y0, y1, x0, x1 = cutmix_box(tensor(draws.lam_cut, torch.float32),
+                                    tensor(draws.cy, torch.long),
+                                    tensor(draws.cx, torch.long), h, w)
+        rows = torch.arange(h, device=x.device)[:, None]
+        cols = torch.arange(w, device=x.device)[None, :]
+        in_box = (rows >= y0) & (rows < y1) & (cols >= x0) & (cols < x1)
+        x_cut = torch.where(in_box, x_flip, x)
+        lam_cut = 1.0 - ((y1 - y0) * (x1 - x0)) / (h * w)
+    if use is True:
+        out, lam = x_cut, lam_cut
+    elif use is False:
+        out, lam = x_mix, lam_mix
     else:
-        lam = float(np.float32(draws.lam_mix))
-        out = lam * x + (1 - lam) * x_flip
+        out = torch.where(use, x_cut, x_mix)
+        lam = torch.where(use, lam_cut, lam_mix)
     return out, lam * y + (1 - lam) * y_flip
 
 

@@ -233,8 +233,9 @@ class DevicePrefetcher:
         if copied is not None:
             step_stream = torch.cuda.current_stream(self.device)
             step_stream.wait_event(copied)
-            # the allocator keeps the copy stream's memory until the step
-            # has used it
+            # the allocator keeps the copy stream's memory until the step's
+            # stream has used it (the step, or the copy into a captured
+            # step's input buffers, which runs there too)
             xd.record_stream(step_stream)
             yd.record_stream(step_stream)
         return xd, yd

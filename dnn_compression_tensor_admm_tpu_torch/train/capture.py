@@ -1,18 +1,29 @@
-"""Fused epochs: several ADMM epochs run on the card as one chunk (the
-JAX package's `run_epochs`, `--epochs-per-dispatch`).
+"""The X-step as the JAX package compiles it: replayed from a CUDA graph
+on the card (`jax.jit` of `run_steps`, `make_streaming_step` and
+`run_epochs` there).
 
-An epoch of a chunk is `epoch_start` (the Z/U step written in place, the
-epoch's permutation or shuffled copy, the epoch's sums and row counter
-set to 0) and `steps` calls of `x_step` (one optimizer step on the rows
-of the device's counter, its loss and accuracy added to the sums). On a
-card the first epoch of the first chunk calls both eagerly, as the
-per-epoch route does; then each is captured once in a CUDA graph, with
-the device generator registered, and every later call is a replay:
-nothing is read to the host between the chunk's first replay and its one
-read of the [k] sums at its end, which runs under
-`torch.cuda.set_sync_debug_mode("error")`. A capture or a replay that
-fails raises; the chunk never gives way to the per-epoch route. On the
-CPU the same chunk runs eagerly.
+`CapturedStep` is one optimizer step that reads its input from tensors of
+fixed address: the device-resident set's rows at a counter on the device,
+or the streamed batch copied into `StaticBatch`'s buffers. On a card its
+first call (`prime`) runs it eagerly, the warm-up autocast, cuDNN and the
+optimizer's state need, and captures it in a CUDA graph with the device
+generator registered; every later call replays the graph. One run holds
+one such step, which both routes replay, so they cannot drift apart (the
+JAX package's `scan_epoch` is shared by its per-epoch and fused programs
+for the same reason):
+
+* the per-epoch route (`run_epoch`): the epoch's steps replayed between
+  eager Z/U steps, evaluations, logs and checkpoints;
+* fused epochs (`EpochChunks`, `--epochs-per-dispatch`): several ADMM
+  epochs as one chunk, each epoch's start (the Z/U step written in place,
+  the epoch's permutation or shuffled copy, the epoch's sums and row
+  counter set to 0) captured too. Nothing is read to the host between
+  the chunk's first replay and its one read of the [k] sums at its end.
+
+Replays run under `torch.cuda.set_sync_debug_mode("error")`. A capture or
+a replay that fails raises; a run never gives way to the eager route. On
+the CPU, and on a mesh of several ranks (its collectives are not
+captured), the same step runs eagerly (`eager_reason`).
 
 `chunkable` and `chunk_size` are the JAX package's rule
 (`train/engine.py:654-671` there); `exclusion` names what the port
@@ -51,17 +62,27 @@ def chunk_size(cfg, epoch: int, epochs: int, has_val: bool) -> int:
     return max(1, min(cfg.epochs_per_dispatch, nxt - epoch, epochs - epoch))
 
 
-def exclusion(cfg, mesh=None) -> Optional[str]:
-    """Why the port runs a chunkable run per epoch, or None."""
+def _mesh_reason(mesh) -> Optional[str]:
     if mesh is not None and mesh.size > 1:
         return (f"a mesh of {mesh.size} ranks: collectives are not "
                 "captured in CUDA graphs")
-    if cfg.mixup > 0 or cfg.cutmix > 0:
-        return "Mixup/CutMix draws its lambda and box on the host"
-    if cfg.admm and cfg.admm_method != "kernel":
-        return (f"the {cfg.admm_method!r} Z/U step's torch.linalg calls read "
-                "their error flags back to the host")
     return None
+
+
+def eager_reason(device: torch.device, mesh=None) -> Optional[str]:
+    """Why the run's X-step runs eagerly, or None: it is captured."""
+    if device.type != "cuda":
+        return "no card: CUDA graphs need one"
+    return _mesh_reason(mesh)
+
+
+def exclusion(cfg, mesh=None) -> Optional[str]:
+    """Why the port runs a chunkable run per epoch, or None."""
+    why = _mesh_reason(mesh)
+    if why is None and cfg.admm and cfg.admm_method != "kernel":
+        why = (f"the {cfg.admm_method!r} Z/U step's torch.linalg calls read "
+               "their error flags back to the host")
+    return why
 
 
 def register_generators(graph, generators: Sequence[torch.Generator]) -> None:
@@ -108,46 +129,115 @@ def _no_host_reads(on_card: bool):
         torch.cuda.set_sync_debug_mode(saved)
 
 
-class EpochChunks:
-    """The chunks of one run (see the module docstring). `sums` is the
-    [2] tensor (loss, accuracy) that `x_step` adds to and `epoch_start`
-    sets to 0; its graphs are kept for every later chunk of the run.
-    `capture_s` is the host time of the first epoch's eager calls and the
-    two captures (the capture waits for the card first)."""
+class CapturedStep:
+    """`fn`, one optimizer step reading nothing to the host, replayed from
+    a CUDA graph once `prime` has run it (see the module docstring);
+    before that, and where `capture` is False, a call runs it eagerly.
+    `capture_s` is the host time of the capture (it waits for the card
+    first)."""
 
-    def __init__(self, epoch_start: Callable[[], None],
-                 x_step: Callable[[], None], sums: torch.Tensor, steps: int,
-                 generators: Sequence[torch.Generator]):
-        self.epoch_start, self.x_step = epoch_start, x_step
+    def __init__(self, fn: Callable[[], None],
+                 generators: Sequence[torch.Generator], capture: bool):
+        self.fn, self.generators = fn, tuple(generators)
+        self.capture = capture
+        self.graph: Optional[_Graph] = None
+        self.capture_s = 0.0
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def prime(self) -> None:
+        """The step eagerly, then captured: every later call replays it."""
+        self.fn()
+        t0 = time.perf_counter()
+        self.graph = _Graph(self.fn, self.generators)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self.fn()
+        else:
+            self.graph.replay()
+
+
+class StaticBatch:
+    """The streamed step's input: each batch copied into buffers of its
+    own, on the step's stream, which a captured step reads."""
+
+    def __init__(self):
+        self.x: Optional[torch.Tensor] = None
+        self.y: Optional[torch.Tensor] = None
+
+    def load(self, xb: torch.Tensor, yb: torch.Tensor) -> None:
+        if self.x is None:
+            self.x, self.y = torch.empty_like(xb), torch.empty_like(yb)
+        self.x.copy_(xb)
+        self.y.copy_(yb)
+
+
+def run_epoch(step: CapturedStep, steps: int,
+              fetch: Optional[Callable[[], None]] = None,
+              traced=contextlib.nullcontext) -> int:
+    """The per-epoch route's `steps` calls of `step`, each after `fetch()`
+    (the streamed batch into its buffers); on a card the run's first call
+    primes the step and the others replay it, under the sync debug mode
+    'error' and inside the context `traced()` makes (a `--profile-dir`
+    trace of the replays). Returns the number of calls inside it."""
+    first = 0
+    if step.capture and not step.captured:
+        if fetch:
+            fetch()
+        step.prime()
+        first = 1
+    with traced(), _no_host_reads(step.capture):
+        for _ in range(first, steps):
+            if fetch:
+                fetch()
+            step()
+    return steps - first
+
+
+class EpochChunks:
+    """The fused chunks of one run (see the module docstring). `sums` is
+    the tensor (loss, accuracy, failed Mixup draws) that `step` adds to
+    and `epoch_start` sets to 0; the graphs are kept for every later chunk
+    of the run. `capture_s` is the host time of the first epoch's eager
+    start (and step, where the step was not captured yet) and the
+    captures (each waits for the card first)."""
+
+    def __init__(self, epoch_start: Callable[[], None], step: CapturedStep,
+                 sums: torch.Tensor, steps: int):
+        self.epoch_start, self.step = epoch_start, step
         self.sums, self.steps = sums, steps
-        self.generators = tuple(generators)
-        self.on_card = sums.device.type == "cuda"
-        self.start_fn, self.step_fn = epoch_start, x_step
-        self.captured = False
+        self.start: Optional[_Graph] = None
         self.capture_s = 0.0
 
     def run(self, k: int) -> List[List[float]]:
-        """k epochs -> their [loss sum, accuracy sum] over the steps, read
-        to the host once, at the end."""
-        out = torch.empty((k, 2), dtype=torch.float32,
+        """k epochs -> their sums over the steps, read to the host once,
+        at the end."""
+        out = torch.empty((k, self.sums.numel()), dtype=torch.float32,
                           device=self.sums.device)
-        warm = self.on_card and not self.captured
-        if warm:  # the first epoch's Z/U step and first step, eagerly
+        warm = self.step.capture and self.start is None
+        first = 0
+        if warm:  # the first epoch's start (and first step), eagerly
             t0 = time.perf_counter()
             self.epoch_start()
-            self.x_step()
-            # the step first: its graph reads Z and U where the eager
-            # Z/U step left them, and the Z/U step's graph writes there
-            self.step_fn = _Graph(self.x_step, self.generators).replay
-            self.start_fn = _Graph(self.epoch_start, self.generators).replay
-            self.captured = True
+            if not self.step.captured:
+                # the step first: its graph reads Z and U where the eager
+                # Z/U step left them, and the Z/U step's graph writes there
+                self.step.prime()
+                first = 1
+            self.start = _Graph(self.epoch_start, self.step.generators)
             self.capture_s = time.perf_counter() - t0
-        with _no_host_reads(self.on_card):
+        with _no_host_reads(self.step.capture):
             for j in range(k):
-                first = int(warm and j == 0)
-                if not first:
-                    self.start_fn()
-                for _ in range(first, self.steps):
-                    self.step_fn()
+                if not (warm and j == 0):
+                    if self.start is None:
+                        self.epoch_start()
+                    else:
+                        self.start.replay()
+                for _ in range(first if j == 0 else 0, self.steps):
+                    self.step()
                 out[j].copy_(self.sums)
         return out.tolist()

@@ -12,20 +12,28 @@ draws; `repeated_aug` views of each row), or, with `shard_dir`, are
 streamed from DCTA shards by the native loader through pinned buffers
 (`shard_cache='hbm'` reads the shards whole into the device-resident
 route). Then crop, flip, RandAugment, normalise and RandomErasing on the
-device, and Mixup/CutMix against soft targets. The host reads back a few
-scalars per epoch. Every model's forward takes that device generator; a
-ViT draws its drop path from it, a ResNet ignores it. `profile_dir`
-traces the first epoch's X-step (`utils/profiling.py`). The lr of each
-step comes from a table on the device (`optim.LrTable`), and the Z/U step
-writes Z and U in place (`admm_update_`).
+device, and Mixup/CutMix against soft targets, every draw from that
+device generator. The host reads back a few scalars per epoch. Every
+model's forward takes that device generator; a ViT draws its drop path
+from it, a ResNet ignores it. The lr of each step comes from a table on
+the device (`optim.LrTable`), rho from a 0-d tensor filled before each
+epoch, and the Z/U step writes Z and U in place (`admm_update_`).
 
-Where the host observes nothing per epoch, up to `epochs_per_dispatch`
-epochs run as one fused chunk (`train/capture.py`, the JAX package's
-`run_epochs`): on the card each epoch's Z/U step and X-steps are replayed
-from CUDA graphs with no host read, the rows (`epoch`, `train_loss`,
-`train_acc`, `epoch_time_s` = the chunk's time / k) are read at the
-chunk's end, and the evaluation runs after its last epoch. On the CPU the
-same chunk runs eagerly, bit for bit the per-epoch route.
+The X-step is the JAX package's compiled step (`train/capture.py`): one
+`CapturedStep` that reads the set's rows at a counter on the device, or
+the streamed batch copied into static buffers, and adds its loss,
+accuracy and failed Mixup draws to the epoch's sums. On the card it is
+captured in a CUDA graph after one eager call and replayed: per epoch
+between the eager Z/U steps, evaluations, logs and checkpoints (the sums
+read once an epoch; `profile_dir` traces the first epoch's replays), or,
+where the host observes nothing per epoch, in fused chunks of up to
+`epochs_per_dispatch` epochs (the JAX package's `run_epochs`), each
+epoch's Z/U step replayed too, the rows (`epoch`, `train_loss`,
+`train_acc`, `epoch_time_s` = the chunk's time / k) read at the chunk's
+end and the evaluation run after its last epoch. On the CPU and on a
+mesh of several ranks the same step runs eagerly. `train_model(...,
+eager=True)` runs the eager reference loop instead: each step on its own
+batch tensors.
 
 With `ema_decay` > 0 an EMA shadow of the parameters follows each
 optimizer step and is evaluated beside them (`ema_test_*`, with the live
@@ -300,7 +308,8 @@ def _make_teacher(cfg: TrainConfig, num_classes: int,
 
 def train_model(cfg: TrainConfig, *,
                 init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                max_epochs: Optional[int] = None, mesh=None):
+                max_epochs: Optional[int] = None, mesh=None,
+                eager: bool = False):
     """Train `cfg.model` (ADMM with `cfg.admm`) -> (model, history).
 
     `init_state_dict` (e.g. from `decompose_params`) replaces the random
@@ -308,7 +317,10 @@ def train_model(cfg: TrainConfig, *,
     many epochs (counted from the first, a resumed run's included) while
     the schedule and the rho boost still count `cfg.epochs`. `mesh`: this
     process's rank on a (data, layer) grid (see the module docstring);
-    every rank returns the same history."""
+    every rank returns the same history. `eager` runs every epoch through
+    the eager reference loop: each step on its own batch tensors, rho a
+    Python float, no CUDA graph and no fused chunk (what `chip_smoke.py`
+    holds the captured routes against)."""
     main = mesh is None or mesh.rank == 0
     log = cfg.print_fn if main else (lambda *a, **k: None)
     dp = mesh is not None and mesh.n_data > 1
@@ -434,32 +446,41 @@ def train_model(cfg: TrainConfig, *,
     repeats = cfg.repeated_aug
     mix = cfg.mixup > 0 or cfg.cutmix > 0
     timer = PhaseTimer()
+    # the step's rho, read on the device: filled before each epoch, so the
+    # late boost reaches a captured step
+    rho_t = torch.full((), cfg.rho, device=device)
+    if not streaming:
+        n = images.shape[0]
+        mode = cfg.sampling if n >= cfg.batch_size else "replacement"
+
+    def next_batch():
+        """The streamed route's next global batch (uint8 NHWC images,
+        labels), gathered from the data ranks' slices."""
+        if reads:
+            xb, yb = next(stream)
+            if dp:
+                xb = gather_rows(xb, mesh.data_group)
+                yb = gather_rows(yb, mesh.data_group)
+        if mesh is not None and mesh.n_layer > 1:
+            if not reads:
+                xb = torch.empty((cfg.batch_size, *held), dtype=torch.uint8,
+                                 device=device)
+                yb = torch.empty(cfg.batch_size, dtype=torch.long,
+                                 device=device)
+            src = mesh.data_index * mesh.n_layer  # its layer 0
+            dist.broadcast(xb, src, mesh.layer_group)
+            dist.broadcast(yb, src, mesh.layer_group)
+        return xb, yb
 
     def epoch_batches():
-        """The epoch's global (uint8 NHWC images, labels) a step: streamed
-        (gathered from the data ranks' slices), or picked from the
+        """The eager reference loop's batches: the epoch's global (uint8
+        NHWC images, labels) a step, streamed, or picked from the
         device-resident set by the epoch's sampling mode ('replacement'
         where the set is smaller than a batch)."""
         if streaming:
             for _ in range(steps):
-                if reads:
-                    xb, yb = next(stream)
-                    if dp:
-                        xb = gather_rows(xb, mesh.data_group)
-                        yb = gather_rows(yb, mesh.data_group)
-                if mesh is not None and mesh.n_layer > 1:
-                    if not reads:
-                        xb = torch.empty((cfg.batch_size, *held),
-                                         dtype=torch.uint8, device=device)
-                        yb = torch.empty(cfg.batch_size, dtype=torch.long,
-                                         device=device)
-                    src = mesh.data_index * mesh.n_layer  # its layer 0
-                    dist.broadcast(xb, src, mesh.layer_group)
-                    dist.broadcast(yb, src, mesh.layer_group)
-                yield xb, yb
+                yield next_batch()
             return
-        n = images.shape[0]
-        mode = cfg.sampling if n >= cfg.batch_size else "replacement"
         if mode == "shuffle":
             step_images, step_labels = shuffle_epoch(images, labels, gen)
             for i in range(steps):
@@ -479,7 +500,7 @@ def train_model(cfg: TrainConfig, *,
 
     def one_step(x, target, rho):
         """One optimizer step on augmented `x` -> (loss, logits), reading
-        nothing to the host (a fused chunk captures it); data-parallel, x
+        nothing to the host (a CUDA graph captures it); data-parallel, x
         is this rank's rows of the global batch and the loss its rows'
         mean plus the penalty."""
         lrs.advance()
@@ -517,8 +538,9 @@ def train_model(cfg: TrainConfig, *,
 
     def train_batch(xb, yb, rho):
         """Augment one global batch (uint8 NHWC) and take an optimizer
-        step on it -> (loss, accuracy), 0-d on the device (of this rank's
-        rows where data-parallel)."""
+        step on it -> (loss, accuracy, Mixup/CutMix's failed Beta draws or
+        None), 0-d on the device (of this rank's rows where
+        data-parallel)."""
         b, h, w, c = xb.shape
         offsets, flips = random_crop_flip(b, gen)
         ra = er = None
@@ -529,46 +551,50 @@ def train_model(cfg: TrainConfig, *,
             er = draw_random_erasing((b, c, h, w), gen, prob=cfg.erase_prob)
         x = augment_batch(xb, offsets, flips, mean=info.mean, std=info.std,
                           randaug=ra, erase=er)
-        target = yb
-        if mix:  # one lambda a batch, from the host generator
-            x, target = mixup_cutmix(
-                x, yb, draw_mix(init_gen, h, w, mixup_alpha=cfg.mixup,
-                                cutmix_alpha=cfg.cutmix),
-                num_classes=num_classes, smoothing=cfg.smoothing)
+        target, failed = yb, None
+        if mix:  # one lambda a batch, drawn on the device
+            draws = draw_mix(gen, h, w, mixup_alpha=cfg.mixup,
+                             cutmix_alpha=cfg.cutmix)
+            x, target = mixup_cutmix(x, yb, draws, num_classes=num_classes,
+                                     smoothing=cfg.smoothing)
+            failed = draws.failed
         if dp:  # this rank's rows of the global batch
             x, target, yb = (t[rows[0]:rows[1]] for t in (x, target, yb))
         loss, logits = one_step(x, target, rho)
-        return loss.detach(), (logits.argmax(-1) == yb).float().mean()
+        return (loss.detach(), (logits.argmax(-1) == yb).float().mean(),
+                failed)
 
-    def epoch_chunks():
-        """The run's fused chunks (`train/capture.py`) on the
-        device-resident set: the rows of each step picked at a counter on
-        the device, the epoch's permutation or shuffled copy drawn into
-        buffers of its own, the Z/U step written in place."""
-        n = images.shape[0]
-        mode = cfg.sampling if n >= cfg.batch_size else "replacement"
-        sums = torch.zeros(2, device=device)  # the epoch's loss, accuracy
+    # the step both routes replay: its input at fixed addresses (the
+    # streamed batch's buffers, or the set's rows at a counter on the
+    # device: the epoch's permutation or shuffled copy drawn into buffers
+    # of its own), its loss, accuracy and failed draws added to `sums`
+    sums = torch.zeros(3, device=device)
+    if streaming:
+        batch = capture.StaticBatch()
+    else:
         at = torch.zeros((), dtype=torch.long, device=device)  # its step
         order = (torch.empty(n, dtype=torch.long, device=device)
                  if mode == "perm" else None)
         shuffled = ((torch.empty_like(images), torch.empty_like(labels))
                     if mode == "shuffle" else None)
 
-        def epoch_start():
-            if program is not None:
-                admm_update_(params, admm, program, update_u=True,
-                             method=cfg.admm_method,
-                             n_iter=cfg.admm_hooi_iters)
+    def epoch_prep():
+        """The epoch's sampling drawn into its buffers, its sums and row
+        counter set to 0."""
+        if not streaming:
             if mode == "perm":
                 order.copy_(torch.randperm(n, device=device, generator=gen))
             elif mode == "shuffle":
                 for buf, t in zip(shuffled, shuffle_epoch(images, labels,
                                                           gen)):
                     buf.copy_(t)
-            sums.zero_()
             at.zero_()
+        sums.zero_()
 
-        def x_step():
+    def x_step():
+        if streaming:
+            xb, yb = batch.x, batch.y
+        else:
             if mode == "replacement":
                 idx = (sample_batch_repeated(n, gen, cfg.batch_size, repeats)
                        if repeats > 1 else sample_batch(n, gen,
@@ -578,12 +604,33 @@ def train_model(cfg: TrainConfig, *,
                 if mode == "perm":
                     idx = order[idx]
             xs, ys = shuffled if mode == "shuffle" else (images, labels)
-            loss, acc = train_batch(xs[idx], ys[idx], cfg.rho)
-            sums[0] += loss
-            sums[1] += acc
+            xb, yb = xs[idx], ys[idx]
+        loss, acc, failed = train_batch(xb, yb, rho_t)
+        sums[0] += loss
+        sums[1] += acc
+        if failed is not None:
+            sums[2] += failed
+        if not streaming:
             at.add_(1)
 
-        return capture.EpochChunks(epoch_start, x_step, sums, steps, (gen,))
+    why_eager = "the eager reference loop" if eager else capture.eager_reason(
+        device, mesh)
+    if why_eager:  # logged once
+        log(f"the X-step runs eagerly ({why_eager})")
+    captured_step = capture.CapturedStep(x_step, (gen,), why_eager is None)
+
+    def epoch_chunks():
+        """The run's fused chunks (`train/capture.py`) on the
+        device-resident set: each epoch's start the Z/U step written in
+        place and `epoch_prep`, its steps `captured_step`."""
+        def epoch_start():
+            if program is not None:
+                admm_update_(params, admm, program, update_u=True,
+                             method=cfg.admm_method,
+                             n_iter=cfg.admm_hooi_iters)
+            epoch_prep()
+
+        return capture.EpochChunks(epoch_start, captured_step, sums, steps)
 
     def evaluates(epoch: int) -> bool:
         return x_va is not None and ((epoch + 1) % cfg.eval_every == 0
@@ -602,7 +649,7 @@ def train_model(cfg: TrainConfig, *,
 
     history = []
     epochs = max_epochs or cfg.epochs
-    fuse = capture.chunkable(cfg, streaming)
+    fuse = not eager and capture.chunkable(cfg, streaming)
     chunks = None
     fused_until = start_epoch
     try:
@@ -619,16 +666,19 @@ def train_model(cfg: TrainConfig, *,
                 chunks = chunks or epoch_chunks()
                 t0 = time.perf_counter()
                 model.train()
-                sums = chunks.run(k)
+                rho_t.fill_(cfg.rho)
+                sums_k = chunks.run(k)
                 dt = (time.perf_counter() - t0) / k
                 step += k * steps
-                for j, (loss_sum, acc_sum) in enumerate(sums):
+                for j, (loss_sum, acc_sum, failed) in enumerate(sums_k):
                     train_loss = loss_sum / steps
                     if not math.isfinite(train_loss):
                         raise FloatingPointError(
                             f"loss is {train_loss}, stopping")
                     row = {"epoch": epoch + j + 1, "train_loss": train_loss,
                            "train_acc": acc_sum / steps, "epoch_time_s": dt}
+                    if mix:
+                        row["mix_failed_draws"] = int(failed)
                     if j == k - 1 and evaluates(epoch + j):
                         evaluate_into(row)
                     history.append(row)
@@ -659,22 +709,34 @@ def train_model(cfg: TrainConfig, *,
                         for n, v in row["admm_residuals"].items()}}))
             t_x = time.perf_counter()
             model.train()
-            loss_sum = torch.zeros((), device=device)
-            acc_sum = torch.zeros((), device=device)
             profiled = (cfg.profile_dir is not None and epoch == start_epoch
                         and main)
+            traced = ((lambda: trace(cfg.profile_dir)) if profiled
+                      else contextlib.nullcontext)
             if reads:
                 host_s, batches = stream.host_s, stream.batches
                 wait_s = stream.wait_s
-            with (trace(cfg.profile_dir) if profiled
-                  else contextlib.nullcontext()):
-                for xb, yb in epoch_batches():
-                    loss, acc = train_batch(xb, yb, rho)
-                    step += 1
-                    loss_sum += loss
-                    acc_sum += acc
-            train_loss = loss_sum.item() / steps
-            train_acc = acc_sum.item() / steps
+            if eager:  # each step on its own batch tensors, rho a float
+                epoch_sums = torch.zeros(3, device=device)
+                with traced():
+                    for xb, yb in epoch_batches():
+                        loss, acc, failed = train_batch(xb, yb, rho)
+                        epoch_sums[0] += loss
+                        epoch_sums[1] += acc
+                        if failed is not None:
+                            epoch_sums[2] += failed
+                traced_steps = steps
+            else:
+                rho_t.fill_(rho)
+                epoch_prep()
+                traced_steps = capture.run_epoch(
+                    captured_step, steps,
+                    (lambda: batch.load(*next_batch())) if streaming
+                    else None, traced)
+                epoch_sums = sums
+            step += steps
+            loss_sum, acc_sum, failed = epoch_sums.tolist()
+            train_loss, train_acc = loss_sum / steps, acc_sum / steps
             if dp:  # the means over the data ranks
                 means = dist.all_reduce_metrics(
                     {"loss": train_loss, "acc": train_acc}, mesh.data_group,
@@ -691,6 +753,9 @@ def train_model(cfg: TrainConfig, *,
             if profiled:
                 row["profile_trace"] = os.path.join(cfg.profile_dir,
                                                     "trace.json")
+                row["profile_steps"] = traced_steps
+            if mix:
+                row["mix_failed_draws"] = int(failed)
             if not math.isfinite(train_loss):
                 raise FloatingPointError(f"loss is {train_loss}, stopping")
             row.update(train_loss=train_loss, train_acc=train_acc,

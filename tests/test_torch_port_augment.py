@@ -180,25 +180,31 @@ def test_rand_augment_and_erasing_match_jax():
 def test_port_draws_follow_their_distributions():
     gen = torch.Generator().manual_seed(0)
     n = 2000
-    lams = [aug.sample_beta(0.8, gen) for _ in range(n)]
-    assert scipy.stats.kstest(lams, scipy.stats.beta(0.8, 0.8).cdf).pvalue > 1e-3
+    lams, failed = aug.sample_beta(0.8, gen, (n,))
+    assert int(failed) == 0
+    assert scipy.stats.kstest(lams.numpy(),
+                              scipy.stats.beta(0.8, 0.8).cdf).pvalue > 1e-3
     # CutMix at alpha 1: lambda uniform, the box's area 1 - lambda of the
     # image up to the truncation of its sides (before clipping)
     h = w = 224
     cut = [aug.draw_mix(gen, h, w, mixup_alpha=0.0, cutmix_alpha=1.0)
            for _ in range(n)]
-    assert all(d.use_cutmix for d in cut)
-    assert scipy.stats.kstest([d.lam_cut for d in cut], "uniform").pvalue > 1e-3
-    for d in cut:
-        side = np.sqrt(np.float32(1) - np.float32(d.lam_cut))
-        area = int(np.float32(h) * side) * int(np.float32(w) * side) / (h * w)
-        assert (1 - d.lam_cut) - 2 * side / h - 1e-6 <= area <= 1 - d.lam_cut
-        y0, y1, x0, x1 = aug.cutmix_box(d, h, w)
+    assert all(d.use_cutmix is True for d in cut)
+    assert sum(int(d.failed) for d in cut) == 0
+    lam_cut = np.array([float(d.lam_cut) for d in cut])
+    assert scipy.stats.kstest(lam_cut, "uniform").pvalue > 1e-3
+    for d, lam in zip(cut, lam_cut):
+        side = np.sqrt(np.float32(1) - np.float32(lam))
+        sides = int(np.float32(h) * side) * int(np.float32(w) * side)
+        area = sides / (h * w)
+        assert (1 - lam) - 2 * side / h - 1e-6 <= area <= 1 - lam
+        y0, y1, x0, x1 = (int(t) for t in aug.cutmix_box(d.lam_cut, d.cy,
+                                                         d.cx, h, w))
         assert 0 <= y0 <= y1 <= h and 0 <= x0 <= x1 <= w
-        assert (y1 - y0) * (x1 - x0) <= area * h * w
+        assert (y1 - y0) * (x1 - x0) <= sides  # in integers: no rounding
     both = [aug.draw_mix(gen, h, w, mixup_alpha=0.8, cutmix_alpha=1.0)
             for _ in range(n)]
-    share = np.mean([d.use_cutmix for d in both])
+    share = np.mean([bool(d.use_cutmix) for d in both])
     assert abs(share - 0.5) < 4 * np.sqrt(0.25 / n)
     # RandomErasing: applied with its probability; area and log aspect
     # ratio uniform in their ranges

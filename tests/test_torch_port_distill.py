@@ -76,11 +76,12 @@ def test_distillation_needs_teacher_weights_and_a_known_type():
 def test_rho_and_eval_rows_follow_the_jax_rule(monkeypatch, epochs,
                                                eval_every):
     """The Z-step is replaced by a stub (its cost is not what is tested);
-    every X-step's penalty records the rho it was given."""
+    every X-step's penalty records the rho it was given, a 0-d float32
+    tensor read at the step (a captured step reads it on the card)."""
     used = []
 
     def penalty(params, state, program, rho):
-        used.append(rho)
+        used.append(float(rho))
         return torch.zeros(())
 
     def z_step(params, state, program, **kw):
@@ -96,7 +97,8 @@ def test_rho_and_eval_rows_follow_the_jax_rule(monkeypatch, epochs,
                       print_fn=lambda _: None)
     _, hist = train_model(cfg)
     want = [jax_adjust_rho(e, epochs, 2e-3) for e in range(epochs)]
-    assert [h["rho"] for h in hist] == used == want
+    assert [h["rho"] for h in hist] == want
+    assert used == [float(np.float32(r)) for r in want]
     assert want.count(1e-2) == epochs - 1 - int(0.85 * epochs)
     evaluated = [h["epoch"] for h in hist if "test_loss" in h]
     assert evaluated == [e + 1 for e in range(epochs)

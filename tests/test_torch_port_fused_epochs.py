@@ -99,8 +99,9 @@ def _equal_maps(a, b):
     dict(sampling="shuffle", opt="sgd"),
     dict(sampling="replacement", repeated_aug=3, opt="adamw", lr=1e-3),
     dict(repeated_aug=3, opt="adam", lr=1e-3, clip_grad=1.0, ema_decay=0.9),
+    dict(mixup=0.8, cutmix=1.0, smoothing=0.1),
 ], ids=["perm-momentum", "shuffle-nesterov", "replacement-views-adamw",
-        "perm-views-adam-clip-ema"])
+        "perm-views-adam-clip-ema", "perm-mixup-cutmix"])
 def test_fused_matches_unfused(extra):
     """JAX `test_fused_matches_unfused`, bit for bit: the rows' losses
     and accuracies, the weights and buffers, Z and U."""
@@ -115,9 +116,13 @@ def test_fused_matches_unfused(extra):
     _equal_maps(m1.state_dict(), m2.state_dict())
     _equal_maps(s1.z, s2.z)
     _equal_maps(s1.u, s2.u)
-    # the fused rows are the JAX package's: epoch, loss, accuracy, time
-    assert sorted(h2[0]) == ["epoch", "epoch_time_s", "train_acc",
+    # the fused rows are the JAX package's: epoch, loss, accuracy, time;
+    # with Mixup/CutMix the epoch's failed Beta draws too
+    mixed = ["mix_failed_draws"] if "mixup" in extra else []
+    assert sorted(h2[0]) == ["epoch", "epoch_time_s", *mixed, "train_acc",
                              "train_loss"]
+    assert [h.get("mix_failed_draws") for h in h1] == [
+        h.get("mix_failed_draws") for h in h2] == [0 if mixed else None] * 4
     assert len({h["epoch_time_s"] for h in h2}) == 1
     assert "admm_residual_total" in h1[0]
 
@@ -205,21 +210,29 @@ def test_chunk_sizes_follow_the_jax_rule(case, want):
 
 
 def test_exclusions_take_the_per_epoch_route_and_say_so_once():
+    """A mesh and the non-kernel Z/U methods stay per epoch, said once;
+    Mixup/CutMix, drawn on the device, is fused."""
     assert capture.exclusion(_cfg()) is None
     assert capture.exclusion(_cfg(), Mesh(1, 1, 0)) is None
     assert "2 ranks" in capture.exclusion(_cfg(), Mesh(2, 1, 0))
-    assert "Mixup" in capture.exclusion(_cfg(mixup=0.8))
-    assert "Mixup" in capture.exclusion(_cfg(cutmix=1.0))
+    assert capture.exclusion(_cfg(mixup=0.8)) is None
+    assert capture.exclusion(_cfg(cutmix=1.0)) is None
     assert "'svd'" in capture.exclusion(_cfg(admm_method="svd"))
     assert capture.exclusion(_cfg(admm=False, admm_method="svd")) is None
     lines = []
-    cfg = _cfg(mixup=0.8, epochs=3, eval_every=10 ** 9,
+    cfg = _cfg(admm_method="svd", epochs=3, eval_every=10 ** 9,
                print_fn=lines.append)
     _, h, _, sizes = _run(cfg)
     assert sizes == []
     said = [l for l in lines if "per-epoch route" in l]
-    assert len(said) == 1 and "Mixup" in said[0]
+    assert len(said) == 1 and "'svd'" in said[0]
     assert all("admm_residual_total" in r for r in h)
+    lines.clear()
+    _, h, _, sizes = _run(dataclasses.replace(cfg, admm_method="kernel",
+                                              mixup=0.8))
+    assert sizes == [3]
+    assert not [l for l in lines if "per-epoch route" in l]
+    assert [r["mix_failed_draws"] for r in h] == [0, 0, 0]
 
 
 @pytest.mark.parametrize("repeats", [0, 1, 3])

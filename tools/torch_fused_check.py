@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""`chip_smoke.py`'s fused-epochs phase alone, on one card.
+"""`chip_smoke.py`'s captured-step and fused-epochs phase alone, on one
+card.
 
     python3 tools/torch_fused_check.py [--seed S] [--paths tk deit]
         [--extra stiefel augment]
 
 Builds the four kernel libraries (four nvcc processes at once), then runs
 `chip_smoke.phase_fused` on the chosen main paths (default both: ResNet32
-TK@3x and DeiT-tiny TT@2x): the fused chunk against the per-epoch route
-in float32, the planted faults, the sync debug mode at every replay, the
-launches a Z-step, and both routes timed in bf16. `--extra` first holds
-runs that no path of the phase reaches to the per-epoch route the same
-way, 2 epochs x 3 steps in float32 from the same weights and seed:
-`stiefel`, a fine-tune of `stftkc_resnet32` (Riemannian SGD and its QR
-retraction), and `augment`, DeiT-tiny TT@2x ADMM with the recipe
-fine-tune's RandAugment, erasing, 3 repeated views and the shuffled
-sampling. Prints the card's `nvidia-smi` name and power limit, then a
-JSON line a check; exits non-zero where one fails. Without CUDA it exits
-1.
+TK@3x and DeiT-tiny TT@2x with Mixup/CutMix) and the recipe's streamed
+step: the captured per-epoch route and the fused chunk against the eager
+loop in float32, the planted faults, the sync debug mode at every replay,
+the launches a Z-step, and every route timed in bf16. `--extra` first
+holds runs that no path of the phase reaches to the eager loop the same
+way, 2 epochs x 3 steps in float32 from the same weights and seed, on the
+captured per-epoch route and fused: `stiefel`, a fine-tune of
+`stftkc_resnet32` (Riemannian SGD and its QR retraction), and `augment`,
+DeiT-tiny TT@2x ADMM with the recipe fine-tune's RandAugment, erasing, 3
+repeated views and the shuffled sampling. Prints the card's `nvidia-smi`
+name and power limit, then a JSON line a check; exits non-zero where one
+fails. Without CUDA it exits 1.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import concurrent.futures
 import dataclasses
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -55,23 +58,26 @@ def extra_config(name: str, seed: int, per_dispatch: int) -> TrainConfig:
 
 
 def extra(name: str, seed: int, card: str) -> dict:
-    """One `--extra` run fused against per epoch, float32."""
+    """One `--extra` run per epoch (captured) and fused against the eager
+    loop, float32."""
     t0 = time.perf_counter()
-    runs = []
+    runs = {}
     with cs.deterministic_f32():
-        for per_dispatch in (1, 8):
-            model, hist = train_model(extra_config(name, seed, per_dispatch))
-            runs.append(([h["train_loss"] for h in hist],
-                         {n: p.detach().clone()
-                          for n, p in model.named_parameters()}))
-    (ref_losses, ref), (losses, got) = runs
-    out = {"loss": max(abs(a - b) / abs(b)
-                       for a, b in zip(losses, ref_losses)),
-           "params": cs._rel_dist(got, ref)}
-    failed = any(out[k] > cs.FUSED_TOL[k] for k in out)
-    return {"phase": f"fused_{name}", "card": card,
-            "fused_vs_per_epoch": out,
-            "tolerance": {k: cs.FUSED_TOL[k] for k in out},
+        for route, per_dispatch in (("eager", 1), ("per_epoch", 1),
+                                    ("fused", 8)):
+            model, hist = train_model(extra_config(name, seed, per_dispatch),
+                                      eager=route == "eager")
+            runs[route] = ([h["train_loss"] for h in hist],
+                           {n: p.detach().clone()
+                            for n, p in model.named_parameters()})
+    ref_losses, ref = runs.pop("eager")
+    out = {route: {"loss": max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, ref_losses)),
+                   "params": cs._rel_dist(got, ref)}
+           for route, (losses, got) in runs.items()}
+    failed = any(r[k] > cs.FUSED_TOL[k] for r in out.values() for k in r)
+    return {"phase": f"fused_{name}", "card": card, "vs_eager": out,
+            "tolerance": {k: cs.FUSED_TOL[k] for k in ("loss", "params")},
             "failed": failed, "wall_s": time.perf_counter() - t0}
 
 
@@ -95,11 +101,11 @@ def main() -> int:
         list(pool.map(build.build, ("tucker2_factors", "tucker2_factors_ws",
                                     "subspace", "subspace_ws")))
     cs.FUSED["paths"] = tuple(args.paths)
-    with cs.shared_sets():
+    with cs.shared_sets(), tempfile.TemporaryDirectory() as workdir:
         rows = [extra(name, args.seed, card) for name in args.extra]
         for row in rows:
             cs.emit(row)
-        cs.phase_fused(args.seed, card)
+        cs.phase_fused(args.seed, card, workdir)
     return 1 if any(row["failed"] for row in rows) else 0
 
 

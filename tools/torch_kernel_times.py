@@ -21,17 +21,19 @@ and DeiT-tiny TT@2x and TK@2x by CUDA events, and the kernel wrappers'
 share of each: the rest (W + U, the products around the kernel, the
 finite guard, the norms and U) is what every rank of the layer-sharded
 step still runs on the whole stack. `--probes` writes the DeiT-tiny
-recipe's shards and times an untraced epoch of its dense X-step streamed
-and read whole, its ADMM X-step streamed and its fine-tune's step, then
+recipe's shards and times an untraced epoch (the second of two: the
+first holds the capture) of its dense X-step streamed and read whole, its ADMM X-step streamed and its fine-tune's step, then
 traces one streamed ADMM epoch (`utils/profiling.py`) and reads the
 card's busy time a step against the untraced ADMM step's time
-(`idle_share`), and times the dense step again after the trace. It also
-times ResNet32 TK@3x and DeiT-tiny TT@2x ADMM (bf16, 4 epochs x 20 steps,
-an evaluation after epoch 2) on the per-epoch route and fused
-(`--epochs-per-dispatch`: the second chunk, replays alone), before any
-trace, then traces the per-epoch route's first epoch of X-steps and the
-fused route's second chunk for the card's busy time a step
-(`"phase": "fused_probes"`). Each line carries the card's name and power
+(`idle_share`), and times the dense step again after the trace; the
+ADMM step streamed also in the eager loop (`train_model(eager=True)`).
+It also times ResNet32 TK@3x and DeiT-tiny TT@2x ADMM (bf16, 4 epochs x
+20 steps, an evaluation after epoch 2) in the eager loop, on the captured
+per-epoch route and fused (`--epochs-per-dispatch`: the second chunk,
+replays alone), before any trace, then traces the first epoch of X-steps
+of the first two (the captured route's replays) and the fused route's
+second chunk for the card's busy time a step and each route's idle share
+of an untraced step (`"phase": "fused_probes"`). Each line carries the card's name and power
 limit. Without CUDA it exits 1.
 """
 
@@ -308,6 +310,8 @@ def probes(seed: int, card: str) -> dict:
                "dense_cached": cs.recipe_probe(seed, shards, "hbm"),
                "admm_streamed": cs.recipe_probe(seed, shards, None,
                                                 admm=True),
+               "admm_streamed_eager": cs.recipe_probe(seed, shards, None,
+                                                      admm=True, eager=True),
                "finetune_cached": cs.recipe_probe(
                    seed, shards, "hbm", model=path["model"],
                    randaug_magnitude=9, randaug_std=0.5, erase_prob=0.25,
@@ -325,7 +329,7 @@ def probes(seed: int, card: str) -> dict:
                           profile_dir=profile_dir, print_fn=cs.log)
         hist = train_model(cfg)[1]
         profile = trace_summary(hist[0]["profile_trace"], top=10)
-        busy = profile["device_busy_ms"] / path["steps_per_epoch"]
+        busy = profile["device_busy_ms"] / hist[0]["profile_steps"]
         out["traced_admm_epoch"] = {
             "device_busy_ms_per_step": busy,
             "idle_share_of_untraced_step":
@@ -369,48 +373,55 @@ def traced_second_chunk(logdir: str):
 
 
 def fused_untraced(seed: int) -> dict:
-    """ms a step of both routes, before any trace: the per-epoch route's
-    epochs 3-4 (a Z/U step and 20 X-steps each, and its X-steps alone),
-    the fused route's second chunk (its Z/U steps included)."""
+    """ms a step of the three routes, before any trace: the eager loop's
+    and the captured per-epoch route's epochs 3-4 (a Z/U step and 20
+    X-steps each, and its X-steps alone), the fused route's second chunk
+    (its Z/U steps included)."""
     from dnn_compression_tensor_admm_tpu_torch.train import train_model
     steps, out = FUSED_PROBE["steps"], {}
     with cs.shared_sets():
         for key in cs.FUSED["paths"]:
-            per = train_model(fused_probe_config(key, seed, 1))[1][2:]
+            out[key] = {"model": cs.PATHS[key]["name"]}
+            for route, eager in (("eager", True), ("per_epoch", False)):
+                rows = train_model(fused_probe_config(key, seed, 1),
+                                   eager=eager)[1][2:]
+                out[key][f"{route}_ms_per_step"] = [
+                    1000 * h["epoch_time_s"] / steps for h in rows]
+                out[key][f"{route}_x_ms_per_step"] = [
+                    1000 * h["x_step_s"] / steps for h in rows]
             fused = train_model(fused_probe_config(key, seed, 8))[1][-1]
-            out[key] = {
-                "model": cs.PATHS[key]["name"],
-                "per_epoch_ms_per_step": [1000 * h["epoch_time_s"] / steps
-                                          for h in per],
-                "per_epoch_x_ms_per_step": [1000 * h["x_step_s"] / steps
-                                            for h in per],
-                "fused_ms_per_step": 1000 * fused["epoch_time_s"] / steps}
+            out[key]["fused_ms_per_step"] = (1000 * fused["epoch_time_s"]
+                                             / steps)
     return out
 
 
 def fused_traced(seed: int, card: str, out: dict, workdir: str) -> dict:
     """`fused_untraced`'s rows with the card's busy time a step from
-    traces: the per-epoch route's first epoch of X-steps (`profile_dir`,
-    which keeps that run per epoch) and the fused route's second chunk
-    (Z/U steps included); idle = 1 - busy / the untraced ms."""
+    traces: the first epoch's X-steps of the eager loop and of the
+    captured per-epoch route (`profile_dir`, which keeps a run per epoch;
+    the captured route traces its replays), and the fused route's second
+    chunk (Z/U steps included); idle = 1 - busy / the untraced ms."""
     from dnn_compression_tensor_admm_tpu_torch.train import train_model
     from dnn_compression_tensor_admm_tpu_torch.utils.profiling import (
         trace_summary)
     steps = FUSED_PROBE["steps"]
     with cs.shared_sets():
         for key in cs.FUSED["paths"]:
-            logdir = os.path.join(workdir, f"{key}_per_epoch")
-            row = train_model(fused_probe_config(
-                key, seed, 1, epochs=1, profile_dir=logdir))[1][0]
-            busy = trace_summary(row["profile_trace"])["device_busy_ms"]
+            o = out[key]
+            for route, eager in (("eager", True), ("per_epoch", False)):
+                logdir = os.path.join(workdir, f"{key}_{route}")
+                row = train_model(fused_probe_config(
+                    key, seed, 1, epochs=1, profile_dir=logdir),
+                    eager=eager)[1][0]
+                busy = trace_summary(row["profile_trace"])["device_busy_ms"]
+                o[f"{route}_busy_ms_per_x_step"] = busy / row["profile_steps"]
+                o[f"{route}_idle_share"] = 1 - o[
+                    f"{route}_busy_ms_per_x_step"] / min(
+                    o[f"{route}_x_ms_per_step"])
             logdir = os.path.join(workdir, f"{key}_fused")
             with traced_second_chunk(logdir) as calls:
                 train_model(fused_probe_config(key, seed, 8))
             fused_busy = trace_summary(os.path.join(logdir, "trace.json"))
-            o = out[key]
-            o["per_epoch_busy_ms_per_x_step"] = busy / steps
-            o["per_epoch_idle_share"] = 1 - busy / steps / min(
-                o["per_epoch_x_ms_per_step"])
             o["fused_busy_ms_per_step"] = (fused_busy["device_busy_ms"]
                                            / (calls[1] * steps))
             o["fused_idle_share"] = (1 - o["fused_busy_ms_per_step"]
