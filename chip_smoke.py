@@ -133,7 +133,13 @@ prints one JSON line per phase:
    msgpack's numbers exactly; then an ONNX export of ImageNet MobileNetV2,
    which must be refused, and the TT-LSTM latency demo at the JAX
    package's defaults. The phase must take under 60 s;
-7. multi_rank — ResNet32 TK@3x ADMM over 2 ranks in processes of their
+7. guard   — the Z/U step's finite guard on every route (`kernel`
+   through both CUDA kernels, `subspace`, `ns`, `gram`, `svd`): ResNet32
+   TK@3x and TT@3x at full width, one Z/U step each with a NaN in one
+   layer's U and a finite rank-1 W + U at 1e4 in another; no raise, the
+   NaN layer's Z its previous Z bit for bit and its U = U + (W - Z_prev),
+   every Z finite, `nonfinite` >= 1. Under 20 s;
+8. multi_rank — ResNet32 TK@3x ADMM over 2 ranks in processes of their
    own (`parallel/`; NCCL with a GPU a rank where two are visible, else
    gloo on the one card, which checks correctness, not scaling): the
    data-parallel X-step with BatchNorm over the global batch, the
@@ -143,9 +149,13 @@ prints one JSON line per phase:
    must fail that check; the 2 x 20-step bf16 run must end replicated
    with its launches counted, its distance from the 1-process run
    printed; then one sharded Z/U step of ResNet32's TK and TT programs,
-   bit for bit the 1-process step's, each rank launching the kernel on
-   its own blocks;
-8. fused   — the captured X-step (`train/capture.py`) and fused epochs
+   each rank running the whole step on its own block of each bucket: bit
+   for bit the 1-process step on that block alone, within 1e-5 of the
+   1-process step on the whole stack (whether bit for bit there is
+   printed), three planted faults past that (a block offset by one layer,
+   U not updated, padding kept), each rank launching the kernel on its
+   own blocks;
+9. fused   — the captured X-step (`train/capture.py`) and fused epochs
    (`--epochs-per-dispatch`) on ResNet32 TK@3x and DeiT-tiny TT@2x (with
    Mixup 0.8 and CutMix 1.0) at full width: 2 epochs x 3 steps on the
    captured per-epoch route (each step replayed from a CUDA graph between
@@ -160,7 +170,13 @@ prints one JSON line per phase:
    refreshed) must each fail that gate; every replay under the sync debug
    mode 'error', 5 and 33 launches a Z-step in every route; then every
    route in bf16 at 2 x 20 steps, ms a step, ADMM it/s and peak memory
-   printed. Under 150 s.
+   printed. Under 150 s;
+10. fused_methods — fused chunks by the Z/U methods that capture besides
+    the kernels: ResNet32 TK@3x by `subspace` (Cholesky QR by
+    `cholesky_ex`) and TT@3x by `ns`, the gate above (2 x 3 steps in
+    float32, every replay in mode 'error', no kernel launch), each
+    route's ms a step printed; and a `gram` run asked to fuse, which
+    must say its exclusion once and run per epoch.
 
 Every phase that trains runs the captured route: the X-step is replayed
 from a CUDA graph after one eager call (the main phases' per-epoch runs,
@@ -207,6 +223,7 @@ from torch.optim.optimizer import register_optimizer_step_post_hook  # noqa: E40
 
 from dnn_compression_tensor_admm_tpu_torch.admm import (  # noqa: E402
     AdmmState, admm_init, admm_update, build_program, tk_ranks)
+from dnn_compression_tensor_admm_tpu_torch.admm import engine as admm_engine  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.cli.main import main as cli_main  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.configs import get_rank_plan  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.data.datasets import load_dataset  # noqa: E402
@@ -2299,6 +2316,89 @@ def phase_export(seed: int, card: str, workdir: str) -> None:
 
 
 # --------------------------------------------------------------------------
+# The Z/U step's finite guard (`admm/engine.py::_finite_or_prev`) on every
+# route: ResNet32 TK@3x and TT@3x at full width, one Z/U step by each
+# method with two planted layers, GUARD_NAN_U with a NaN in its U and
+# GUARD_RANK_ONE with W = 1e4 a x b x c x d and U = 0 (finite; every Gram
+# of it is singular, and the 'subspace' method's Cholesky QR fails on
+# it). No route may raise; the NaN layer keeps its previous Z bit for bit
+# and its U becomes U + (W - Z_prev); every Z is finite and `nonfinite`
+# is at least 1.
+GUARD_NAN_U = "layer3.2.conv1.weight"
+GUARD_RANK_ONE = "layer2.1.conv1.weight"
+GUARD_METHODS = ("kernel", "subspace", "ns", "gram", "svd")
+# The guard does not depend on the iteration count: 2 HOOI sweeps (the
+# kernel route's 1) keep the layer-by-layer `ns` step of TK@3x to ~2.5 s
+# on an H100 (6.2 s at the main path's 6) and the phase well inside its
+# limit
+GUARD_N_ITER = 2
+GUARD_WALL_LIMIT_S = 20.0
+
+
+def guard_inputs(fmt: str, seed: int):
+    """`multi_zstep_inputs` with the two planted layers."""
+    params, program, state = multi_zstep_inputs(fmt, seed)
+    gen = torch.Generator().manual_seed(seed + 2)
+    w = params[GUARD_RANK_ONE]
+    vecs = [torch.randn(n, generator=gen) for n in w.shape]
+    with torch.no_grad():
+        w.copy_(1e4 * torch.einsum("o,i,h,w->oihw", *vecs))
+    state.u[GUARD_RANK_ONE].zero_()
+    state.u[GUARD_NAN_U][0, 0, 0, 0] = float("nan")
+    return params, program, state
+
+
+def phase_guard(seed: int, card: str) -> None:
+    """One planted Z/U step of ResNet32 TK@3x and TT@3x by each of
+    GUARD_METHODS (see above); `kernel` launches the TK and the TT
+    kernel."""
+    t_start = time.perf_counter()
+    failures, rows = [], {}
+    for fmt, kernel in (("tk", tk.tucker2_factors_batched),
+                        ("tt", sk.dominant_left_subspace_batched)):
+        params, program, state = guard_inputs(fmt, seed)
+        w, u, z = (params[GUARD_NAN_U].detach(), state.u[GUARD_NAN_U],
+                   state.z[GUARD_NAN_U])
+        for method in GUARD_METHODS:
+            kernel.launches = 0
+            t0 = time.perf_counter()
+            try:
+                new, _ = admm_update(params, state, program, update_u=True,
+                                     method=method, n_iter=GUARD_N_ITER)
+            except Exception as e:
+                failures.append(f"{fmt} {method}: raised "
+                                f"{type(e).__name__}: {str(e)[:200]}")
+                continue
+            torch.cuda.synchronize()
+            row = {"ms": 1000 * (time.perf_counter() - t0),
+                   "nonfinite": int(new.nonfinite),
+                   "rank_one_kept_previous_z": torch.equal(
+                       new.z[GUARD_RANK_ONE], state.z[GUARD_RANK_ONE]),
+                   "nan_layer_kept_previous_z": torch.equal(
+                       new.z[GUARD_NAN_U], z),
+                   "nan_layer_u": torch.allclose(
+                       new.u[GUARD_NAN_U], u + (w - z), rtol=0, atol=0,
+                       equal_nan=True),
+                   "z_finite": all(bool(torch.isfinite(t).all())
+                                   for t in new.z.values()),
+                   "launches": kernel.launches}
+            rows[f"{fmt}_{method}"] = row
+            if (not (row["nan_layer_kept_previous_z"] and row["nan_layer_u"]
+                     and row["z_finite"]) or row["nonfinite"] < 1
+                    or (method == "kernel") != (row["launches"] > 0)):
+                failures.append(f"{fmt} {method}: {row}")
+    wall_s = time.perf_counter() - t_start
+    if wall_s > GUARD_WALL_LIMIT_S:
+        failures.append(f"the guard phase took {wall_s:.1f} s, over "
+                        f"{GUARD_WALL_LIMIT_S}")
+    emit({"phase": "guard", "card": card, "models": "resnet32 tk@3x, tt@3x",
+          "nan_u": GUARD_NAN_U, "rank_one": GUARD_RANK_ONE, **rows,
+          "failures": failures, "wall_s": wall_s})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+# --------------------------------------------------------------------------
 # The multi-rank phase: the JAX package's mesh run (`parallel/`) at two
 # ranks, against one process.
 
@@ -2328,6 +2428,19 @@ EARLY_TOL = {"loss": 1e-4, "update": 2e-2, "bn_stats": 1e-3}
 # summed_gradients: the gradients summed over the ranks, not averaged;
 # half_batch: every rank takes the first rows of the global batch
 PLANTED_FAULTS = ("per_rank_batchnorm", "summed_gradients", "half_batch")
+# Each rank runs the whole Z/U step on its own block of each bucket: its
+# layers are held bit for bit to the one-process step on that block
+# alone, and within SHARDED_TOL (the largest ||A - B|| / ||B|| of a
+# layer's Z, U or norm) to the one-process step on the whole stack,
+# where a batched GEMM's and a row reduction's order of summation on the
+# card may follow how many matrices or rows they are given. Each of
+# ZSTEP_FAULTS, planted in the sharded step, must exceed SHARDED_TOL:
+# block_offset: every rank's block one layer on; u_not_updated: the
+# block's U returned as it came in; padding_kept: a rank's padding
+# placed before its layers in the gathered stack, so the stack sliced at
+# [:L] keeps it
+SHARDED_TOL = 1e-5
+ZSTEP_FAULTS = ("block_offset", "u_not_updated", "padding_kept")
 
 
 # One launch shape per plan of each kernel (a single layer), for the
@@ -2447,6 +2560,67 @@ def multi_zstep_inputs(fmt: str, seed: int):
     return params, program, state
 
 
+def block_program(program, mesh):
+    """The rank's block of each bucket of `program` as a program of its
+    own (a block of padding left out): what the rank's sharded Z/U step
+    computes, for the one-process step to run alone."""
+    groups = []
+    for g in program.groups:
+        lo, hi, _ = mesh.block(len(g.names))
+        if hi > lo:
+            groups.append(dataclasses.replace(g, names=g.names[lo:hi]))
+    return dataclasses.replace(
+        program, groups=tuple(groups),
+        names=tuple(n for g in groups for n in g.names))
+
+
+@contextlib.contextmanager
+def planted_zstep(fault: str):
+    """One of ZSTEP_FAULTS planted in this process's sharded Z/U step for
+    the block."""
+    saved = Mesh.block, admm_engine._zstep, admm_engine._gather_block
+    if fault == "block_offset":
+        def block(self, layers):
+            lo, hi, b = saved[0](self, layers)
+            return min(lo + 1, layers), min(hi + 1, layers), b
+        Mesh.block = block
+    elif fault == "u_not_updated":
+        def zstep(g, ws, us, zs_prev, **kw):
+            zs, _, norms, bad = saved[1](g, ws, us, zs_prev, **kw)
+            return zs, us, norms, bad
+        admm_engine._zstep = zstep
+    elif fault == "padding_kept":
+        def gather(t, b, l):
+            blk = t.new_zeros((b, *t.shape[1:]))
+            blk[b - len(t):] = t
+            return dist.all_gather(blk).reshape(-1, *t.shape[1:])[:l]
+        admm_engine._gather_block = gather
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        Mesh.block, admm_engine._zstep, admm_engine._gather_block = saved
+
+
+def _max_layer_rel(a, b) -> float:
+    """The largest ||A - B|| / ||B|| over the names of two name -> tensor
+    maps (inf where B is 0 and A is not)."""
+    worst = 0.0
+    for n in b:
+        d = torch.linalg.vector_norm(a[n].double() - b[n].double()).item()
+        if d:
+            ref = torch.linalg.vector_norm(b[n].double()).item()
+            worst = max(worst, d / ref if ref else float("inf"))
+    return worst
+
+
+def zstep_readings(got: dict, ref: dict) -> dict:
+    """A Z/U step's {"z", "u", "res"} maps against `ref`'s, by
+    `_max_layer_rel` over the names of `ref`."""
+    return {k: _max_layer_rel(got[k], ref[k]) for k in ("z", "u", "res")}
+
+
 def launches_of_block(program, fmt: str, rank: int, ranks: int) -> int:
     """A rank's launches in one sharded Z-step: a bucket's (TK) or each of
     its sweep steps' (TT, full-rank steps launch nothing) where its block
@@ -2461,12 +2635,58 @@ def launches_of_block(program, fmt: str, rank: int, ranks: int) -> int:
     return n
 
 
+def _cpu_step(state, res) -> dict:
+    """A Z/U step's Z, U and norms, on the host."""
+    return {"z": {n: t.cpu() for n, t in state.z.items()},
+            "u": {n: t.cpu() for n, t in state.u.items()},
+            "res": {n: t.cpu() for n, t in res.items()}}
+
+
+def sharded_zsteps(seed: int, zmesh) -> dict:
+    """This rank's sharded Z/U step of ResNet32's TK and TT programs (its
+    time, collectives and launches), the one-process step on the rank's
+    block alone, and the sharded step with each of ZSTEP_FAULTS."""
+    out = {}
+    for fmt in ("tk", "tt"):
+        params, program, inputs = multi_zstep_inputs(fmt, seed)
+        tk.tucker2_factors_batched.launches = 0
+        sk.dominant_left_subspace_batched.launches = 0
+        dist.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, res = admm_update(params, inputs, program, update_u=True,
+                                 method="kernel", n_iter=6, mesh=zmesh)
+        torch.cuda.synchronize()
+        out[fmt] = {
+            "ms": 1000 * (time.perf_counter() - t0),
+            **_cpu_step(state, res),
+            "nonfinite": int(state.nonfinite),
+            "collectives": dist.counts(),
+            "launches": {
+                "tucker2": tk.tucker2_factors_batched.launches,
+                "subspace": sk.dominant_left_subspace_batched.launches}}
+        # the one-process step (no mesh) on this rank's block alone: its
+        # norms hold the block's layers, its Z and U every layer
+        out[fmt]["block"] = _cpu_step(*admm_update(
+            params, inputs, block_program(program, zmesh),
+            update_u=True, method="kernel", n_iter=6))
+        out[fmt]["faults"] = {}
+        for fault in ZSTEP_FAULTS:
+            with planted_zstep(fault):
+                out[fmt]["faults"][fault] = _cpu_step(*admm_update(
+                    params, inputs, program, update_u=True,
+                    method="kernel", n_iter=6, mesh=zmesh))
+    return out
+
+
 def _multi_rank(rank: int, world: int, init_method: str, workdir: str,
                 seed: int, backend: str) -> None:
     """One rank of `phase_multi_rank`, in a process of its own: the 2-rank
     ADMM run (rank 0 writes its train state), its first step alone, sound
     and with each planted fault, then one sharded Z/U step of each
-    program; its results to `workdir/multi_rank{rank}.pt`."""
+    program, the one-process step on the rank's block alone, and the
+    sharded step with each of ZSTEP_FAULTS; its results to
+    `workdir/multi_rank{rank}.pt`."""
     topo = dist.init_distributed("cuda:0" if backend == "gloo" else "cuda",
                                  backend=backend, init_method=init_method,
                                  rank=rank, world_size=world)
@@ -2491,29 +2711,68 @@ def _multi_rank(rank: int, world: int, init_method: str, workdir: str,
             with planted(fault):
                 out["early"][fault] = early_step(seed, str(topo.device), mesh)
         zmesh = make_mesh(n_layer=world)  # the Z/U step flattens the mesh
-        for fmt in ("tk", "tt"):
-            params, program, state = multi_zstep_inputs(fmt, seed)
-            tk.tucker2_factors_batched.launches = 0
-            sk.dominant_left_subspace_batched.launches = 0
-            dist.reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, res = admm_update(params, state, program, update_u=True,
-                                     method="kernel", n_iter=6, mesh=zmesh)
-            torch.cuda.synchronize()
-            out[fmt] = {
-                "ms": 1000 * (time.perf_counter() - t0),
-                "z": {n: t.cpu() for n, t in state.z.items()},
-                "u": {n: t.cpu() for n, t in state.u.items()},
-                "res": {n: t.cpu() for n, t in res.items()},
-                "nonfinite": int(state.nonfinite),
-                "collectives": dist.counts(),
-                "launches": {
-                    "tucker2": tk.tucker2_factors_batched.launches,
-                    "subspace": sk.dominant_left_subspace_batched.launches}}
+        out.update(sharded_zsteps(seed, zmesh))
         torch.save(out, os.path.join(workdir, f"multi_rank{rank}.pt"))
     finally:
         dist.shutdown()
+
+
+def sharded_zstep_rows(outs, ref_zsteps):
+    """The ranks' `sharded_zsteps` against the 1-process steps on the
+    whole stack ({fmt: (program, state, norms)}) -> (rows, failures):
+    each rank bit for bit its block's 1-process step, within SHARDED_TOL
+    of the whole stack's, each planted fault past SHARDED_TOL, the kernel
+    launched on the rank's own blocks, three all-gathers a bucket."""
+    failures = []
+    zrows = {}
+    for fmt, kernel in (("tk", "tucker2"), ("tt", "subspace")):
+        program, ref_state, ref_res = ref_zsteps[fmt]
+        ref = _cpu_step(ref_state, ref_res)
+        other = "subspace" if kernel == "tucker2" else "tucker2"
+        zrows[fmt] = {"buckets": len(program.groups),
+                      "layers": len(program.names),
+                      "bit_for_bit_same_block": [],
+                      "bit_for_bit_whole_stack": [],
+                      "whole_stack_rel": [], "planted_faults": [],
+                      "launches_per_rank": [], "ms_per_rank_host_clock": [],
+                      "all_gathers_per_rank": []}
+        for r, out in enumerate(outs):
+            z = out[fmt]
+            want = launches_of_block(program, fmt, r, len(outs))
+            same_block = all(torch.equal(z[k][n], z["block"][k][n])
+                             for k in ("z", "u", "res")
+                             for n in z["block"]["res"])  # its layers
+            whole = all(torch.equal(z[k][n], ref[k][n])
+                        for k in ("z", "u", "res") for n in program.names)
+            rel = zstep_readings(z, ref)
+            faults = {f: zstep_readings(z["faults"][f], ref)
+                      for f in ZSTEP_FAULTS}
+            for k, v in (("bit_for_bit_same_block", same_block),
+                         ("bit_for_bit_whole_stack", whole),
+                         ("whole_stack_rel", rel),
+                         ("planted_faults", faults),
+                         ("launches_per_rank", z["launches"][kernel]),
+                         ("ms_per_rank_host_clock", z["ms"]),
+                         ("all_gathers_per_rank",
+                          z["collectives"]["all_gather"])):
+                zrows[fmt][k].append(v)
+            if (not same_block or max(rel.values()) > SHARDED_TOL
+                    or z["nonfinite"] != int(ref_state.nonfinite)
+                    or z["launches"][kernel] != want or want == 0
+                    or z["launches"][other] != 0
+                    or z["collectives"]["all_gather"]
+                    != 3 * len(program.groups)):
+                failures.append(
+                    f"rank {r}'s sharded {fmt} Z/U step: bit for bit its "
+                    f"block's {same_block}, {rel} from the whole stack "
+                    f"(tolerance {SHARDED_TOL}), launches {z['launches']} "
+                    f"(expected {want}), collectives {z['collectives']}")
+            for f, reading in faults.items():
+                if max(reading.values()) <= SHARDED_TOL:
+                    failures.append(f"rank {r}'s sharded {fmt} Z/U step: "
+                                    f"the planted fault {f} passes: "
+                                    f"{reading}")
+    return zrows, failures
 
 
 def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
@@ -2524,10 +2783,10 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
     fault must fail that check; the 2 x 20-step run's distance from the
     1-process run is printed, its ranks must end replicated and launch the
     kernel on their own blocks. Then one sharded Z/U step of ResNet32's TK
-    and TT programs, which must give the 1-process step's Z, U and norms
-    bit for bit, each rank launching the kernel of the program on its own
-    blocks; and both kernels on a layer of zeros at each plan
-    (`check_zero_layers`). With one card visible the ranks share it over
+    and TT programs (`sharded_zstep_rows`: bit for bit the 1-process step
+    on each rank's block alone, within SHARDED_TOL of it on the whole
+    stack, each of ZSTEP_FAULTS past SHARDED_TOL); and both kernels on a
+    layer of zeros at each plan (`check_zero_layers`). With one card visible the ranks share it over
     gloo (NCCL refuses two ranks on one GPU), which runs every collective
     of the port on CUDA tensors; that measures correctness, not
     scaling."""
@@ -2612,38 +2871,8 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
             failures.append(f"rank {r} of the 2-rank run: {run['launches']} "
                             f"launches (Tucker-2 expected {want}), replicated "
                             f"{run['replicated']}")
-    # the sharded Z/U steps against the 1-process step, bit for bit
-    zrows = {}
-    for fmt, kernel in (("tk", "tucker2"), ("tt", "subspace")):
-        program, ref_state, ref_res = ref_zsteps[fmt]
-        other = "subspace" if kernel == "tucker2" else "tucker2"
-        zrows[fmt] = {"buckets": len(program.groups),
-                      "layers": len(program.names), "bit_for_bit": [],
-                      "launches_per_rank": [], "ms_per_rank_host_clock": [],
-                      "all_gathers_per_rank": []}
-        for r, out in enumerate(outs):
-            z = out[fmt]
-            want = launches_of_block(program, fmt, r, ranks)
-            equal = all(
-                torch.equal(z["z"][n], ref_state.z[n].cpu())
-                and torch.equal(z["u"][n], ref_state.u[n].cpu())
-                and torch.equal(z["res"][n], ref_res[n].cpu())
-                for n in program.names)
-            for k, v in (("bit_for_bit", equal),
-                         ("launches_per_rank", z["launches"][kernel]),
-                         ("ms_per_rank_host_clock", z["ms"]),
-                         ("all_gathers_per_rank",
-                          z["collectives"]["all_gather"])):
-                zrows[fmt][k].append(v)
-            if (not equal or z["nonfinite"] != int(ref_state.nonfinite)
-                    or z["launches"][kernel] != want or want == 0
-                    or z["launches"][other] != 0
-                    or z["collectives"]["all_gather"]
-                    != 3 * len(program.groups)):
-                failures.append(
-                    f"rank {r}'s sharded {fmt} Z/U step: bit for bit "
-                    f"{equal}, launches {z['launches']} (expected {want}), "
-                    f"collectives {z['collectives']}")
+    zrows, zfailures = sharded_zstep_rows(outs, ref_zsteps)
+    failures += zfailures
     steps = MULTI["steps_per_epoch"]
     emit({"phase": "multi_rank", "card": card, "model": "resnet32 tk@3x",
           "ranks": ranks, "gpus_visible": gpus, "backend": backend,
@@ -2669,7 +2898,8 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
           "z_step_ms_per_rank": [1000 * o["run"]["hist"][-1]["z_step_s"]
                                  for o in outs],
           "z_step_ms_one_process": 1000 * ref_hist[-1]["z_step_s"],
-          "sharded_zstep": zrows, "zero_layer_finite_zero": zero_layers,
+          "sharded_zstep": zrows, "sharded_tolerance": SHARDED_TOL,
+          "zero_layer_finite_zero": zero_layers,
           "one_process_run_s": ref_s,
           "ranks_wall_s": ranks_s,
           "ranks_run_wall_s": [o["run"]["wall_s"] for o in outs],
@@ -3043,6 +3273,77 @@ def phase_fused(seed: int, card: str, workdir: str) -> dict:
     return launches
 
 
+# Fused chunks on the Z/U methods that capture (`train/capture.py`):
+# ResNet32 TK@3x by 'subspace' (Cholesky QR by `cholesky_ex`, no check on
+# the host) and TT@3x by 'ns' (matmuls only), the gate of `phase_fused`
+# (2 x 3 steps in float32, the captured per-epoch route and the fused
+# chunk against the eager loop within FUSED_TOL, every replay in mode
+# 'error', no kernel launch: these methods project layer by layer), each
+# route's ms a step printed; and a 'gram' run asked to fuse, which must
+# say its exclusion once and run per epoch.
+FUSED_METHODS = {"tk": "subspace", "tt": "ns"}
+FUSED_METHODS_WALL_LIMIT_S = 150.0
+
+
+def phase_fused_methods(seed: int, card: str) -> None:
+    t_start = time.perf_counter()
+    failures, rows = [], {}
+    g_epochs, g_steps = FUSED["gate_epochs"], FUSED["gate_steps"]
+    per_epoch_replays = g_epochs * g_steps - 1
+    replays = {"eager": 0, "per_epoch": per_epoch_replays,
+               "fused": per_epoch_replays + g_epochs - 1}
+
+    def config(key, method, per_dispatch, **extra):
+        return dataclasses.replace(
+            fused_config(key, seed, g_epochs, g_steps, per_dispatch, None),
+            admm_method=method, **extra)
+
+    for key, method in FUSED_METHODS.items():
+        path = PATHS[key]
+        with deterministic_f32():
+            runs = {route: fused_run(config(key, method, k), path["kernel"],
+                                     path["other"], eager=route == "eager")
+                    for route, k in (("eager", 1), ("per_epoch", 1),
+                                     ("fused", 8))}
+        ref = runs["eager"]
+        readings = {route: fused_gate(runs[route], ref)
+                    for route in ("per_epoch", "fused")}
+        failures += gate_failures(f"{key} {method}", readings, {}, runs, 0,
+                                  replays)
+        rows[f"{key}_{method}"] = {
+            "model": path["name"], "method": method,
+            "gate": {"epochs": g_epochs, "steps": g_steps,
+                     "losses": {k: r["losses"] for k, r in runs.items()},
+                     "readings": readings, "tolerance": FUSED_TOL},
+            "replays": {k: r["replays"] for k, r in runs.items()},
+            "replays_in_sync_error_mode": {
+                k: r["replays_in_error_mode"] for k, r in runs.items()},
+            "z_step_ms": {k: [1000 * h["z_step_s"] for h in r["hist"]]
+                          for k, r in runs.items() if k != "fused"},
+            "timed_float32": {k: fused_timing(r, g_steps, k == "fused")
+                              for k, r in runs.items()}}
+    # 'gram' asked to fuse: its exclusion said once, the per-epoch route
+    lines = []
+    path = PATHS["tk"]
+    with deterministic_f32():
+        gram = fused_run(config("tk", "gram", 8, print_fn=lines.append),
+                         path["kernel"], path["other"])
+    said = [l for l in lines if "per-epoch route" in l]
+    if (len(said) != 1 or "'gram'" not in said[0]
+            or gram["replays"] != per_epoch_replays):
+        failures.append(f"tk gram: {gram['replays']} replays, said {said}")
+    rows["tk_gram"] = {"said": said, "replays": gram["replays"],
+                       "losses": gram["losses"]}
+    wall_s = time.perf_counter() - t_start
+    if wall_s > FUSED_METHODS_WALL_LIMIT_S:
+        failures.append(f"the fused methods phase took {wall_s:.1f} s, over "
+                        f"{FUSED_METHODS_WALL_LIMIT_S}")
+    emit({"phase": "fused_methods", "card": card, **rows,
+          "failures": failures, "wall_s": wall_s})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def streamed_gate(seed: int, workdir: str):
     """The recipe path's captured streamed step against the eager loop
     (float32, one loader thread), its planted fault, and both timed in
@@ -3385,8 +3686,10 @@ def main() -> int:
                                                  len(launches_deit), workdir)
         phase_nlp(args.seed, smi, workdir)
         phase_export(args.seed, smi, workdir)
+        phase_guard(args.seed, smi)
         phase_multi_rank(args.seed, smi, workdir)
         launches_fused = phase_fused(args.seed, smi, workdir)
+        phase_fused_methods(args.seed, smi)
         emit({"phase": "shared_sets", "made": [list(k) for k in sets]})
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})

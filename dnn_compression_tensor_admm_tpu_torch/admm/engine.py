@@ -152,15 +152,13 @@ def tk_ranks(spec, shape) -> TKSpec:
     return spec.clamped(shape)
 
 
-def _project_group_kernel(g: _Group, ts: torch.Tensor, n_iter: int,
-                          layers: Optional[Tuple[int, int]] = None
-                          ) -> Optional[torch.Tensor]:
+def _project_group_kernel(g: _Group, ts: torch.Tensor,
+                          n_iter: int) -> Optional[torch.Tensor]:
     """Kernel Z-step for one bucket ts [L, O, I, kh, kw] or [L, out, in]
     (a Tucker-2 linear, and an SVD 1x1 conv or linear at r0 = r1, as
-    K = 1); with `layers` (lo, hi) the kernel solves those layers alone
-    and the others project to 0 (the wrappers' `layers`).
-    Where the kernel's gate refuses the bucket: None for CPU tensors (the
-    caller goes layer by layer), and ValueError on any other device."""
+    K = 1). Where the kernel's gate refuses the bucket: None for CPU
+    tensors (the caller goes layer by layer), and ValueError on any other
+    device."""
     l = ts.shape[0]
     if g.kind in ("tk_conv", "svd_conv"):
         _, o, i, kh, kw = ts.shape
@@ -168,8 +166,7 @@ def _project_group_kernel(g: _Group, ts: torch.Tensor, n_iter: int,
         x = ts.permute(0, 3, 4, 1, 2).reshape(l, kh * kw, o, i).contiguous()
         if kernel_supported(x.shape, sp.out_rank, sp.in_rank):
             z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
-                                        sweeps=max(1, n_iter // 3),
-                                        layers=layers)
+                                        sweeps=max(1, n_iter // 3))
             return z.reshape(l, kh, kw, o, i).permute(0, 3, 4, 1, 2)
     elif g.kind in ("tk_linear", "svd_linear"):
         _, o, i = ts.shape
@@ -177,8 +174,7 @@ def _project_group_kernel(g: _Group, ts: torch.Tensor, n_iter: int,
         x = ts[:, None].contiguous()  # [L, 1, O, I]
         if kernel_supported(x.shape, sp.out_rank, sp.in_rank):
             z = tucker2_project_batched(x, sp.out_rank, sp.in_rank,
-                                        sweeps=max(1, n_iter // 3),
-                                        layers=layers)
+                                        sweeps=max(1, n_iter // 3))
             return z[:, 0]
     else:
         # the TT view: a linear's [out, in] weight itself, a conv's
@@ -187,8 +183,7 @@ def _project_group_kernel(g: _Group, ts: torch.Tensor, n_iter: int,
         shapes, ranks = g.spec.tt_shapes, g.spec.tt_ranks
         if tt_supported(l, view[0].numel(), shapes, ranks):
             z = tt_project_batched(view.reshape(l, -1), shapes, ranks,
-                                   iters=max(8, n_iter),
-                                   layers=layers).reshape(view.shape)
+                                   iters=max(8, n_iter)).reshape(view.shape)
             return z if g.kind == "tt_linear" else z.permute(0, 1, 4, 2, 3)
     if ts.device.type != "cpu":
         raise ValueError(
@@ -211,28 +206,31 @@ def _finite_or_prev(z: torch.Tensor, z_prev: torch.Tensor) -> torch.Tensor:
     return torch.where(ok.reshape((-1,) + (1,) * (z.dim() - 1)), z, z_prev)
 
 
-def _project_layers(g: _Group, x: torch.Tensor, method: str, n_iter: int,
-                    layers: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """Layer by layer: each layer of the stack x projected alone; with
-    `layers` (lo, hi) those layers, the others 0."""
-    if layers is None:
-        return torch.stack([_project_one(g, t, method=method, n_iter=n_iter)
-                            for t in x])
-    lo, hi = layers
-    zs = torch.zeros_like(x)
-    if hi > lo:
-        zs[lo:hi] = torch.stack([_project_one(g, t, method=method,
-                                              n_iter=n_iter)
-                                 for t in x[lo:hi]])
-    return zs
+def _zstep(g: _Group, ws: torch.Tensor, us: torch.Tensor,
+           zs_prev: torch.Tensor, *, method: str, n_iter: int,
+           update_u: bool):
+    """The whole Z/U step of a stack of the bucket's layers [n, ...] ->
+    (Z, U, ||W - Z|| [n], [n] whether the projection was non-finite and
+    the layer kept its previous Z)."""
+    x = ws + us
+    zs = _project_group_kernel(g, x, n_iter) if method == "kernel" else None
+    if zs is None:  # another method, or a CPU bucket the gate refuses
+        eff = "subspace" if method == "kernel" else method
+        zs = torch.stack([_project_one(g, t, method=eff, n_iter=n_iter)
+                          for t in x])
+    bad = ~_finite_layers(zs)
+    zs = _finite_or_prev(zs, zs_prev)
+    diffs = ws - zs
+    norms = torch.linalg.vector_norm(diffs.reshape(len(zs), -1), dim=1)
+    return zs, (us + diffs if update_u else us), norms, bad
 
 
-def _gather_layers(t: torch.Tensor, lo: int, hi: int, b: int) -> torch.Tensor:
-    """Every rank's layers [lo, hi) of the stack t, each rank's block
-    zero-padded to b layers, gathered in rank order (padding included)."""
+def _gather_block(t: torch.Tensor, b: int, l: int) -> torch.Tensor:
+    """Every rank's block t [n <= b, ...], each zero-padded to b layers,
+    gathered in rank order, with the padding sliced away: [l, ...]."""
     blk = t.new_zeros((b, *t.shape[1:]))
-    blk[:hi - lo] = t[lo:hi]
-    return all_gather(blk).reshape(-1, *t.shape[1:])
+    blk[:len(t)] = t
+    return all_gather(blk).reshape(-1, *t.shape[1:])[:l]
 
 
 @torch.no_grad()
@@ -247,18 +245,18 @@ def admm_update(params: Mapping[str, torch.Tensor], state: AdmmState,
 
     With a `mesh` (`parallel/mesh.py`) of more than one rank the step is
     sharded over layers, as the JAX package's `_zstep_group_shardmap`:
-    each bucket's [L] stack is cut into blocks of ceil(L / ranks) layers
-    (the last ones zero-padded) over the flattened mesh, every rank
-    projects its own block (the kernel launched on its layers alone, no
-    launch for padding), guards it, updates its U and takes its norms,
-    and three all-gathers per bucket (Z, U, and the norms with the guard's
-    flags; two without `update_u`) give every rank the whole step. The
-    products around the kernel, the guard and the norms run on the whole
-    [L] stack with the other ranks' layers at 0: on the card a row
-    reduction's and a batched GEMM's order of summation depends on how
-    many rows or matrices it is given, so only the one-device step's
-    shapes give its bits, and each rank's layers come out bit for bit as
-    the one-device step computes them."""
+    each bucket's [L] stack is cut into blocks of b = ceil(L / ranks)
+    layers over the flattened mesh, and every rank runs the whole step on
+    its own block alone: W + U, the projection (the kernel launched on
+    the block's layers, none for a block of padding), the reconstruction,
+    the guard, U and the norms. Three all-gathers per bucket (Z, U, and
+    the norms with the guard's flags; two without `update_u`), each block
+    zero-padded to b layers and the padding sliced away, give every rank
+    the whole step. Each rank's layers come out bit for bit as the
+    one-process step on its block alone computes them; against the
+    one-process step on the whole stack they may differ in the last
+    bits, since on the card a batched GEMM's and a row reduction's order
+    of summation may follow how many matrices or rows it is given."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
     sharded = mesh is not None and mesh.size > 1
@@ -267,35 +265,30 @@ def admm_update(params: Mapping[str, torch.Tensor], state: AdmmState,
     nonfinite = 0
     for g in program.groups:
         l = len(g.names)
-        ws = torch.stack([params[n].detach().float() for n in g.names])
-        us = torch.stack([state.u[n] for n in g.names])
-        zs_prev = torch.stack([state.z[n] for n in g.names])
-        x = ws + us
-        layers = None
+        lo, hi, b = mesh.block(l) if sharded else (0, l, l)
+        names = g.names[lo:hi]
+        if names:
+            zs, us, norms, bad = _zstep(
+                g, torch.stack([params[n].detach().float() for n in names]),
+                torch.stack([state.u[n] for n in names]),
+                torch.stack([state.z[n] for n in names]), method=method,
+                n_iter=n_iter, update_u=update_u)
+        else:  # a block of padding: nothing to compute
+            zs = us = state.z[g.names[0]].new_zeros((0, *g.param_shape))
+            norms = zs.new_zeros((0,))
+            bad = norms.bool()
         if sharded:
-            lo, hi, b = mesh.block(l)
-            layers = (lo, hi)
-        zs = (_project_group_kernel(g, x, n_iter, layers)
-              if method == "kernel" else None)
-        if zs is None:  # another method, or a CPU bucket the gate refuses
-            eff = "subspace" if method == "kernel" else method
-            zs = _project_layers(g, x, eff, n_iter, layers)
-        bad = ~_finite_layers(zs)
-        zs = _finite_or_prev(zs, zs_prev)
-        diffs = ws - zs
-        norms = torch.linalg.vector_norm(diffs.reshape(l, -1), dim=1)
-        if sharded:
-            zs = _gather_layers(zs, lo, hi, b)[:l]
+            zs = _gather_block(zs, b, l)
             if update_u:
-                us = _gather_layers(us + diffs, lo, hi, b)[:l]
-            flagged = _gather_layers(torch.stack([norms, bad.float()], 1),
-                                     lo, hi, b)[:l]
+                us = _gather_block(us, b, l)
+            flagged = _gather_block(torch.stack([norms, bad.float()], 1),
+                                    b, l)
             norms, bad = flagged[:, 0], flagged[:, 1] > 0
         nonfinite = nonfinite + bad.sum()
         for j, n in enumerate(g.names):
             new_z[n] = zs[j]
             if update_u:
-                new_u[n] = us[j] if sharded else state.u[n] + diffs[j]
+                new_u[n] = us[j]
             residuals[n] = norms[j]
     return AdmmState(u=new_u, z=new_z, nonfinite=nonfinite), residuals
 

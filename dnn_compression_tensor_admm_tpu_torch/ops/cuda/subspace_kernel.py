@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -357,38 +357,16 @@ dominant_left_subspace_batched.launches = 0
 dominant_left_subspace_batched.captured = 0
 
 
-def _subspace_of(t: torch.Tensor, r: int, iters: int,
-                 layers: Optional[Tuple[int, int]]) -> torch.Tensor:
-    """`dominant_left_subspace_batched(t, r)`, with `layers` (lo, hi) for
-    t[lo:hi] alone and 0 for the other layers (a full-rank request, which
-    launches nothing, for all)."""
-    l, rows, cols = t.shape
-    r = min(r, rows, cols)
-    if layers is None or r == rows:
-        return dominant_left_subspace_batched(t, r, iters=iters)
-    lo, hi = layers
-    u = t.new_zeros((l, rows, r))
-    if hi > lo:
-        u[lo:hi] = dominant_left_subspace_batched(t[lo:hi], r, iters=iters)
-    return u
-
-
 @full_f32()
 def tt_project_batched(x: torch.Tensor, tt_shapes: Sequence[int],
-                       tt_ranks: Sequence[int], *, iters: int = 8,
-                       layers: Optional[Tuple[int, int]] = None
+                       tt_ranks: Sequence[int], *, iters: int = 8
                        ) -> torch.Tensor:
     """Batched TT projection: x [L, numel] -> Z [L, numel].
 
     The TT-SVD sweep over all layers at once: each step finds every
     layer's dominant left subspace with the kernel and carries the
     residual u^T t on; the residual and the reconstruction are batched
-    torch products in full float32. `layers` (lo, hi): the kernel runs on
-    those layers alone (none where hi == lo) and the others project to 0,
-    while the products still run on the whole [L] stack, so each of the
-    layers comes out bit for bit as in the whole stack's projection (a
-    batched GEMM's order of summation on the card may depend on how many
-    matrices it is given, never on their values)."""
+    torch products in full float32."""
     l = x.shape[0]
     shapes = list(tt_shapes)
     ranks = clamp_tt_ranks(shapes, tt_ranks)
@@ -397,7 +375,7 @@ def tt_project_batched(x: torch.Tensor, tt_shapes: Sequence[int],
     cores = []
     for i in range(d - 1):
         t = t.reshape(l, ranks[i] * shapes[i], -1).contiguous()
-        u = _subspace_of(t, ranks[i + 1], iters, layers)
+        u = dominant_left_subspace_batched(t, ranks[i + 1], iters=iters)
         cores.append(u)                                # [L, r_i n_i, r_{i+1}]
         t = torch.einsum("lrc,lrk->lkc", t, u)         # residual
     cores.append(t)                                    # [L, r_{d-1}, n r_d]

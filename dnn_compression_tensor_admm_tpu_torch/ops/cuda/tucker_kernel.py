@@ -20,7 +20,7 @@ Z_k = U0 (U0^T X_k U1) U1^T from the factors.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -456,25 +456,7 @@ def tucker2_reconstruct(x: torch.Tensor, u0: torch.Tensor,
 
 
 def tucker2_project_batched(x: torch.Tensor, r0: int, r1: int, *,
-                            sweeps: int = 2,
-                            layers: Optional[Tuple[int, int]] = None
-                            ) -> torch.Tensor:
-    """Batched Tucker-2 projection: x [L, K, O, I] -> Z of the same shape.
-
-    `layers` (lo, hi): solve the factors of those layers alone (one
-    launch on x[lo:hi], none where hi == lo); the others project to 0.
-    The reconstruction still runs on the whole [L] stack, so each of the
-    layers comes out bit for bit as in the whole stack's projection: a
-    batched GEMM's order of summation on the card may depend on how many
-    matrices it is given, never on their values."""
-    if layers is None:
-        u0, u1 = tucker2_factors_batched(x, r0, r1, sweeps=sweeps)
-        return tucker2_reconstruct(x, u0, u1)
-    l, _, o, i = x.shape
-    lo, hi = layers
-    u0 = x.new_zeros((l, o, min(r0, o)), dtype=torch.float32)
-    u1 = x.new_zeros((l, i, min(r1, i)), dtype=torch.float32)
-    if hi > lo:
-        u0[lo:hi], u1[lo:hi] = tucker2_factors_batched(x[lo:hi], r0, r1,
-                                                       sweeps=sweeps)
+                            sweeps: int = 2) -> torch.Tensor:
+    """Batched Tucker-2 projection: x [L, K, O, I] -> Z of the same shape."""
+    u0, u1 = tucker2_factors_batched(x, r0, r1, sweeps=sweeps)
     return tucker2_reconstruct(x, u0, u1)

@@ -27,7 +27,9 @@ captured), the same step runs eagerly (`eager_reason`).
 
 `chunkable` and `chunk_size` are the JAX package's rule
 (`train/engine.py:654-671` there); `exclusion` names what the port
-leaves on the per-epoch route although that rule would chunk it.
+leaves on the per-epoch route although that rule would chunk it: a mesh,
+and a Z/U step that would read a flag back to the host (`gram`, `svd`,
+and an SVD plan under any method but `kernel`).
 """
 
 from __future__ import annotations
@@ -76,12 +78,27 @@ def eager_reason(device: torch.device, mesh=None) -> Optional[str]:
     return _mesh_reason(mesh)
 
 
-def exclusion(cfg, mesh=None) -> Optional[str]:
-    """Why the port runs a chunkable run per epoch, or None."""
+# the Z/U methods whose every call can be captured: `kernel`, and the
+# orthogonal iterations (Cholesky QR by `cholesky_ex`, Newton-Schulz);
+# `gram`'s eigh and `svd` check their error flags on the host
+CAPTURABLE_METHODS = ("kernel", "subspace", "ns")
+
+
+def exclusion(cfg, mesh=None, program=None) -> Optional[str]:
+    """Why the port runs a chunkable run per epoch, or None. `program`
+    (`admm.ProjectionProgram`): an SVD bucket takes the exact SVD under
+    any method but `kernel` (`admm/engine.py::_project_one`)."""
     why = _mesh_reason(mesh)
-    if why is None and cfg.admm and cfg.admm_method != "kernel":
-        why = (f"the {cfg.admm_method!r} Z/U step's torch.linalg calls read "
-               "their error flags back to the host")
+    if why is None and cfg.admm:
+        method = cfg.admm_method
+        if method not in CAPTURABLE_METHODS:
+            why = (f"the {method!r} Z/U step's torch.linalg calls read "
+                   "their error flags back to the host")
+        elif method != "kernel" and program is not None and any(
+                g.kind in ("svd_conv", "svd_linear") for g in program.groups):
+            why = (f"the {method!r} Z/U step projects the plan's SVD layers "
+                   "by torch.linalg.svd, which reads its error flag back to "
+                   "the host")
     return why
 
 

@@ -658,7 +658,7 @@ def train_model(cfg: TrainConfig, *,
                 continue
             k = (capture.chunk_size(cfg, epoch, epochs, x_va is not None)
                  if fuse else 1)
-            why = capture.exclusion(cfg, mesh) if k > 1 else None
+            why = capture.exclusion(cfg, mesh, program) if k > 1 else None
             if why:  # logged once: the run goes on per epoch
                 log(f"--epochs-per-dispatch: the per-epoch route ({why})")
                 fuse, k = False, 1

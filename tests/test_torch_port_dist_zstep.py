@@ -4,10 +4,11 @@ against the one-process step and the JAX package's mesh step.
 
 A module fixture runs one job of 2 ranks and one of 3 (the uneven pad:
 ResNet32's buckets hold 10, 1, 9, 1, 9 layers for TK@3x); each rank writes
-its results to a file. The sharded step must give the one-process step
-bit for bit on every rank (each layer is projected alone, and the products
-around it run on the whole stack: see `admm_update`), make exactly three
-all-gathers a bucket, and match the JAX package's `admm_update` on a
+its results to a file. Each rank runs the whole step on its own block of
+each bucket (see `admm_update`): its layers must come out bit for bit as
+the one-process step on that block alone computes them, and on the CPU
+bit for bit as the one-process step on the whole stack does; the step
+must make exactly three all-gathers a bucket, and match the JAX package's `admm_update` on a
 1 x 2 mesh (run as `tests/test_dist.py` runs it) within the Z-step tests'
 tolerance. The same jobs evaluate 52 images (an odd tail) over 2 and 3
 data ranks.
@@ -90,6 +91,29 @@ def test_sharded_zstep_equals_one_process_bit_for_bit(ranks, one_process,
             assert torch.equal(got["z"][n], ref["z"][n]), (r, n)
             assert torch.equal(got["u"][n], ref["u"][n]), (r, n)
             assert torch.equal(got["res"][n], ref["res"][n]), (r, n)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("fmt", ["tk", "tt"])
+def test_sharded_zstep_equals_one_process_on_its_block(ranks, world, fmt):
+    """Each rank's layers against the one-process step run on the rank's
+    block of every bucket alone: bit for bit, on the card too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as in the ranks
+    try:
+        for r, got in enumerate(ranks[world]):
+            got = got[fmt, "kernel"]
+            params, program, state = w.zstep_inputs(fmt)
+            block = w.block_program(program, Mesh(1, world, r))
+            assert 0 < len(block.names) < len(program.names)
+            s, res = teng.admm_update(params, state, block, update_u=True,
+                                      method="kernel", n_iter=6)
+            for n in block.names:
+                assert torch.equal(got["z"][n], s.z[n]), (r, n)
+                assert torch.equal(got["u"][n], s.u[n]), (r, n)
+                assert torch.equal(got["res"][n], res[n]), (r, n)
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -21,6 +21,7 @@ CUDA graphs (`chip_smoke.py`'s fused phase).
 
 import argparse
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from dnn_compression_tensor_admm_tpu_torch.admm import (admm_init, admm_update,
                                                         admm_update_,
                                                         build_program)
 from dnn_compression_tensor_admm_tpu_torch.configs import get_rank_plan
+from dnn_compression_tensor_admm_tpu_torch.configs.hp import RankPlan, SVDSpec
 from dnn_compression_tensor_admm_tpu_torch.data.device_pipeline import (
     batch_at_views, batch_rows_at, sample_batch_repeated)
 from dnn_compression_tensor_admm_tpu_torch.models import create_model
@@ -100,8 +102,11 @@ def _equal_maps(a, b):
     dict(sampling="replacement", repeated_aug=3, opt="adamw", lr=1e-3),
     dict(repeated_aug=3, opt="adam", lr=1e-3, clip_grad=1.0, ema_decay=0.9),
     dict(mixup=0.8, cutmix=1.0, smoothing=0.1),
+    dict(admm_method="subspace"),
+    dict(admm_method="ns", fmt="tt"),
 ], ids=["perm-momentum", "shuffle-nesterov", "replacement-views-adamw",
-        "perm-views-adam-clip-ema", "perm-mixup-cutmix"])
+        "perm-views-adam-clip-ema", "perm-mixup-cutmix", "perm-subspace-tk",
+        "perm-ns-tt"])
 def test_fused_matches_unfused(extra):
     """JAX `test_fused_matches_unfused`, bit for bit: the rows' losses
     and accuracies, the weights and buffers, Z and U."""
@@ -233,6 +238,50 @@ def test_exclusions_take_the_per_epoch_route_and_say_so_once():
     assert sizes == [3]
     assert not [l for l in lines if "per-epoch route" in l]
     assert [r["mix_failed_draws"] for r in h] == [0, 0, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _program(fmt):
+    """A ResNet-20 program in `fmt`; 'svd': one 1x1 conv at rank 2."""
+    if fmt == "svd":
+        return build_program({"w": torch.zeros(8, 8, 1, 1)},
+                             RankPlan("svd", {"w": SVDSpec(2)}))
+    params = dict(create_model("resnet20").named_parameters())
+    return build_program(params, get_rank_plan("resnet20", fmt, "3"))
+
+
+# (method, program's format, mesh ranks) -> a word of the reason, or None:
+# fused ('kernel', 'subspace' and 'ns' capture every call of their Z/U
+# step) unless the step reads a flag to the host ('gram''s eigh, 'svd',
+# an SVD bucket's exact SVD under any method but 'kernel') or a mesh
+EXCLUSION_CASES = [
+    (("kernel", "tk", 1), None),
+    (("kernel", "tt", 1), None),
+    (("kernel", "svd", 1), None),
+    (("subspace", "tk", 1), None),
+    (("subspace", "tt", 1), None),
+    (("ns", "tk", 1), None),
+    (("ns", "tt", 1), None),
+    (("gram", "tk", 1), "'gram'"),
+    (("gram", "tt", 1), "'gram'"),
+    (("svd", "tk", 1), "'svd'"),
+    (("svd", "tt", 1), "'svd'"),
+    (("subspace", "svd", 1), "SVD layers"),
+    (("ns", "svd", 1), "SVD layers"),
+    (("kernel", "tk", 2), "2 ranks"),
+    (("subspace", "tt", 2), "2 ranks"),
+]
+
+
+@pytest.mark.parametrize("case,want", EXCLUSION_CASES)
+def test_exclusion_by_method_program_and_mesh(case, want):
+    method, fmt, ranks = case
+    why = capture.exclusion(_cfg(admm_method=method), Mesh(ranks, 1, 0),
+                            _program(fmt))
+    if want is None:
+        assert why is None
+    else:
+        assert want in why
 
 
 @pytest.mark.parametrize("repeats", [0, 1, 3])

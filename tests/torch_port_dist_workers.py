@@ -7,6 +7,7 @@ read. The ranks import torch and the port only, never JAX; the inputs
 come from seeds (`zstep_inputs`, `xstep_inputs`), which the tests call
 too for the one-process and JAX sides."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -45,6 +46,19 @@ def zstep_inputs(fmt: str):
             (0.01 * rng.standard_normal(tuple(params[n].shape)))
             .astype(np.float32))
     return params, program, state
+
+
+def block_program(program, mesh):
+    """The rank's block of each bucket of `program` as a program of its
+    own (a bucket whose block is all padding left out): what the rank's
+    sharded Z/U step computes, for the one-process step to run alone."""
+    groups = []
+    for g in program.groups:
+        lo, hi, _ = mesh.block(len(g.names))
+        if hi > lo:
+            groups.append(dataclasses.replace(g, names=g.names[lo:hi]))
+    return teng.ProjectionProgram(
+        groups=tuple(groups), names=tuple(n for g in groups for n in g.names))
 
 
 def xstep_inputs():

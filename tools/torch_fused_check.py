@@ -4,6 +4,7 @@ card.
 
     python3 tools/torch_fused_check.py [--seed S] [--paths tk deit]
         [--extra stiefel augment]
+        [--phases fused fused_methods guard multi_rank]
 
 Builds the four kernel libraries (four nvcc processes at once), then runs
 `chip_smoke.phase_fused` on the chosen main paths (default both: ResNet32
@@ -18,7 +19,11 @@ captured per-epoch route and fused: `stiefel`, a fine-tune of
 DeiT-tiny TT@2x ADMM with the recipe fine-tune's RandAugment, erasing, 3
 repeated views and the shuffled sampling. Prints the card's `nvidia-smi`
 name and power limit, then a JSON line a check; exits non-zero where one
-fails. Without CUDA it exits 1.
+fails. `--phases` (default `fused`) also runs, in that order,
+`chip_smoke.phase_guard` (the Z/U step's finite guard on every route),
+`phase_multi_rank` (2 ranks on the card) and `phase_fused_methods`
+(fused chunks by the `subspace` and `ns` methods). Without CUDA it exits
+1.
 """
 
 from __future__ import annotations
@@ -88,6 +93,9 @@ def main() -> int:
                     choices=list(cs.FUSED["paths"]))
     ap.add_argument("--extra", nargs="*", default=[],
                     choices=["stiefel", "augment"])
+    ap.add_argument("--phases", nargs="*", default=["fused"],
+                    choices=["fused", "fused_methods", "guard",
+                             "multi_rank"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_fused_check: CUDA is not available", file=sys.stderr)
@@ -105,7 +113,14 @@ def main() -> int:
         rows = [extra(name, args.seed, card) for name in args.extra]
         for row in rows:
             cs.emit(row)
-        cs.phase_fused(args.seed, card, workdir)
+        if "guard" in args.phases:
+            cs.phase_guard(args.seed, card)
+        if "multi_rank" in args.phases:
+            cs.phase_multi_rank(args.seed, card, workdir)
+        if "fused" in args.phases:
+            cs.phase_fused(args.seed, card, workdir)
+        if "fused_methods" in args.phases:
+            cs.phase_fused_methods(args.seed, card)
     return 1 if any(row["failed"] for row in rows) else 0
 
 

@@ -18,9 +18,10 @@ card's bound (`chip_smoke.bound_fields`). A `"phase": "kernel_times"`
 line per plan sums them per Z-step. `--zstep-split` times one-process
 Z/U steps (`admm_update`, the kernel route) of ResNet32 TK@3x and TT@3x
 and DeiT-tiny TT@2x and TK@2x by CUDA events, and the kernel wrappers'
-share of each: the rest (W + U, the products around the kernel, the
-finite guard, the norms and U) is what every rank of the layer-sharded
-step still runs on the whole stack. `--probes` writes the DeiT-tiny
+share of each (the rest: W + U, the products around the kernel, the
+finite guard, the norms and U), on the whole stack and on each rank's
+block of a 2-rank layer-sharded step, which is what that rank computes
+before its all-gathers. `--probes` writes the DeiT-tiny
 recipe's shards and times an untraced epoch (the second of two: the
 first holds the capture) of its dense X-step streamed and read whole, its ADMM X-step streamed and its fine-tune's step, then
 traces one streamed ADMM epoch (`utils/profiling.py`) and reads the
@@ -67,6 +68,7 @@ from dnn_compression_tensor_admm_tpu_torch.models import create_model  # noqa: E
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import subspace_kernel as sk  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 
 # A Tucker-2 workspace-plan launch does 0.1 to 10 G FMA a layer on a
 # cluster of 8 SMs, 2 to 26 ms (DeiT TK, MobileNetV2 SVD), and a subspace
@@ -74,8 +76,10 @@ from dnn_compression_tensor_admm_tpu_torch.ops.cuda import tucker_kernel as tk  
 # launches keep their timing to seconds. Other launches take graph_ms's
 # default of 25.
 FEW_LAUNCHES = {"launches": 5, "replays": 2}
-# Z/U steps timed per program by --zstep-split, after two warm-up steps
+# Z/U steps timed per program by --zstep-split, after two warm-up steps;
+# each rank's block of a ZSTEP_RANKS-rank layer-sharded step timed too
 ZSTEP_REPS = 5
+ZSTEP_RANKS = 2
 
 # key -> (row name, model, format, ratio, library yardstick of a K = 1
 # bucket: one batched SVD of the stack)
@@ -252,8 +256,7 @@ def kernel_events():
 
 def zstep_split(seed: int, key: str) -> dict:
     """One-process Z/U steps of a program (seeded weights, U = 0.01 N(0,
-    1)): device ms a step between CUDA events, the host's wall ms a step,
-    and the kernel wrappers' device ms within it."""
+    1)), on the whole stack and on each rank's block (`_time_zsteps`)."""
     model_name, fmt, ratio = ZSTEP_PROGRAMS[key]
     model = create_model(model_name, generator=torch.Generator().manual_seed(
         seed)).cuda()
@@ -264,6 +267,24 @@ def zstep_split(seed: int, key: str) -> dict:
     for n in program.names:
         state.u[n] = 0.01 * torch.randn(params[n].shape, generator=gen).cuda()
 
+    whole = _time_zsteps(params, state, program)
+    # what each rank of a 2-rank layer-sharded step computes: the step on
+    # its block of every bucket alone (the gathers left out)
+    blocks = [_time_zsteps(params, state, cs.block_program(
+        program, Mesh(1, ZSTEP_RANKS, r))) for r in range(ZSTEP_RANKS)]
+    return {"phase": "zstep_split", "program": f"{model_name} {fmt}@{ratio}x",
+            "buckets": len(program.groups), "layers": len(program.names),
+            "steps": ZSTEP_REPS, **whole,
+            f"rank_block_step_ms_{ZSTEP_RANKS}_ranks": [
+                b["step_ms"] for b in blocks],
+            f"rank_block_kernel_ms_{ZSTEP_RANKS}_ranks": [
+                b["kernel_ms"] for b in blocks]}
+
+
+def _time_zsteps(params, state, program) -> dict:
+    """ZSTEP_REPS Z/U steps of `program` after two warm-up steps: device
+    ms a step between CUDA events, the host's wall ms a step, and the
+    kernel wrappers' device ms within it."""
     def step():
         return admm_update(params, state, program, update_u=True,
                            method="kernel", n_iter=6)
@@ -288,11 +309,9 @@ def zstep_split(seed: int, key: str) -> dict:
             launches = len(pairs)
     step_mean = sum(step_ms) / ZSTEP_REPS
     kernel_mean = sum(kernel_ms) / ZSTEP_REPS
-    return {"phase": "zstep_split", "program": f"{model_name} {fmt}@{ratio}x",
-            "buckets": len(program.groups), "layers": len(program.names),
-            "wrapper_calls_per_step": launches, "steps": ZSTEP_REPS,
-            "step_ms": step_mean, "wall_ms": sum(wall_ms) / ZSTEP_REPS,
-            "kernel_ms": kernel_mean, "other_ms": step_mean - kernel_mean,
+    return {"wrapper_calls_per_step": launches, "step_ms": step_mean,
+            "wall_ms": sum(wall_ms) / ZSTEP_REPS, "kernel_ms": kernel_mean,
+            "other_ms": step_mean - kernel_mean,
             "other_share": 1 - kernel_mean / step_mean}
 
 
