@@ -96,7 +96,16 @@ prints one JSON line per phase:
    weights; then ImageNet MobileNetV2 plain SVD @2x at full width, 224 x
    224, 1000 classes and batch 256 with SGD momentum at lr 0.05 (its 29
    1x1 convs in 15 Tucker-2 launches a Z-step; 3,504,872 / 2,514,184
-   parameters and 1.39x asserted), fine-tuned at lr 0.01; last DeiT-tiny
+   parameters and 1.39x asserted), fine-tuned at lr 0.01; then
+   DenseNet121 Tucker-2 @2x (its dense layers recomputed in the backward
+   inside the captured X-step; 61 convs in 4 Tucker-2 launches a Z-step;
+   7,978,856 / 7,434,088 parameters and 1.07x asserted; lr 0.1 with a
+   one-epoch warmup and clip 1.0, fine-tune lr 0.01) and VGG16 Tucker-2
+   @2x (13 convs, `pre_logits.fc1` [4096, 512, 7, 7] among them, in 9
+   launches a Z-step; 138,357,544 / 29,122,472 parameters and 4.75x
+   asserted; lr 0.01 with the same warmup and clip, fine-tune lr 0.001),
+   both at full width, 224 x 224, 1000 classes and batch 256 on the
+   ImageNet-geometry set; last DeiT-tiny
    Tensor-Train @2x as `run.sh`'s `deit-tiny-tt-admm` runs it, through
    the CLI (`phase_deit_recipe`): `synthetic-imagenet` written as DCTA
    shards (512 train, 128 val images) by the port's `write_shards`, ADMM
@@ -123,7 +132,8 @@ prints one JSON line per phase:
 6. export  — the fine-tuned models of three main paths (ResNet32 TK@3x,
    ResNet-50 TT@3x, DeiT-tiny TT@2x; `phase_main` writes each as the JAX
    msgpack, as --save-model does) through the CLI's `--pretrained
-   --export-onnx --export`: the ONNX file run on the card at batch 1 by
+   --export-onnx --export`, each file held against the model the CLI
+   read and exported: the ONNX file run on the card at batch 1 by
    the runner below (`run_onnx`: a protobuf reader and the exporter's
    opset-13 ops as torch ops, float32 with TF32 off) against the model's
    float32 forward within rtol = atol = 2e-3, the torch.export program
@@ -154,7 +164,13 @@ prints one JSON line per phase:
    1-process step on the whole stack (whether bit for bit there is
    printed), three planted faults past that (a block offset by one layer,
    U not updated, padding kept), each rank launching the kernel on its
-   own blocks;
+   own blocks; then the recomputed DenseNet121 TK@2x at full width and a
+   global batch of 32 over the same ranks (`GlobalRematBatchNorm2d`): its
+   first X-step in float32 within EARLY_TOL of the 1-process step, three
+   planted faults past it (the recompute on the rank's own rows, the
+   recompute moving the running statistics again, per-rank BatchNorm),
+   one ADMM epoch of 4 bf16 steps ending replicated with the Tucker-2
+   kernel launched on each rank's blocks;
 9. fused   — the captured X-step (`train/capture.py`) and fused epochs
    (`--epochs-per-dispatch`) on ResNet32 TK@3x and DeiT-tiny TT@2x (with
    Mixup 0.8 and CutMix 1.0) at full width: 2 epochs x 3 steps on the
@@ -256,7 +272,8 @@ from dnn_compression_tensor_admm_tpu_torch.utils.onnx_export import (  # noqa: E
     export_onnx, onnx_attrs, pb_fields)
 from dnn_compression_tensor_admm_tpu_torch.utils.torch_import import (  # noqa: E402
     save_torch_state_dict, state_dict_to_torch)
-from dnn_compression_tensor_admm_tpu_torch.parallel import dist  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.models import densenet  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.parallel import data_parallel, dist  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.parallel.launch import (  # noqa: E402
     file_init_method, spawn)
 from dnn_compression_tensor_admm_tpu_torch.parallel.mesh import (  # noqa: E402
@@ -305,6 +322,11 @@ DEIT_S_PARAMS = (22_050_664, 14_391_736)
 # ImageNet MobileNetV2 SVD@2x's, dense and compressed, the JAX package's
 # `svdc_mobilenetv2` too (1.3940x)
 MBV2_INET_PARAMS = (3_504_872, 2_514_184)
+# VGG16 TK@2x's, dense and compressed, the JAX package's `tkc_vgg16` too
+# (4.7509x)
+VGG16_PARAMS = (138_357_544, 29_122_472)
+# DenseNet121 TK@2x's, the JAX package's `tkc_densenet121` too (1.0733x)
+DENSENET121_PARAMS = (7_978_856, 7_434_088)
 # CIFAR ResNet56 TK@3x's, dense and compressed, the JAX package's
 # `tkc_resnet56` too (its TT@3x has the same count; 3.0989x)
 R56_PARAMS = (853_018, 275_266)
@@ -829,8 +851,10 @@ def phase_zstep(seed: int, model: str, fmt: str, ratio: str,
 # ResNet-50 TT@3x as `results/run_r50tt.sh`: ADMM at lr 0.1 with warmup
 # and clipping, fine-tune at lr 0.01; ImageNet MobileNetV2 SVD@2x at
 # ResNet-50's geometry with the JAX package's MobileNetV2 lr 0.05 and
-# fine-tune lr 0.01), the kernel the Z-step must launch and the one it
-# must not
+# fine-tune lr 0.01; DenseNet121 TK@2x as ResNet-50; VGG16 TK@2x at
+# torchvision's VGG lr 0.01, VGG16 having no BatchNorm, with the same
+# warmup and clipping, fine-tune lr 0.001), the kernel the Z-step must
+# launch and the one it must not
 RESNET = dict(dense="resnet32", ratio_arg="3", dataset="synthetic-cifar10",
               synthetic_size=None, batch_size=256, opt="momentum", lr=0.1,
               input=(3, 32, 32), classes=10, full_rank_check=True)
@@ -879,6 +903,24 @@ PATHS = {
                       "params": MBV2_INET_PARAMS,
                       "kernel": tk.tucker2_factors_batched,
                       "other": sk.dominant_left_subspace_batched},
+    "densenet121_tk": {**DEIT, "dense": "densenet121", "ratio_arg": "2",
+                       "dataset": "synthetic-hard-imagenet",
+                       "batch_size": 256, "opt": "momentum", "lr": 0.1,
+                       "ft_lr": 0.01,
+                       "admm_extra": {"warmup_epochs": 1, "clip_grad": 1.0},
+                       "name": "densenet121 tk@2x", "fmt": "tk",
+                       "model": "tkc_densenet121", "ratio": 1.07,
+                       "params": DENSENET121_PARAMS,
+                       "kernel": tk.tucker2_factors_batched,
+                       "other": sk.dominant_left_subspace_batched},
+    "vgg16_tk": {**DEIT, "dense": "vgg16", "ratio_arg": "2",
+                 "dataset": "synthetic-hard-imagenet", "batch_size": 256,
+                 "opt": "momentum", "lr": 0.01, "ft_lr": 0.001,
+                 "admm_extra": {"warmup_epochs": 1, "clip_grad": 1.0},
+                 "name": "vgg16 tk@2x", "fmt": "tk", "model": "tkc_vgg16",
+                 "ratio": 4.75, "params": VGG16_PARAMS,
+                 "kernel": tk.tucker2_factors_batched,
+                 "other": sk.dominant_left_subspace_batched},
 }
 # the depth of every main path: bench.py runs 24 epochs of 196 (ResNet) or
 # 128 (DeiT) steps and the JAX package's fine-tune as many again
@@ -2208,10 +2250,30 @@ def _cli_quiet(argv):
         return cli_main(argv)
 
 
+@contextlib.contextmanager
+def exported_model():
+    """{"model": the model the CLI's exports were given} once `cli_main`
+    has exported: the check runs the files against that model, not
+    against a second build of it."""
+    from dnn_compression_tensor_admm_tpu_torch.cli import main as cli
+    seen, export_all = {}, cli.export_all
+
+    def record(args, model, info, num_classes):
+        seen["model"] = model
+        return export_all(args, model, info, num_classes)
+
+    cli.export_all = record
+    try:
+        yield seen
+    finally:
+        cli.export_all = export_all
+
+
 def export_one(seed: int, key: str, workdir: str) -> dict:
     """Path `key`'s fine-tuned model through the CLI's --export-onnx and
-    --export, each file run again on the card against the eager model,
-    and the .pth round trip through --pretrained --eval."""
+    --export, each file run again on the card against the model the CLI
+    read and exported, and the .pth round trip through --pretrained
+    --eval."""
     path = PATHS[key]
     ckpt = ft_checkpoint(workdir, key)
     stem = os.path.join(workdir, f"export_{key}")
@@ -2223,15 +2285,12 @@ def export_one(seed: int, key: str, workdir: str) -> dict:
     if path["synthetic_size"]:  # CIFAR evaluates the shared 10,000 images
         common += ["--synthetic-size", str(EXPORT_EVAL_IMAGES)]
     t0 = time.perf_counter()
-    done = _cli_quiet([*common, "--pretrained", "--model-path", ckpt,
-                       "--export-onnx", onnx_path, "--export", program_path,
-                       "--batch-size", str(EXPORT_BATCH)])
+    with exported_model() as seen:
+        done = _cli_quiet([*common, "--pretrained", "--model-path", ckpt,
+                           "--export-onnx", onnx_path, "--export",
+                           program_path, "--batch-size", str(EXPORT_BATCH)])
     cli_s = time.perf_counter() - t0
-
-    model = create_model(path["model"], ratio=path["ratio_arg"],
-                         num_classes=path["classes"])
-    model.load_state_dict(load_any_variables(ckpt, model.state_dict))
-    model = model.cuda().eval()
+    model = seen["model"].eval()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x1 = torch.rand(1, *path["input"], generator=gen, device="cuda")
     x2 = torch.rand(EXPORT_BATCH, *path["input"], generator=gen,
@@ -2441,6 +2500,27 @@ PLANTED_FAULTS = ("per_rank_batchnorm", "summed_gradients", "half_batch")
 # [:L] keeps it
 SHARDED_TOL = 1e-5
 ZSTEP_FAULTS = ("block_offset", "u_not_updated", "padding_kept")
+# The recomputed ImageNet DenseNet over the same 2 ranks (its dense
+# layers' BatchNorms `GlobalRematBatchNorm2d`, normalising by the global
+# batch in the forward and again in the checkpoint's recompute):
+# DenseNet121 TK@2x at full width, 224 x 224 and 1000 classes, at a
+# global batch of 32 (16 rows a rank), lr 0.1 without the main path's
+# warmup (whose first step moves nothing) and clip. Its first X-step with
+# the penalty, in float32 with TF32 off, is held to the 1-process step
+# within EARLY_TOL, and each of REMAT_FAULTS must fail that check; then
+# one ADMM epoch of 4 steps in bf16, the Z/U step through the Tucker-2
+# kernel on each rank's block, must end replicated.
+MULTI_DENSENET = dict(synthetic_size=128, batch_size=32, epochs=1,
+                      steps_per_epoch=4)
+CUT["densenet121_tk2_2rank"] = ("first projection + 1 ADMM epoch x 4 steps "
+                                "at a global batch of 32 over 2 ranks, 128 "
+                                "images")
+# recompute_rank_statistics: the recompute normalises by the rank's own
+# rows; recompute_moves_statistics: the recompute moves the running
+# statistics and counts a batch again; per_rank_batchnorm: every
+# BatchNorm the rank's own (plain DDP), in the forward and the recompute
+REMAT_FAULTS = ("recompute_rank_statistics", "recompute_moves_statistics",
+                "per_rank_batchnorm")
 
 
 # One launch shape per plan of each kernel (a single layer), for the
@@ -2492,10 +2572,23 @@ def multi_rank_config(seed: int, checkpoint_dir: Optional[str],
                        checkpoint_dir=checkpoint_dir, print_fn=log)
 
 
-def early_step(seed: int, device: str = "cuda", mesh=None) -> dict:
-    """The multi-rank run's first X-step alone, in float32 with TF32 off:
-    {"loss": its loss, "state": the model's state dict after it (CPU)}."""
-    cfg = dataclasses.replace(multi_rank_config(seed, None, device),
+def densenet_multi_config(seed: int, checkpoint_dir: Optional[str],
+                          device: str = "cuda") -> TrainConfig:
+    return TrainConfig(model="densenet121", dataset="synthetic-hard-imagenet",
+                       opt="momentum", lr=0.1, smoothing=0.1, admm=True,
+                       rho=1e-3, fmt="tk", ratio="2", admm_method="kernel",
+                       admm_hooi_iters=6, compute_dtype="bfloat16",
+                       seed=seed, device=device,
+                       checkpoint_dir=checkpoint_dir, print_fn=log,
+                       **MULTI_DENSENET)
+
+
+def early_step(seed: int, device: str = "cuda", mesh=None,
+               make_config=multi_rank_config) -> dict:
+    """The first X-step alone of the run `make_config` sets up, in float32
+    with TF32 off: {"loss": its loss, "state": the model's state dict
+    after it (CPU)}."""
+    cfg = dataclasses.replace(make_config(seed, None, device),
                               epochs=1, steps_per_epoch=1, compute_dtype=None)
     with full_f32():
         model, hist = train_model(cfg, mesh=mesh)
@@ -2516,6 +2609,28 @@ def early_drift(got: dict, ref: dict, init: dict) -> dict:
             "update": max(norm(a[n] - b[n]) / norm(b[n] - init[n])
                           for n in params),
             "bn_stats": max(norm(a[n] - b[n]) / norm(b[n]) for n in stats)}
+
+
+def first_step_checks(what: str, ranks_early, ref_early: dict, init: dict,
+                      faults):
+    """The ranks' `early_step`s ({fault: step}, 'none' among them) against
+    one process's -> ({fault: `early_drift`}, failures): the sound step
+    within EARLY_TOL, each of `faults` past it, the ranks' sound steps
+    bit for bit equal."""
+    early = {fault: early_drift(got, ref_early, init)
+             for fault, got in ranks_early[0].items()}
+    failures = []
+    if not all(early["none"][k] <= EARLY_TOL[k] for k in EARLY_TOL):
+        failures.append(f"the 2-rank {what} first step is {early['none']} "
+                        f"from the 1-process step (tolerance {EARLY_TOL})")
+    for fault in faults:
+        if all(early[fault][k] <= EARLY_TOL[k] for k in EARLY_TOL):
+            failures.append(f"the planted {what} fault {fault} passes the "
+                            f"check: {early[fault]}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            *(e["none"]["state"].values() for e in ranks_early))):
+        failures.append(f"the ranks' {what} first steps end apart")
+    return early, failures
 
 
 @contextlib.contextmanager
@@ -2544,6 +2659,116 @@ def planted(fault: str):
     finally:
         engine.convert_global_batchnorm, engine.all_reduce_grads, Mesh.rows = \
             saved
+
+
+@contextlib.contextmanager
+def planted_remat(fault: str):
+    """One of REMAT_FAULTS planted in this process's data-parallel X-step
+    of the recomputed DenseNet ('none' plants nothing)."""
+    if fault in ("none", "per_rank_batchnorm"):
+        with planted(fault):
+            yield
+        return
+    cls = data_parallel.GlobalRematBatchNorm2d
+    saved = {k: cls.__dict__.get(k) for k in ("_stats", "_track")}
+    if fault == "recompute_rank_statistics":
+        def stats(self, xf):
+            if not densenet.recomputing():
+                return data_parallel.GlobalBatchNorm2d._stats(self, xf)
+            c = xf.shape[1]
+            dims = [0, *range(2, xf.dim())]
+            sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims)])
+            n = xf.numel() // c
+            mean = sums[:c] / n
+            return mean, torch.clamp(sums[c:] / n - mean * mean, min=0.0), n
+        cls._stats = stats
+    elif fault == "recompute_moves_statistics":
+        cls._track = data_parallel.GlobalBatchNorm2d._track
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                setattr(cls, k, v)
+            elif k in cls.__dict__:
+                delattr(cls, k)
+
+
+def densenet_ranks(seed: int, device: str, mesh) -> dict:
+    """This rank's part of the recomputed DenseNet's check: its first
+    X-step alone, sound and with each of REMAT_FAULTS, then the 1 x 4-step
+    run (launches counted, whether the ranks end replicated)."""
+    t_start = time.perf_counter()
+    out = {"early": {}}
+    with shared_sets():
+        for fault in ("none", *REMAT_FAULTS):
+            with planted_remat(fault):
+                out["early"][fault] = early_step(seed, device, mesh,
+                                                 densenet_multi_config)
+        tk.tucker2_factors_batched.launches = 0
+        sk.dominant_left_subspace_batched.launches = 0
+        t0 = time.perf_counter()
+        model, hist = train_model(densenet_multi_config(seed, None, device),
+                                  mesh=mesh)
+        torch.cuda.synchronize()
+    out["run"] = {
+        "hist": hist, "wall_s": time.perf_counter() - t0,
+        "launches": {"tucker2": tk.tucker2_factors_batched.launches,
+                     "subspace": sk.dominant_left_subspace_batched.launches},
+        "replicated": dist.same_on_every_rank(
+            list(model.state_dict().values()))}
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def densenet_rows(outs, ref_early, seed: int):
+    """The ranks' `densenet_ranks` against the 1-process first step ->
+    (row, failures)."""
+    early, failures = first_step_checks(
+        "DenseNet", [o["densenet"]["early"] for o in outs], ref_early,
+        create_model("densenet121", generator=torch.Generator().manual_seed(
+            seed)).state_dict(), REMAT_FAULTS)
+    with torch.device("meta"):
+        params = dict(create_model("densenet121").named_parameters())
+    program = build_program(params, get_rank_plan("densenet121", "tk", "2"))
+    z_steps = 1 + MULTI_DENSENET["epochs"]
+    losses = [h["train_loss"] for h in outs[0]["densenet"]["run"]["hist"]]
+    for r, out in enumerate(outs):
+        run = out["densenet"]["run"]
+        want = z_steps * launches_of_block(program, "tk", r, len(outs))
+        if (not run["replicated"] or run["launches"]["tucker2"] != want
+                or want == 0 or run["launches"]["subspace"] != 0
+                or [h["train_loss"] for h in run["hist"]] != losses
+                or not all(np.isfinite(losses))):
+            failures.append(f"rank {r} of the 2-rank DenseNet run: "
+                            f"{run['launches']} launches (Tucker-2 expected "
+                            f"{want}), replicated {run['replicated']}, "
+                            f"losses {losses}")
+    steps = MULTI_DENSENET["steps_per_epoch"]
+    row = {"model": "densenet121 tk@2x",
+           "global_batch": MULTI_DENSENET["batch_size"],
+           "depth_cut": CUT["densenet121_tk2_2rank"],
+           "first_step_vs_one_process": early["none"],
+           "first_step_planted_faults": {f: early[f] for f in REMAT_FAULTS},
+           "first_step_loss": {"one_process": ref_early["loss"],
+                               **{f: outs[0]["densenet"]["early"][f]["loss"]
+                                  for f in early}},
+           "train_loss_two_ranks": losses,
+           "launches_per_rank": [o["densenet"]["run"]["launches"]["tucker2"]
+                                 for o in outs],
+           "replicated": [o["densenet"]["run"]["replicated"] for o in outs],
+           "x_step_ms_per_rank": [
+               1000 * o["densenet"]["run"]["hist"][-1]["x_step_s"] / steps
+               for o in outs],
+           "z_step_ms_per_rank": [
+               1000 * o["densenet"]["run"]["hist"][-1]["z_step_s"]
+               for o in outs],
+           "run_wall_s_per_rank": [o["densenet"]["run"]["wall_s"]
+                                   for o in outs],
+           "wall_s_per_rank": [o["densenet"]["wall_s"] for o in outs]}
+    return row, failures
 
 
 def multi_zstep_inputs(fmt: str, seed: int):
@@ -2712,6 +2937,7 @@ def _multi_rank(rank: int, world: int, init_method: str, workdir: str,
                 out["early"][fault] = early_step(seed, str(topo.device), mesh)
         zmesh = make_mesh(n_layer=world)  # the Z/U step flattens the mesh
         out.update(sharded_zsteps(seed, zmesh))
+        out["densenet"] = densenet_ranks(seed, str(topo.device), mesh)
         torch.save(out, os.path.join(workdir, f"multi_rank{rank}.pt"))
     finally:
         dist.shutdown()
@@ -2785,7 +3011,10 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
     kernel on their own blocks. Then one sharded Z/U step of ResNet32's TK
     and TT programs (`sharded_zstep_rows`: bit for bit the 1-process step
     on each rank's block alone, within SHARDED_TOL of it on the whole
-    stack, each of ZSTEP_FAULTS past SHARDED_TOL); and both kernels on a
+    stack, each of ZSTEP_FAULTS past SHARDED_TOL); then the recomputed
+    DenseNet121 TK@2x (`densenet_ranks`, `densenet_rows`: its first X-step
+    within EARLY_TOL of the 1-process step, each of REMAT_FAULTS past it,
+    one epoch of 4 steps ending replicated); and both kernels on a
     layer of zeros at each plan (`check_zero_layers`). With one card visible the ranks share it over
     gloo (NCCL refuses two ranks on one GPU), which runs every collective
     of the port on CUDA tensors; that measures correctness, not
@@ -2803,6 +3032,9 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
     ref_s = time.perf_counter() - t0
     ref_launches = tk.tucker2_factors_batched.launches
     ref_early = early_step(seed)
+    t0 = time.perf_counter()
+    ref_densenet = early_step(seed, make_config=densenet_multi_config)
+    ref_densenet_s = time.perf_counter() - t0
     ref_zsteps = {}
     for fmt in ("tk", "tt"):
         params, program, state = multi_zstep_inputs(fmt, seed)
@@ -2816,7 +3048,7 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=workdir) as rendezvous:
         spawn(_multi_rank, ranks, file_init_method(rendezvous), workdir,
-              seed, backend, timeout=400)
+              seed, backend, timeout=600)
     ranks_s = time.perf_counter() - t0
     outs = [torch.load(os.path.join(workdir, f"multi_rank{r}.pt"),
                        weights_only=False) for r in range(ranks)]
@@ -2826,21 +3058,11 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
                         f"{zero_layers}")
 
     # the first X-step against one process's, sound and with each fault
-    init = create_model("resnet32", generator=torch.Generator().manual_seed(
-        seed)).state_dict()
-    early = {fault: early_drift(got, ref_early, init)
-             for fault, got in outs[0]["early"].items()}
-    if not all(early["none"][k] <= EARLY_TOL[k] for k in EARLY_TOL):
-        failures.append(f"the 2-rank first step is {early['none']} from the "
-                        f"1-process step (tolerance {EARLY_TOL})")
-    for fault in PLANTED_FAULTS:
-        if all(early[fault][k] <= EARLY_TOL[k] for k in EARLY_TOL):
-            failures.append(f"the planted fault {fault} passes the check: "
-                            f"{early[fault]}")
-    if not all(torch.equal(a, b) for a, b in zip(
-            outs[0]["early"]["none"]["state"].values(),
-            outs[1]["early"]["none"]["state"].values())):
-        failures.append("the ranks' first steps end apart")
+    early, early_failures = first_step_checks(
+        "ResNet32", [o["early"] for o in outs], ref_early,
+        create_model("resnet32", generator=torch.Generator().manual_seed(
+            seed)).state_dict(), PLANTED_FAULTS)
+    failures += early_failures
 
     # the 2 x 20-step run: replicated, launches counted, its distance from
     # the 1-process run printed
@@ -2873,6 +3095,9 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
                             f"{run['replicated']}")
     zrows, zfailures = sharded_zstep_rows(outs, ref_zsteps)
     failures += zfailures
+    densenet_row, dfailures = densenet_rows(outs, ref_densenet, seed)
+    densenet_row["one_process_first_step_s"] = ref_densenet_s
+    failures += dfailures
     steps = MULTI["steps_per_epoch"]
     emit({"phase": "multi_rank", "card": card, "model": "resnet32 tk@3x",
           "ranks": ranks, "gpus_visible": gpus, "backend": backend,
@@ -2900,6 +3125,7 @@ def phase_multi_rank(seed: int, card: str, workdir: str) -> None:
           "z_step_ms_one_process": 1000 * ref_hist[-1]["z_step_s"],
           "sharded_zstep": zrows, "sharded_tolerance": SHARDED_TOL,
           "zero_layer_finite_zero": zero_layers,
+          "densenet": densenet_row,
           "one_process_run_s": ref_s,
           "ranks_wall_s": ranks_s,
           "ranks_run_wall_s": [o["run"]["wall_s"] for o in outs],
@@ -3682,6 +3908,9 @@ def main() -> int:
         launches_mbv2_inet_main = phase_main(
             args.seed, smi, "mbv2_inet_svd", len(zoo_tk["mbv2_inet_svd"]),
             workdir)
+        launches_zoo_main = {key: phase_main(args.seed, smi, key,
+                                             len(zoo_tk[key]), workdir)
+                             for key in ("densenet121_tk", "vgg16_tk")}
         launches_deit_recipe = phase_deit_recipe(args.seed, smi,
                                                  len(launches_deit), workdir)
         phase_nlp(args.seed, smi, workdir)
@@ -3736,7 +3965,12 @@ def main() -> int:
             *[(f"tucker2_factors_batched@{key}", zoo_names[key],
                launches_zoo[key], rows_zoo[key],
                f"{src}tucker2_factors.cu, {src}tucker2_factors_ws.cu",
-               "library_ms") for key in zoo_names]):
+               "library_ms") for key in zoo_names],
+            # the two zoo main paths: 12 and 27 launches over 3 Z-steps
+            *[(f"tucker2_factors_batched@{key}2", PATHS[key]["name"],
+               launches_zoo_main[key], rows_zoo[key],
+               f"{src}tucker2_factors.cu, {src}tucker2_factors_ws.cu",
+               "library_ms") for key in launches_zoo_main]):
         one = kernel_summary(name, path, source,
                              ref + "tucker_kernel.py:142", n, rows,
                              library_key)

@@ -22,7 +22,9 @@ Each ImageNet dense layer is recomputed in the backward pass
 BN included. The JAX recompute leaves `batch_stats` alone; torch's re-runs
 the forward, so its BatchNorms (`RematBatchNorm2d`) normalise by the batch
 statistics alone while recomputing, and each running statistic is
-updated once a step, in the forward. NCHW activations, OIHW kernels;
+updated once a step, in the forward. On a data mesh they become
+`parallel/data_parallel.py::GlobalRematBatchNorm2d`, which normalises by
+the global batch in both. NCHW activations, OIHW kernels;
 BatchNorm uses torch momentum 0.1 (flax momentum 0.9) and eps 1e-5.
 """
 
@@ -56,6 +58,11 @@ def _recompute():
         _recomputing -= 1
 
 
+def recomputing() -> bool:
+    """Whether a checkpoint is recomputing a dense layer now."""
+    return _recomputing > 0
+
+
 def _checkpoint_contexts():
     """`torch.utils.checkpoint`'s contexts: none for the forward, the
     recompute flag for the recompute."""
@@ -73,7 +80,7 @@ class RematBatchNorm2d(nn.BatchNorm2d):
         super().__init__(c, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and _recomputing:
+        if self.training and recomputing():
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, True, 0.0, self.eps)
         return super().forward(x)

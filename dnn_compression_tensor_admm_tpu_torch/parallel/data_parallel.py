@@ -14,7 +14,9 @@ global one:
   is held to the JAX package. It is the port's own module, not torch's
   `SyncBatchNorm`, which refuses CPU tensors in a process group (the CPU
   tests hold this module against JAX) and takes Welford statistics, not
-  flax's one pass.
+  flax's one pass. The ImageNet DenseNets' `RematBatchNorm2d`, recomputed
+  in the backward, becomes a `GlobalRematBatchNorm2d`: XLA reduces over
+  the global batch inside `nn.remat` too.
 * `all_reduce_grads` averages the gradients over the data ranks (one
   all-reduce of all of them); each rank's loss is the mean over its slice
   plus the replicated ADMM penalty, so the mean is the global loss's
@@ -32,6 +34,7 @@ from typing import Iterable
 import torch
 import torch.nn as nn
 
+from ..models import densenet
 from . import dist
 
 
@@ -54,38 +57,65 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked = bn.num_batches_tracked
         self.group, self.n_ranks = group, n_ranks
 
+    def _stats(self, xf: torch.Tensor):
+        """(mean, biased variance, values a channel holds) of the global
+        batch: one pass over the rank's rows, the sums all-reduced."""
+        c = xf.shape[1]
+        dims = [0, *range(2, xf.dim())]
+        sums = dist.all_reduce_sum_autograd(
+            torch.cat([xf.sum(dims), (xf * xf).sum(dims)]), self.group)
+        n = self.n_ranks * (xf.numel() // c)
+        mean = sums[:c] / n
+        return mean, torch.clamp(sums[c:] / n - mean * mean, min=0.0), n
+
+    @torch.no_grad()
+    def _track(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """Move the running statistics (the unbiased variance, as torch's)
+        and count the batch."""
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean)
+        self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        self.num_batches_tracked.add_(1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        c = x.shape[1]
         xf = x.float()
-        dims = [0, *range(2, x.dim())]
-        sums = dist.all_reduce_sum_autograd(
-            torch.cat([xf.sum(dims), (xf * xf).sum(dims)]), self.group)
-        n = self.n_ranks * (x.numel() // c)
-        mean = sums[:c] / n
-        var = torch.clamp(sums[c:] / n - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-            self.num_batches_tracked.add_(1)
-        shape = (1, c) + (1,) * (x.dim() - 2)
+        mean, var, n = self._stats(xf)
+        self._track(mean, var, n)
+        shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
         y = (xf - mean.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(
             shape)
         y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
         return y.to(x.dtype)
 
 
+class GlobalRematBatchNorm2d(GlobalBatchNorm2d):
+    """`GlobalBatchNorm2d` of a `RematBatchNorm2d`: inside a checkpoint's
+    recompute it normalises by the global batch's statistics again (the
+    same ops and all-reduce, so it saves the tensors the forward saved)
+    and leaves the running statistics and the batch count alone, as the
+    JAX package's `nn.remat` leaves `batch_stats`. Every rank recomputes
+    the same layers in the same order of its backward, so the
+    recompute's all-reduces pair up across the ranks as the forward's
+    do."""
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        if not densenet.recomputing():
+            super()._track(mean, var, n)
+
+
 def convert_global_batchnorm(model: nn.Module, group, n_ranks: int
                              ) -> nn.Module:
     """Replace each `nn.BatchNorm2d` of `model` by a `GlobalBatchNorm2d`
-    over `group` (in place; returns `model`). A BatchNorm of another class
-    raises: the ImageNet DenseNets' `RematBatchNorm2d`, recomputed inside
-    the backward, has no global form yet."""
+    and each `RematBatchNorm2d` by a `GlobalRematBatchNorm2d` over `group`
+    (in place; returns `model`). A BatchNorm of another class raises."""
     for name, child in model.named_children():
         if type(child) is nn.BatchNorm2d:
             setattr(model, name, GlobalBatchNorm2d(child, group, n_ranks))
+        elif type(child) is densenet.RematBatchNorm2d:
+            setattr(model, name, GlobalRematBatchNorm2d(child, group,
+                                                        n_ranks))
         elif isinstance(child, nn.modules.batchnorm._BatchNorm):
             raise NotImplementedError(
                 f"{type(child).__name__} ({name}) has no global-batch form; "

@@ -18,6 +18,7 @@ from dnn_compression_tensor_admm_tpu_torch.configs import get_rank_plan
 from dnn_compression_tensor_admm_tpu_torch.data.datasets import (dataset_info,
                                                                  load_dataset)
 from dnn_compression_tensor_admm_tpu_torch.models import create_model
+from dnn_compression_tensor_admm_tpu_torch.models.densenet import DenseNetInet
 from dnn_compression_tensor_admm_tpu_torch.parallel import dist
 from dnn_compression_tensor_admm_tpu_torch.parallel.data_parallel import (
     all_reduce_grads, convert_global_batchnorm)
@@ -30,6 +31,8 @@ from dnn_compression_tensor_admm_tpu_torch.train.optim import (cosine_lr,
                                                                make_optimizer)
 
 RHO, LR, SMOOTHING = 1e-3, 0.1, 0.1
+# the small ImageNet DenseNet of tests/test_torch_port_zoo_models.py
+DENSENET_BLOCKS = (2, 2, 2, 2)
 EVAL_IMAGES, EVAL_BATCH = 52, 16  # 52 = 3 x 16 + an odd tail of 4
 
 
@@ -61,17 +64,17 @@ def block_program(program, mesh):
         groups=tuple(groups), names=tuple(n for g in groups for n in g.names))
 
 
-def xstep_inputs():
-    """One ResNet32 TK@3x X-step's inputs: the model from seed 0, a batch
-    of 8 (NHWC float32) with labels, and an ADMM state with U = 0.01 N and
-    Z = W + 0.05 N (numpy seed 2), so the penalty is not 0."""
-    model = create_model("resnet32", generator=torch.Generator().manual_seed(0))
+def _xstep_inputs(model, plan, shape, classes):
+    """(model, program, state, x, y): a batch of `shape` (NHWC float32)
+    with labels below `classes`, and an ADMM state of `plan` with
+    U = 0.01 N and Z = W + 0.05 N (numpy seed 2), so the penalty is not
+    0."""
     params = dict(model.named_parameters())
-    program = teng.build_program(params, get_rank_plan("resnet32", "tk", "3"))
+    program = teng.build_program(params, plan)
     state = teng.admm_init(params, program)
     rng = np.random.RandomState(2)
-    x = rng.standard_normal((8, 32, 32, 3)).astype(np.float32)
-    y = rng.randint(0, 10, 8).astype(np.int64)
+    x = rng.standard_normal(shape).astype(np.float32)
+    y = rng.randint(0, classes, shape[0]).astype(np.int64)
     for n in program.names:
         shape = tuple(params[n].shape)
         state.u[n] = torch.from_numpy(
@@ -81,10 +84,38 @@ def xstep_inputs():
     return model, program, state, x, y
 
 
-def xstep(model, program, state, x, y, mesh=None):
+def xstep_inputs():
+    """One ResNet32 TK@3x X-step's inputs: the model from seed 0 and a
+    batch of 8 at 32 x 32 (`_xstep_inputs`)."""
+    model = create_model("resnet32", generator=torch.Generator().manual_seed(0))
+    return _xstep_inputs(model, get_rank_plan("resnet32", "tk", "3"),
+                         (8, 32, 32, 3), 10)
+
+
+def densenet_plan():
+    """DenseNet121's TK@2x plan cut to the layers of a `DENSENET_BLOCKS`
+    DenseNet (the first two of each block and the first transition)."""
+    plan = get_rank_plan("densenet121", "tk", "2")
+    names = dict(DenseNetInet(DENSENET_BLOCKS,
+                              num_classes=1).named_parameters())
+    return dataclasses.replace(plan, layers={
+        n: s for n, s in plan.layers.items() if n in names})
+
+
+def densenet_xstep_inputs():
+    """One X-step's inputs of the ImageNet DenseNet at DENSENET_BLOCKS
+    with `densenet_plan`: the model from seed 0 and a batch of 8 at
+    64 x 64 (`_xstep_inputs`); its dense layers are recomputed in the
+    backward."""
+    model = DenseNetInet(DENSENET_BLOCKS,
+                         generator=torch.Generator().manual_seed(0))
+    return _xstep_inputs(model, densenet_plan(), (8, 64, 64, 3), 1000)
+
+
+def xstep_buffers(model, program, state, x, y, mesh=None):
     """One SGD-momentum step on the batch (this rank's rows of it with a
     data mesh) with the penalty -> (this rank's loss, parameters after the
-    step, bn1's running mean)."""
+    step, buffers after it)."""
     params = dict(model.named_parameters())
     lo, hi = mesh.rows(len(x)) if mesh is not None else (0, len(x))
     if mesh is not None:
@@ -100,7 +131,13 @@ def xstep(model, program, state, x, y, mesh=None):
         all_reduce_grads(params.values(), mesh.data_group, mesh.n_data)
     opt.step()
     return (loss.item(), {k: p.detach().clone() for k, p in params.items()},
-            model.bn1.running_mean.clone())
+            {k: b.clone() for k, b in model.named_buffers()})
+
+
+def xstep(model, program, state, x, y, mesh=None):
+    """`xstep_buffers` with bn1's running mean for the buffers."""
+    loss, after, buffers = xstep_buffers(model, program, state, x, y, mesh)
+    return loss, after, buffers["bn1.running_mean"]
 
 
 def train_config(**kw) -> TrainConfig:
@@ -179,5 +216,18 @@ def train_job(rank, world, init_method, out_dir):
         except ValueError as e:
             out["refused"] = str(e)
         _save(out_dir, rank, out)
+    finally:
+        dist.shutdown()
+
+
+def densenet_job(rank, world, init_method, out_dir):
+    """At 2 data ranks: one X-step of the DenseNet of
+    `densenet_xstep_inputs`, its recomputed BatchNorms over the global
+    batch (`xstep_buffers`)."""
+    _join(rank, world, init_method)
+    try:
+        mesh = make_mesh(n_layer=1)
+        _save(out_dir, rank, {"xstep": xstep_buffers(
+            *densenet_xstep_inputs(), mesh=mesh)})
     finally:
         dist.shutdown()
