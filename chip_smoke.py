@@ -126,9 +126,17 @@ prints one JSON line per phase:
    batch 32, TT@2x linears, SVD@4.5x word embedding; see NLP): ms a step
    by stage, tokens/s, peak device memory, the parameter counts asserted
    equal to the JAX package's (NLP_PARAMS), finite losses, the dev
-   accuracy, SQuAD's EM/F1 and both prediction files, then
+   accuracy, SQuAD's EM/F1 and both prediction files, every step and dev
+   forward replayed from a CUDA graph (the graphs of each command
+   asserted, every replay under the sync debug mode 'error'), then
    `factorize_encoder` of the fine-tuned teacher's 144 blocks, timed,
-   with its fit;
+   with its fit; then `nlp_captured`: each command's captured run against
+   its eager reference loop at BERT-base width, 2 epochs x 3 steps in
+   float32 (general distillation at grad_accum_steps 2), each epoch's
+   loss, each BertAdam's parameter changes, m and v, the changes of the
+   parameters without a gradient within NLP_TOL, SQuAD's predictions
+   file equal, six planted faults past it or stopping the run, eager and
+   captured ms a step of the five step kinds (see NLP_GATE). Under 40 s;
 6. export  — the fine-tuned models of three main paths (ResNet32 TK@3x,
    ResNet-50 TT@3x, DeiT-tiny TT@2x; `phase_main` writes each as the JAX
    msgpack, as --save-model does) through the CLI's `--pretrained
@@ -1746,23 +1754,34 @@ def phase_stiefel(seed: int, card: str):
 # with TF32 off (`ops/precision.py::full_f32`), as the JAX package's f32
 # modules; no kernel of this repo runs there (XLA compiled all of it in
 # the JAX package). Then `factorize_encoder` (HOOI onto
-# NLP_TUCKER) of the fine-tuned teacher's 144 blocks.
+# NLP_TUCKER) of the fine-tuned teacher's 144 blocks. Every step and dev
+# forward replays from a CUDA graph (`nlp/steps.py`): the graphs each
+# command captures (NLP_GRAPHS: task-distill the teacher's step, its dev
+# forward, stages 1 and 2 and the student's dev forward; SQuAD its step
+# and dev forward) are asserted, and every replay under the sync debug
+# mode 'error'.
 NLP = dict(batch=32, seq=128)  # the CLI's defaults, for tokens/s
 NLP_TUCKER = shared_tucker.SharedTuckerConfig(60, 384, 384)
 NLP_WALL_LIMIT_S = 120.0
+NLP_GRAPHS = {"task_distill": 5, "general_distill": 1, "squad": 2}
 
 
 def _nlp_cli(argv):
     """`nlp.cli.main(argv)`, its printed rows sent to stderr; the peak
-    device memory of the run and its wall seconds beside its result."""
+    device memory of the run, its wall seconds, the CUDA graphs it
+    captured, its replays and those under the sync debug mode 'error'
+    beside its result."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr):
+    with contextlib.redirect_stdout(sys.stderr), observed_graphs() as seen:
         model, hist = nlp_main(argv)
     torch.cuda.synchronize()
     return model, hist, {"wall_s": time.perf_counter() - t0,
-                         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "graphs": seen["captures"],
+                         "replays": len(seen["modes"]),
+                         "replays_in_error_mode": seen["modes"].count(2)}
 
 
 def _finite_losses(rows):
@@ -1806,6 +1825,16 @@ def phase_nlp(seed: int, card: str, workdir: str) -> None:
     if counts != NLP_PARAMS:
         raise AssertionError(f"NLP parameter counts {counts} != the JAX "
                              f"package's {NLP_PARAMS}")
+    runs = {"task_distill": td_run, "general_distill": gd_run,
+            "squad": sq_run}
+    graphs = {k: (r["graphs"], r["replays"], r["replays_in_error_mode"])
+              for k, r in runs.items()}
+    for k, (n, replays, in_error) in graphs.items():
+        if n != NLP_GRAPHS[k] or replays == 0 or in_error != replays:
+            raise AssertionError(
+                f"NLP {k}: {n} graphs captured (expected {NLP_GRAPHS[k]}), "
+                f"{replays} replays, {in_error} under the sync debug mode "
+                "'error'")
     losses = {"task": _finite_losses(td), "general": _finite_losses(gd),
               "squad": _finite_losses(sq)}
     teacher_row, stage1, stage2 = td[0], td[1], td[-1]
@@ -1844,6 +1873,7 @@ def phase_nlp(seed: int, card: str, workdir: str) -> None:
           "wall_s_by_command": {"task_distill": td_run["wall_s"],
                                 "general_distill": gd_run["wall_s"],
                                 "squad": sq_run["wall_s"]},
+          "graphs_replays_in_error_mode": graphs,
           "final_loss": {k: v[-1] for k, v in losses.items()},
           "teacher_finetune_loss": teacher_row["finetune_loss"],
           "teacher_dev_acc": teacher_row["acc"],
@@ -3619,6 +3649,363 @@ def streamed_gate(seed: int, workdir: str):
                            **timed}}, failures
 
 
+# The NLP steps as the JAX package compiles them (`nlp/steps.py`): each
+# NLP command's captured run (every step and dev forward replayed from a
+# CUDA graph after one eager call) against its eager reference loop
+# (`eager=True`), from the same weights and seeds, at BERT-base width with
+# the NLP CLI's plan (TT@2x linears, SVD@4.5x word embedding), in float32
+# with TF32 off, 2 epochs x 3 steps at batch 32: task distillation (the
+# teacher's fine-tune, stages 1 and 2, and both dev forwards) on 96 SST-2
+# rows written as TSV files with 64 dev rows, general distillation over 96
+# documents at grad_accum_steps 2 (3 micro-batches an epoch, so an update
+# spans the two epochs), SQuAD on 96 questions with 24 dev ones (its dev
+# forward's one batch padded; its `predictions.json` byte for byte the
+# eager loop's). A command's readings: each epoch's loss (relative); each
+# BertAdam's parameter changes from its start, its m and its v, each read
+# as one vector (||A - B|| / ||B||, as FUSED_TOL's readings); and the
+# changes of the parameters that got no gradient in the reference (m zero
+# throughout), which weight decay alone moves; the largest over the
+# command's BertAdams, within NLP_TOL (FUSED_TOL's). A leaf's own change
+# is no reading: a LayerNorm leaf whose gradient nearly cancels moves by
+# less than float32 resolves, and the two routes round it apart. Every
+# replay under the sync debug mode 'error'. Each of NLP_FAULTS, planted
+# on one command's captured run, must exceed one of them or stop the run:
+# the lr frozen at the capture, the dropout generator not registered, the
+# batch not refreshed (the first batch every step), the MultiSteps update
+# applied at every micro-batch, one global clip in place of each
+# parameter's own, and a parameter without a gradient skipped (the QA
+# model's pooler gets no gradient).
+NLP_GATE = dict(epochs=2, steps=3, batch=32, dev_rows=64, seq=128)
+NLP_TOL = {"loss": FUSED_TOL["loss"], "params": FUSED_TOL["params"],
+           "m": FUSED_TOL["params"], "v": FUSED_TOL["params"],
+           "gradient_free": FUSED_TOL["params"]}
+NLP_FAULTS = {"lr_frozen": "squad", "batch_stale": "squad",
+              "global_clip": "squad", "gradient_free_skipped": "squad",
+              "multisteps_every_micro_step": "general",
+              # last: a capture that raises may leave the allocator's
+              # state behind it
+              "generator_not_registered": "squad"}
+# replays of a captured run: the calls less the first of each graph (task:
+# teacher 6 - 1, its dev forward 2 - 1, stages 6 - 1 each, the student's
+# dev forward 4 - 1; general: 6 - 2, one graph that accumulates and one
+# that applies; SQuAD: 6 - 1 and its dev forward 2 - 1)
+NLP_GATE_REPLAYS = {"task": 19, "general": 4, "squad": 6}
+# the gate's budget is 40 s (35.98 s on an H100 80GB HBM3 at 700 W); the
+# limit that fails it leaves room for a slower host
+NLP_GATE_WALL_LIMIT_S = 60.0
+
+
+def nlp_gate_configs(seed: int, workdir: str) -> dict:
+    from dnn_compression_tensor_admm_tpu_torch.nlp import (
+        general_distill, glue, squad, task_distill)
+    n = NLP_GATE["steps"] * NLP_GATE["batch"]
+    data_dir = os.path.join(workdir, "nlp_gate_sst2")
+    os.makedirs(data_dir, exist_ok=True)
+    for split, rows, s in (("train", n, seed), ("dev", NLP_GATE["dev_rows"],
+                                                seed + 1)):
+        with open(os.path.join(data_dir, f"{split}.tsv"), "w") as f:
+            f.write("sentence\tlabel\n")
+            for e in glue.synthetic_examples("sst-2", rows, s):
+                f.write(f"{e.text_a}\t{e.label}\n")
+    common = dict(max_seq_length=NLP_GATE["seq"], batch_size=NLP_GATE["batch"],
+                  seed=seed, bert=nlp_bert.BertConfig(),
+                  plan=nlp_bert.BertCompressionPlan("tt", 2.0, 2, "svd", 4.5),
+                  device="cuda", print_fn=log)
+    epochs = NLP_GATE["epochs"]
+    return {"task": task_distill.DistillConfig(
+                task="sst-2", data_dir=data_dir, teacher_epochs=epochs,
+                stage1_epochs=epochs, stage2_epochs=epochs, **common),
+            "general": general_distill.GeneralDistillConfig(
+                epochs=epochs, n_synthetic_docs=n, grad_accum_steps=2,
+                **common),
+            "squad": squad.SquadConfig(epochs=epochs, n_synthetic=n,
+                                       **common)}
+
+
+@contextlib.contextmanager
+def planted_nlp(fault: str):
+    """One of NLP_FAULTS planted for the block ('none' plants nothing)."""
+    from dnn_compression_tensor_admm_tpu_torch.nlp import optimization, steps
+    from dnn_compression_tensor_admm_tpu_torch.train import capture
+    adam = optimization.BertAdam
+    saved = (adam._lr, adam.applies, adam._clip, adam.__dict__["_with_grads"],
+             capture.register_generators, steps.DeviceBatches.next)
+    held = []  # what a fault keeps from the eager call before the capture
+    if fault == "lr_frozen":
+        def lr(self, dev, index):  # a float from the host: a capture keeps it
+            return torch.full((), self.lr_at(self.param_groups[index]),
+                              device=dev["step"].device)
+        adam._lr = lr
+    elif fault == "generator_not_registered":
+        capture.register_generators = lambda graph, generators: None
+    elif fault == "batch_stale":
+        def batch(self):  # the eager call's batch, replayed
+            if not torch.cuda.is_current_stream_capturing():
+                held.append(saved[5](self))  # kept: a graph reads it
+            return held[-1]
+        steps.DeviceBatches.next = batch
+    elif fault == "multisteps_every_micro_step":
+        adam.applies = lambda self: True
+    elif fault == "global_clip":
+        def clip(self, grads):  # one norm over all the group's gradients
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
+            return torch._foreach_mul(grads, torch.clamp(
+                self.max_grad_norm / torch.clamp(norm, min=1e-12), max=1.0))
+        adam._clip = clip
+    elif fault == "gradient_free_skipped":
+        def with_grads(params):  # no gradient, no update
+            kept = [p for p in params if p.grad is not None]
+            return kept, [p.grad for p in kept]
+        adam._with_grads = staticmethod(with_grads)
+    elif fault != "none":
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        (adam._lr, adam.applies, adam._clip, adam._with_grads,
+         capture.register_generators, steps.DeviceBatches.next) = saved
+
+
+@contextlib.contextmanager
+def observed_graphs():
+    """Counts the CUDA graphs captured in the block and keeps the sync
+    debug mode at each replay."""
+    from dnn_compression_tensor_admm_tpu_torch.train import capture
+    seen = {"modes": [], "captures": 0}
+    saved = (capture._Graph.replay, capture._Graph.__init__)
+
+    def replay(self):
+        seen["modes"].append(torch.cuda.get_sync_debug_mode())
+        saved[0](self)
+
+    def captured(self, *a, **kw):
+        saved[1](self, *a, **kw)
+        seen["captures"] += 1
+
+    capture._Graph.replay, capture._Graph.__init__ = replay, captured
+    try:
+        yield seen
+    finally:
+        capture._Graph.replay, capture._Graph.__init__ = saved
+
+
+@contextlib.contextmanager
+def observed_bert_adams():
+    """Keeps every BertAdam made in the block with a copy of its
+    parameters at its making."""
+    from dnn_compression_tensor_admm_tpu_torch.nlp import optimization
+    made = []
+    saved = optimization.BertAdam.__init__
+
+    def init(self, *a, **kw):
+        saved(self, *a, **kw)
+        made.append((self, [p.detach().clone() for g in self.param_groups
+                            for p in g["params"]]))
+
+    optimization.BertAdam.__init__ = init
+    try:
+        yield made
+    finally:
+        optimization.BertAdam.__init__ = saved
+
+
+def nlp_gate_run(kind: str, cfg, eager: bool, fault: str = "none") -> dict:
+    """One NLP command of the gate: its rows, each epoch's loss, each of
+    its BertAdams' parameter changes from their start with their m and v
+    (copies taken as the run ends), the replays and their sync debug
+    modes, its peak device memory above what it found held, wall seconds;
+    SQuAD's `predictions.json` where `cfg.output_dir` is set."""
+    from dnn_compression_tensor_admm_tpu_torch.nlp import (
+        general_distill, squad, task_distill)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier runs' copies
+    t0 = time.perf_counter()
+    with planted_nlp(fault), observed_graphs() as seen, \
+            observed_bert_adams() as made:
+        if kind == "task":
+            hist = task_distill.run_task_distillation(cfg, eager=eager)[1]
+        elif kind == "general":
+            hist = general_distill.run_general_distillation(
+                cfg, eager=eager)[1]
+        else:
+            hist = squad.run_squad(cfg, eager=eager)[1]
+        torch.cuda.synchronize()
+    losses = [x for r in hist for x in r.get("finetune_epoch_losses", [])]
+    losses += [r["loss"] for r in hist if "loss" in r]
+
+    def copy(t):
+        return None if t is None else t.detach().clone()
+
+    opts = []
+    for opt, start in made:
+        params = [p for g in opt.param_groups for p in g["params"]]
+        opts.append([(p.detach() - s, copy(opt.state[p].get("m")),
+                      copy(opt.state[p].get("v")))
+                     for s, p in zip(start, params)])
+    predictions = None
+    if kind == "squad" and cfg.output_dir:
+        with open(os.path.join(cfg.output_dir, "predictions.json"),
+                  "rb") as f:
+            predictions = f.read()
+    return {"hist": hist, "losses": losses, "opts": opts,
+            "predictions": predictions,
+            "replays": len(seen["modes"]),
+            "replays_in_error_mode": seen["modes"].count(2),
+            "captures": seen["captures"],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated() - held,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _rel_all(a: list, b: list) -> float:
+    """||A - B|| / ||B|| over two lists of tensors read as one vector, a
+    missing tensor as zeros: 0 where they are equal, inf where B is 0 and
+    A is not or either is not finite. One read to the host."""
+    sums = []
+    for x, y in zip(a, b):
+        if x is None and y is None:
+            continue
+        x = torch.zeros_like(y) if x is None else x.double()
+        y = torch.zeros_like(x) if y is None else y.double()
+        sums.append(torch.stack((torch.sum((x - y) ** 2), torch.sum(y ** 2))))
+    if not sums:
+        return 0.0
+    num, den = torch.stack(sums).sum(0).tolist()
+    if num == 0.0:
+        return 0.0
+    r = float(np.sqrt(num / den)) if den > 0 else float("inf")
+    return r if np.isfinite(r) else float("inf")
+
+
+def nlp_readings(got: dict, ref: dict) -> dict:
+    """A run's readings against the eager reference's (NLP_TOL): each
+    epoch's loss; each BertAdam's parameter changes, m and v, each read as
+    one vector; and the changes of the parameters that never got a
+    gradient in the reference (m zero throughout: BertAdam decays them
+    alone), the largest over the BertAdams."""
+    if len(got["losses"]) != len(ref["losses"]) or len(got["opts"]) != len(
+            ref["opts"]):
+        raise AssertionError("the runs differ in epochs or optimizers")
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                    ref["losses"]))
+    out = {"loss": loss if np.isfinite(loss) else float("inf"),
+           "params": 0.0, "m": 0.0, "v": 0.0, "gradient_free": 0.0}
+    for opt_got, opt_ref in zip(got["opts"], ref["opts"]):
+        for key, i in (("params", 0), ("m", 1), ("v", 2)):
+            out[key] = max(out[key], _rel_all([t[i] for t in opt_got],
+                                              [t[i] for t in opt_ref]))
+        with_m = [j for j, (_, m, _) in enumerate(opt_ref) if m is not None]
+        moved = torch.stack([torch.any(opt_ref[j][1] != 0)
+                             for j in with_m]).tolist() if with_m else []
+        free = [j for j, m in zip(with_m, moved) if not m]
+        out["gradient_free"] = max(out["gradient_free"], _rel_all(
+            [opt_got[j][0] for j in free], [opt_ref[j][0] for j in free]))
+    return out
+
+
+def nlp_step_ms(hist: list, kind: str) -> dict:
+    """ms a step of each step kind of one command (its last epoch; the
+    teacher's over its fine-tune)."""
+    if kind == "task":
+        last = {r["stage"]: r["ms_per_step"] for r in hist if "epoch" in r}
+        return {"teacher_finetune": hist[0]["finetune_ms_per_step"],
+                "stage1": last[1], "stage2": last[2]}
+    return {"general_distill" if kind == "general" else "squad":
+            hist[-1]["ms_per_step"]}
+
+
+def phase_nlp_captured(seed: int, card: str, workdir: str) -> None:
+    """The NLP gate (see NLP_GATE): each command captured against its eager
+    reference loop, the planted faults, the replays' sync debug mode; ms
+    a step of each step kind on both routes and the peak memory."""
+    t_start = time.perf_counter()
+    configs = nlp_gate_configs(seed, workdir)
+    failures, planted = [], {}
+    runs, readings = {}, {}
+    def routed(kind, route):  # SQuAD writes its predictions
+        if kind != "squad":
+            return configs[kind]
+        return dataclasses.replace(configs[kind], output_dir=os.path.join(
+            workdir, f"nlp_gate_squad_{route}"))
+
+    with deterministic_f32():
+        refs = {k: nlp_gate_run(k, routed(k, "eager"), eager=True)
+                for k in configs}
+        for k in configs:
+            runs[k] = nlp_gate_run(k, routed(k, "captured"), eager=False)
+            readings[k] = nlp_readings(runs[k], refs[k])
+            runs[k]["opts"] = None  # read; its copies go
+        for fault, kind in NLP_FAULTS.items():
+            t0 = time.perf_counter()
+            try:
+                planted[fault] = nlp_readings(nlp_gate_run(
+                    kind, configs[kind], eager=False, fault=fault), refs[kind])
+            except Exception as e:  # a fault that stops the run fails
+                planted[fault] = {"raised": f"{type(e).__name__}: "
+                                            f"{str(e)[:300]}"}
+            planted[fault]["wall_s"] = time.perf_counter() - t0
+    for kind, r in readings.items():
+        if any(r[k] > NLP_TOL[k] for k in NLP_TOL):
+            failures.append(f"nlp {kind}: {r} from the eager loop "
+                            f"(tolerance {NLP_TOL})")
+    if runs["squad"]["predictions"] != refs["squad"]["predictions"]:
+        failures.append("nlp squad: predictions.json differs from the eager "
+                        "loop's")
+    for fault, r in planted.items():
+        if "raised" not in r and all(r[k] <= NLP_TOL[k] for k in NLP_TOL):
+            failures.append(f"nlp: the planted fault {fault} passes the "
+                            f"gate: {r}")
+    for kind in configs:
+        for route, run in (("eager", refs[kind]), ("captured", runs[kind])):
+            want = NLP_GATE_REPLAYS[kind] if route == "captured" else 0
+            if (run["replays"], run["replays_in_error_mode"]) != (want, want):
+                failures.append(
+                    f"nlp {kind} {route}: {run['replays']} replays, "
+                    f"{run['replays_in_error_mode']} of them under the sync "
+                    f"debug mode 'error' (expected {want})")
+            if not all(np.isfinite(run["losses"])):
+                failures.append(f"nlp {kind} {route}: losses {run['losses']}")
+    ms = {route: {k: v for kind, run in group.items()
+                  for k, v in nlp_step_ms(run["hist"], kind).items()}
+          for route, group in (("eager", refs), ("captured", runs))}
+    tokens = NLP_GATE["batch"] * NLP_GATE["seq"]
+    wall_s = time.perf_counter() - t_start
+    if wall_s > NLP_GATE_WALL_LIMIT_S:
+        failures.append(f"the NLP gate took {wall_s:.1f} s, over "
+                        f"{NLP_GATE_WALL_LIMIT_S}")
+    emit({"phase": "nlp_captured", "card": card,
+          "config": "bert-base, the CLI's plan, float32 with TF32 off, "
+                    f"{NLP_GATE['epochs']} epochs x {NLP_GATE['steps']} "
+                    f"steps at batch {NLP_GATE['batch']}, general at "
+                    "grad_accum_steps 2",
+          "losses": {k: {"eager": refs[k]["losses"],
+                         "captured": runs[k]["losses"]} for k in configs},
+          "readings": readings, "tolerance": NLP_TOL,
+          "squad_predictions_equal": (runs["squad"]["predictions"]
+                                      == refs["squad"]["predictions"]),
+          "planted_faults": planted,
+          "replays": {k: runs[k]["replays"] for k in configs},
+          "replays_in_sync_error_mode": {
+              k: runs[k]["replays_in_error_mode"] for k in configs},
+          "graphs_captured": {k: runs[k]["captures"] for k in configs},
+          "ms_per_step": ms,
+          "tokens_per_s": {route: {k: tokens / (v / 1e3)
+                                   for k, v in by.items() if v}
+                           for route, by in ms.items()},
+          "peak_mem_bytes": {route: {k: run["peak_mem_bytes"]
+                                     for k, run in group.items()}
+                             for route, group in (("eager", refs),
+                                                  ("captured", runs))},
+          "wall_s_by_run": {route: {k: run["wall_s"]
+                                    for k, run in group.items()}
+                            for route, group in (("eager", refs),
+                                                 ("captured", runs))},
+          "failures": failures, "wall_s": wall_s})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 RECORDED_MS = {
     "first_version_ms_per_z_step": {"tucker2_factors_batched": 7.85,
                                     "dominant_left_subspace_batched": 15.13},
@@ -3919,6 +4306,8 @@ def main() -> int:
         phase_multi_rank(args.seed, smi, workdir)
         launches_fused = phase_fused(args.seed, smi, workdir)
         phase_fused_methods(args.seed, smi)
+        # last: one of its planted faults fails a capture
+        phase_nlp_captured(args.seed, smi, workdir)
         emit({"phase": "shared_sets", "made": [list(k) for k in sets]})
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})

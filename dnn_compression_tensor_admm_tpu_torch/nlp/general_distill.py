@@ -3,7 +3,9 @@ package's `nlp/general_distill.py`; the reference's
 xcompression/general_distill.py:423-453): attention and hidden-state MSE
 between a compressed student and a dense teacher over masked-LM
 examples, no task labels. Without a teacher state the teacher is the
-seeded dense init, as in the JAX package."""
+seeded dense init, as in the JAX package. The step (the teacher's no-grad
+forward, the student's forward and backward, BertAdam) is replayed from a
+CUDA graph on the card and runs eagerly on the CPU (`nlp/steps.py`)."""
 
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from ..utils.device import resolve_device
 from .bert import BertCompressionPlan, BertConfig, BertModel
 from .distill import attention_hidden_distill_loss
 from .pregenerate import pregenerate_mlm_examples, synthetic_corpus
-from .task_distill import (StepClock, batches, make_bert_adam, mean_loss,
-                           to_device)
+from .steps import DeviceBatches, StepClock, TrainLoop, route
+from .task_distill import make_bert_adam, to_device
 from .tokenization import WordPieceTokenizer, build_vocab_from_texts
 
 
@@ -57,9 +59,11 @@ def general_data(cfg: GeneralDistillConfig, texts=None):
 @full_f32()
 def run_general_distillation(
         cfg: GeneralDistillConfig, texts=None,
-        teacher_state: Optional[Dict[str, torch.Tensor]] = None):
+        teacher_state: Optional[Dict[str, torch.Tensor]] = None,
+        eager: bool = False):
     """-> (student, history). `teacher_state`: a dense BERT's state dict;
-    without one the teacher is the seeded init."""
+    without one the teacher is the seeded init. `eager`: the eager
+    reference loop, never captured."""
     log = cfg.print_fn
     device = resolve_device(cfg.device)
     data_np, tok = general_data(cfg, texts)
@@ -72,34 +76,31 @@ def run_general_distillation(
         teacher.load_state_dict(teacher_state)
     teacher.to(device).eval()
     student.to(device)
-    data = to_device(data_np, device)
+    data = DeviceBatches(to_device(data_np, device), cfg.batch_size)
     steps = max(1, len(data_np["input_ids"]) // cfg.batch_size) * cfg.epochs
     opt = make_bert_adam(student, cfg.lr,
                          max(1, steps // cfg.grad_accum_steps),
                          cfg.warmup_frac, cfg.grad_accum_steps)
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+
+    def loss_fn(b):
+        args = (b["input_ids"], b["attention_mask"], b["token_type_ids"])
+        with torch.no_grad():
+            t = teacher(*args)
+        s = student(*args, generator=gen)
+        att, rep = attention_hidden_distill_loss(
+            s["attentions"], t["attentions"], s["hidden_states"],
+            t["hidden_states"])
+        return att + rep
+
+    loop = TrainLoop(loss_fn, opt, data, (gen,), route(device, eager, log))
     nprng = np.random.RandomState(cfg.seed)
     history = []
     for ep in range(cfg.epochs):
         t0 = time.time()
         clock = StepClock(device)
-        losses = []
         student.train()
-        for b in batches(data, cfg.batch_size, nprng):
-            args = (b["input_ids"], b["attention_mask"], b["token_type_ids"])
-            with torch.no_grad():
-                t = teacher(*args)
-            s = student(*args, generator=gen)
-            att, rep = attention_hidden_distill_loss(
-                s["attentions"], t["attentions"], s["hidden_states"],
-                t["hidden_states"])
-            loss = att + rep
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-            clock.tick()
-        row = {"epoch": ep + 1, "loss": mean_loss(losses),
+        row = {"epoch": ep + 1, "loss": loop.epoch(nprng, clock),
                "ms_per_step": clock.ms_per_step(),
                "time_s": time.time() - t0}
         history.append(row)

@@ -9,6 +9,11 @@ JAX package's numpy code (the port may not import it): long contexts are
 covered by overlapping windows, each token's prediction comes from the
 window where it has the most context, and an example's answers gather
 (start_logit + end_logit) scores over all its windows.
+
+The train step and the dev forward are replayed from CUDA graphs on the
+card and run eagerly on the CPU (`nlp/steps.py`); the dev set's last
+batch is padded by repeating its last row, as the JAX package pads it for
+its one compiled `predict`, and the padding's logits are dropped.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 from ..ops.precision import full_f32
 from ..utils.device import resolve_device
 from .bert import BertCompressionPlan, BertConfig, BertForQuestionAnswering
-from .task_distill import StepClock, make_bert_adam, mean_loss, to_device
+from .steps import DeviceBatches, EvalLoop, StepClock, TrainLoop, route
+from .task_distill import make_bert_adam, to_device
 from .tokenization import WordPieceTokenizer, build_vocab_from_texts
 
 
@@ -357,11 +363,18 @@ def write_predictions(output_dir: str, preds: Dict[int, dict]) -> None:
         json.dump({str(i): preds[i]["nbest"] for i in preds}, fh, indent=1)
 
 
+def padded_order(n: int, batch: int) -> np.ndarray:
+    """0..n-1, then the last row repeated up to a whole batch."""
+    steps = -(-n // batch)
+    return np.minimum(np.arange(steps * batch), n - 1)
+
+
 @full_f32()
 def run_squad(cfg: SquadConfig, train_path: Optional[str] = None,
-              dev_path: Optional[str] = None):
+              dev_path: Optional[str] = None, eager: bool = False):
     """Fine-tune a (compressed) BERT for extractive QA over doc-stride
-    windows -> (model, history with normalized EM/F1)."""
+    windows -> (model, history with normalized EM/F1). `eager`: the eager
+    reference loop, never captured."""
     log = cfg.print_fn
     device = resolve_device(cfg.device)
     train_ex, dev_ex, train_feats, dev_feats, tok = squad_data(
@@ -372,51 +385,44 @@ def run_squad(cfg: SquadConfig, train_path: Optional[str] = None,
     model = BertForQuestionAnswering(
         bert_cfg, cfg.plan, generator=torch.Generator().manual_seed(cfg.seed))
     model.to(device)
-    train, dev = to_device(train_np, device), to_device(dev_np, device)
-    n = len(train_np["input_ids"])
-    bs = cfg.batch_size
+    train = DeviceBatches(to_device(train_np, device), cfg.batch_size)
+    n, bs = train.n, cfg.batch_size
+    n_dev = len(dev_np["input_ids"])
+    dev_order = padded_order(n_dev, bs)
+    dev = DeviceBatches(to_device(dev_np, device), bs, n=len(dev_order))
     opt = make_bert_adam(model, cfg.lr, max(1, n // bs) * cfg.epochs, 0.1)
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    why_eager = route(device, eager, log)
+
+    def loss_fn(b):
+        out = model(b["input_ids"], b["attention_mask"],
+                    b["token_type_ids"], generator=gen)
+        return span_loss(out["start_logits"], out["end_logits"],
+                         b["start_positions"], b["end_positions"])
+
+    def logits(b):
+        out = model(b["input_ids"], b["attention_mask"], b["token_type_ids"])
+        return {"start": out["start_logits"], "end": out["end_logits"]}
+
+    loop = TrainLoop(loss_fn, opt, train, (gen,), why_eager)
+    predict = EvalLoop(model, logits, dev, why_eager)
     nprng = np.random.RandomState(cfg.seed)
-
-    def all_logits():
-        model.eval()
-        with torch.no_grad():
-            out = [model(dev["input_ids"][i:i + bs],
-                         dev["attention_mask"][i:i + bs],
-                         dev["token_type_ids"][i:i + bs])
-                   for i in range(0, len(dev_np["input_ids"]), bs)]
-        return (torch.cat([o["start_logits"] for o in out]).cpu().numpy(),
-                torch.cat([o["end_logits"] for o in out]).cpu().numpy())
-
     history, preds = [], {}
     for ep in range(cfg.epochs):
         t0 = time.time()
-        order = nprng.permutation(n)
         clock = StepClock(device)
-        losses = []
         model.train()
-        for i in range(0, n - bs + 1, bs):
-            idx = torch.as_tensor(order[i:i + bs], device=device)
-            b = {k: v[idx] for k, v in train.items()}
-            out = model(b["input_ids"], b["attention_mask"],
-                        b["token_type_ids"], generator=gen)
-            loss = span_loss(out["start_logits"], out["end_logits"],
-                             b["start_positions"], b["end_positions"])
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-            clock.tick()
+        loss = loop.epoch(nprng, clock)
         ms = clock.ms_per_step()
-        sl, el = all_logits()
-        preds = compute_predictions(dev_ex, dev_feats, sl, el,
-                                    cfg.n_best_size, cfg.max_answer_length)
+        out = predict.run(dev_order)
+        preds = compute_predictions(dev_ex, dev_feats, out["start"][:n_dev],
+                                    out["end"][:n_dev], cfg.n_best_size,
+                                    cfg.max_answer_length)
         em = np.mean([exact_match_score(preds[i]["text"], ex.answer_text)
                       for i, ex in enumerate(dev_ex)])
         f1 = np.mean([f1_score(preds[i]["text"], ex.answer_text)
                       for i, ex in enumerate(dev_ex)])
-        row = {"epoch": ep + 1, "loss": mean_loss(losses),
+        row = {"epoch": ep + 1, "loss": loss,
                "exact_match": float(em), "f1": float(f1),
                "ms_per_step": ms, "time_s": time.time() - t0}
         history.append(row)

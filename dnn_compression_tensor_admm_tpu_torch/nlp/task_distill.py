@@ -12,8 +12,11 @@ Batches are the JAX package's: a `np.random.RandomState` permutation a
 pass, the last partial batch dropped, so both packages see the same
 batches. Dropout draws from a generator on the device seeded by
 `cfg.seed`. Everything runs in float32 with TF32 off (`full_f32`).
-Each history row carries `ms_per_step`: wall time a step after the
-epoch's first (warm-up) step, the device synchronised at both ends.
+Each step (the teacher's fine-tune, stages 1 and 2) and each dev
+forward is one function that the card replays from a CUDA graph and the
+CPU, or `eager=True`, runs eagerly (`nlp/steps.py`). Each history row
+carries `ms_per_step`: wall time a step after the epoch's first step,
+the device synchronised at both ends.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from .bert import BertCompressionPlan, BertConfig, BertForSequenceClassification
 from .distill import attention_hidden_distill_loss, soft_logits_loss
 from .glue import PROCESSORS, convert_examples, glue_metric, synthetic_examples
 from .optimization import BertAdam, param_groups
+from .steps import DeviceBatches, EvalLoop, StepClock, TrainLoop, route
 from .tokenization import WordPieceTokenizer, build_vocab_from_texts
 
 
@@ -78,45 +82,6 @@ def to_device(data: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             for k, v in data.items()}
 
 
-def batches(data: Dict[str, torch.Tensor], batch: int,
-            rng: np.random.RandomState):
-    """One pass in the order of `rng.permutation`, the last partial batch
-    dropped (the JAX package's `_batches`)."""
-    n = len(data["labels"])
-    order = rng.permutation(n)
-    device = data["labels"].device
-    for i in range(0, n - batch + 1, batch):
-        idx = torch.as_tensor(order[i:i + batch], device=device)
-        yield {k: v[idx] for k, v in data.items()}
-
-
-class StepClock:
-    """Wall ms a step after the first one, the device synchronised."""
-
-    def __init__(self, device: torch.device):
-        self.device, self.n, self.t0 = device, 0, None
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def tick(self) -> None:
-        self.n += 1
-        if self.n == 1:
-            self._sync()
-            self.t0 = time.perf_counter()
-
-    def ms_per_step(self) -> Optional[float]:
-        if self.n < 2:
-            return None
-        self._sync()
-        return (time.perf_counter() - self.t0) * 1e3 / (self.n - 1)
-
-
-def mean_loss(losses) -> float:
-    return float(torch.stack(losses).mean(dtype=torch.float64))
-
-
 def prepare_task_data(cfg: DistillConfig):
     proc = PROCESSORS[cfg.task]
     if cfg.data_dir:
@@ -153,25 +118,34 @@ def task_models(cfg: DistillConfig, vocab_size: int, n_labels: int,
     return teacher, student
 
 
-def _predict(model, data, batch: int, regression: bool):
-    preds, labels = [], []
-    model.eval()
-    with torch.no_grad():
-        for b in batches(data, batch, np.random.RandomState(0)):
-            logits = model(b["input_ids"], b["attention_mask"],
-                           b["token_type_ids"])["logits"]
-            preds.append(logits.reshape(-1) if regression
-                         else logits.argmax(-1))
-            labels.append(b["labels"])
-    return (torch.cat(preds).cpu().numpy(), torch.cat(labels).cpu().numpy())
+def predictor(model, data: Dict[str, torch.Tensor], batch: int,
+              regression: bool, why_eager) -> Callable[[], tuple]:
+    """The dev forward of `model` in the JAX package's `_batches` order (a
+    `RandomState(0)` permutation, the last partial batch dropped) -> a call
+    that gives (predictions, labels) on the host."""
+    def out(b):
+        logits = model(b["input_ids"], b["attention_mask"],
+                       b["token_type_ids"])["logits"]
+        return {"preds": logits.reshape(-1) if regression
+                else logits.argmax(-1), "labels": b["labels"]}
+
+    loop = EvalLoop(model, out, DeviceBatches(data, batch), why_eager)
+
+    def predict():
+        got = loop.run(np.random.RandomState(0).permutation(loop.batches.n))
+        if not got:
+            return np.zeros(0), np.zeros(0)
+        return got["preds"], got["labels"]
+    return predict
 
 
 @full_f32()
 def run_task_distillation(cfg: DistillConfig,
-                          teacher_state: Optional[Dict[str, torch.Tensor]] = None):
+                          teacher_state: Optional[Dict[str, torch.Tensor]] = None,
+                          eager: bool = False):
     """-> (student, history, teacher). `teacher_state`: a fine-tuned dense
     teacher's state dict; without one a teacher is fine-tuned on the task
-    first."""
+    first. `eager`: the eager reference loop, never captured."""
     log = cfg.print_fn
     device = resolve_device(cfg.device)
     train_np, dev_np, tok, proc = prepare_task_data(cfg)
@@ -181,9 +155,11 @@ def run_task_distillation(cfg: DistillConfig,
     teacher, student = task_models(cfg, vocab_size, n_labels)
     teacher.to(device)
     student.to(device)
-    train, dev = to_device(train_np, device), to_device(dev_np, device)
+    train = DeviceBatches(to_device(train_np, device), cfg.batch_size)
+    dev = to_device(dev_np, device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     n_batches = max(1, len(train_np["labels"]) // cfg.batch_size)
+    why_eager = route(device, eager, log)
 
     def s_out(b):
         return student(b["input_ids"], b["attention_mask"],
@@ -200,56 +176,53 @@ def run_task_distillation(cfg: DistillConfig,
         teacher.load_state_dict(teacher_state)
     else:
         # a short task fine-tune so the teacher carries signal
+        def teacher_loss(b):
+            logits = teacher(b["input_ids"], b["attention_mask"],
+                             b["token_type_ids"], generator=gen)["logits"]
+            if regression:
+                return torch.mean((logits.reshape(-1) - b["labels"]) ** 2)
+            return F.cross_entropy(logits, b["labels"])
+
         opt = make_bert_adam(teacher, cfg.teacher_lr,
                              n_batches * cfg.teacher_epochs, cfg.warmup_frac)
+        loop = TrainLoop(teacher_loss, opt, train, (gen,), why_eager)
         nprng = np.random.RandomState(cfg.seed)
         clock = StepClock(device)
         teacher.train()
-        for _ in range(cfg.teacher_epochs):
-            for b in batches(train, cfg.batch_size, nprng):
-                logits = teacher(b["input_ids"], b["attention_mask"],
-                                 b["token_type_ids"], generator=gen)["logits"]
-                loss = (torch.mean((logits.reshape(-1) - b["labels"]) ** 2)
-                        if regression else F.cross_entropy(logits, b["labels"]))
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                opt.step()
-                clock.tick()
+        epoch_losses = [loop.epoch(nprng, clock)
+                        for _ in range(cfg.teacher_epochs)]
         if clock.n:
-            last = float(loss.detach())
+            last = loop.last_loss()
             teacher_row = {"finetune_loss": last,
+                           "finetune_epoch_losses": epoch_losses,
                            "finetune_ms_per_step": clock.ms_per_step()}
             log(f"teacher fine-tuned, last loss {last:.4f}")
+        del loop  # its graph and the graph's memory
     teacher.eval()
 
     # the teacher's dev score: the baseline the student is judged against
     trow = {"stage": 0, "teacher": True, **teacher_row,
-            **glue_metric(cfg.task, *_predict(teacher, dev, cfg.batch_size,
-                                               regression))}
+            **glue_metric(cfg.task, *predictor(
+                teacher, dev, cfg.batch_size, regression, why_eager)())}
     history.append(trow)
     log(trow)
+    student_dev = predictor(student, dev, cfg.batch_size, regression,
+                            why_eager)
 
     def run_stage(stage, epochs, lr, loss_fn, nprng):
         steps = max(1, n_batches * epochs // cfg.grad_accum_steps)
         opt = make_bert_adam(student, lr, steps, cfg.warmup_frac,
                              cfg.grad_accum_steps)
+        loop = TrainLoop(loss_fn, opt, train, (gen,), why_eager)
         for ep in range(epochs):
             t0 = time.time()
             clock = StepClock(device)
-            losses = []
             student.train()
-            for b in batches(train, cfg.batch_size, nprng):
-                loss = loss_fn(b)
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                opt.step()
-                losses.append(loss.detach())
-                clock.tick()
-            row = {"stage": stage, "epoch": ep + 1, "loss": mean_loss(losses),
+            row = {"stage": stage, "epoch": ep + 1,
+                   "loss": loop.epoch(nprng, clock),
                    "ms_per_step": clock.ms_per_step()}
             if stage == 2:
-                row.update(glue_metric(cfg.task, *_predict(
-                    student, dev, cfg.batch_size, regression)))
+                row.update(glue_metric(cfg.task, *student_dev()))
             row["time_s"] = time.time() - t0
             history.append(row)
             log(row)

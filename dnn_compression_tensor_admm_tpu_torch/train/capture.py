@@ -20,6 +20,9 @@ for the same reason):
   counter set to 0) captured too. Nothing is read to the host between
   the chunk's first replay and its one read of the [k] sums at its end.
 
+The NLP steps (`nlp/steps.py`) are `CapturedStep`s too, each call made by
+`call`.
+
 Replays run under `torch.cuda.set_sync_debug_mode("error")`. A capture or
 a replay that fails raises; a run never gives way to the eager route. On
 the CPU, and on a mesh of several ranks (its collectives are not
@@ -176,6 +179,17 @@ class CapturedStep:
             self.fn()
         else:
             self.graph.replay()
+
+
+def call(step: CapturedStep) -> None:
+    """One call of `step` as `run_epoch` makes it: a step to be captured
+    and not captured yet is primed, a captured one replayed under the sync
+    debug mode 'error', one that is not captured runs eagerly."""
+    if step.capture and not step.captured:
+        step.prime()
+        return
+    with _no_host_reads(step.capture):
+        step()
 
 
 class StaticBatch:

@@ -23,6 +23,17 @@ from dnn_compression_tensor_admm_tpu_torch.train.losses import (
 B, H, W, C = 4, 16, 16, 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the tests share the CPU with other workers, and
+    the draws' many small ops stall on a thread pool that waits for cores
+    the other workers hold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _images(seed=0, shape=(B, H, W, C)):
     """Float images in [0, 1], NHWC (the JAX side's layout)."""
     return np.random.RandomState(seed).uniform(0, 1, shape).astype(np.float32)

@@ -4,7 +4,7 @@ card.
 
     python3 tools/torch_fused_check.py [--seed S] [--paths tk deit]
         [--extra stiefel augment]
-        [--phases fused fused_methods guard multi_rank]
+        [--phases fused fused_methods guard multi_rank nlp nlp_captured]
 
 Builds the four kernel libraries (four nvcc processes at once), then runs
 `chip_smoke.phase_fused` on the chosen main paths (default both: ResNet32
@@ -22,8 +22,11 @@ name and power limit, then a JSON line a check; exits non-zero where one
 fails. `--phases` (default `fused`) also runs, in that order,
 `chip_smoke.phase_guard` (the Z/U step's finite guard on every route),
 `phase_multi_rank` (2 ranks on the card) and `phase_fused_methods`
-(fused chunks by the `subspace` and `ns` methods). Without CUDA it exits
-1.
+(fused chunks by the `subspace` and `ns` methods), `phase_nlp` (the NLP
+commands at BERT-base width, every step captured) and
+`phase_nlp_captured` (each NLP command captured against its eager
+reference loop, with its planted faults); the kernel libraries are built
+only for the phases that launch them. Without CUDA it exits 1.
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ def main() -> int:
                     choices=["stiefel", "augment"])
     ap.add_argument("--phases", nargs="*", default=["fused"],
                     choices=["fused", "fused_methods", "guard",
-                             "multi_rank"])
+                             "multi_rank", "nlp", "nlp_captured"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_fused_check: CUDA is not available", file=sys.stderr)
@@ -105,9 +108,11 @@ def main() -> int:
         stdin=subprocess.DEVNULL, capture_output=True, text=True, timeout=60,
         check=True).stdout.strip()
     print(card, flush=True)
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        list(pool.map(build.build, ("tucker2_factors", "tucker2_factors_ws",
-                                    "subspace", "subspace_ws")))
+    if args.extra or set(args.phases) - {"nlp", "nlp_captured"}:
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            list(pool.map(build.build, ("tucker2_factors",
+                                        "tucker2_factors_ws", "subspace",
+                                        "subspace_ws")))
     cs.FUSED["paths"] = tuple(args.paths)
     with cs.shared_sets(), tempfile.TemporaryDirectory() as workdir:
         rows = [extra(name, args.seed, card) for name in args.extra]
@@ -121,6 +126,10 @@ def main() -> int:
             cs.phase_fused(args.seed, card, workdir)
         if "fused_methods" in args.phases:
             cs.phase_fused_methods(args.seed, card)
+        if "nlp" in args.phases:
+            cs.phase_nlp(args.seed, card, workdir)
+        if "nlp_captured" in args.phases:
+            cs.phase_nlp_captured(args.seed, card, workdir)
     return 1 if any(row["failed"] for row in rows) else 0
 
 
