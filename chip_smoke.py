@@ -200,7 +200,15 @@ prints one JSON line per phase:
     `cholesky_ex`) and TT@3x by `ns`, the gate above (2 x 3 steps in
     float32, every replay in mode 'error', no kernel launch), each
     route's ms a step printed; and a `gram` run asked to fuse, which
-    must say its exclusion once and run per epoch.
+    must say its exclusion once and run per epoch;
+11. bench  — the JAX package's `bench/` harnesses as the port runs them
+    (`dnn_compression_tensor_admm_tpu_torch/bench/`) at full width with
+    cut counts (BENCH): the DeiT-tiny X-step breakdown from captured-graph
+    slopes at its own replay counts, `zstep_ab --methods kernel` in one
+    process and on 2 ranks (5 and 5 + 3 Tucker-2 launches a Z-step,
+    asserted), one round of `ab_args` (`args`, `perm`) and `scaling` at 1
+    and 2 ranks with both controls, the 2-rank rows of both in one spawn;
+    every row finite, every replay in mode 'error', under 60 s.
 
 Every phase that trains runs the captured route: the X-step is replayed
 from a CUDA graph after one eager call (the main phases' per-epoch runs,
@@ -4006,6 +4014,138 @@ def phase_nlp_captured(seed: int, card: str, workdir: str) -> None:
         raise AssertionError("; ".join(failures))
 
 
+# --------------------------------------------------------------------------
+# The JAX package's `bench/` harnesses, ported
+# (`dnn_compression_tensor_admm_tpu_torch/bench/`), at full width with cut
+# counts: `deit_breakdown` at its own counts (DeiT-tiny at batch 128, 224 x
+# 224, every component replayed from a CUDA graph); `zstep_ab` by the
+# `kernel` method (the Tucker-2 CUDA kernel on ResNet32 TK@3x's buckets) in
+# one process and on 2 ranks' blocks; `ab_args`, one round of `args` and
+# `perm`; `scaling` at 1 and 2 ranks with both controls, the 2-rank rows in
+# the same spawn as `zstep_ab`'s. Every row must be finite, every replay in
+# the sync debug mode "error", the Tucker-2 launches a Z-step those of
+# BENCH_ZSTEP_LAUNCHES, and the phase under BENCH_WALL_LIMIT_S (its budget
+# is 45 s; a slower host must not fail it).
+BENCH = dict(zstep_iters=2, ab_rounds=1, ab_epochs=2, ab_steps=10,
+             scaling_steps=2)
+CUT["bench"] = ("zstep_ab 2 timed Z/U steps; ab_args 1 round x 2 epochs x "
+                "10 steps (JAX: 8 x 12 x 196); scaling 2 epochs x 2 steps "
+                "(JAX: 4), 1 and 2 ranks")
+BENCH_WALL_LIMIT_S = 60.0
+# ResNet32 TK@3x's Tucker-2 launches a Z-step: its 5 buckets in one
+# process; over 2 ranks each rank's blocks (10, 1, 9, 1, 9 layers: rank 0
+# holds a block of every bucket, rank 1 none of the two one-layer ones)
+BENCH_ZSTEP_LAUNCHES = {1: [5.0], 2: [5.0, 3.0]}
+
+
+def _finite_numbers(obj) -> bool:
+    """Whether every number in a JSON-able row is finite."""
+    if isinstance(obj, dict):
+        return all(_finite_numbers(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(_finite_numbers(v) for v in obj)
+    if isinstance(obj, float):
+        return np.isfinite(obj)
+    return True
+
+
+def phase_bench(seed: int, card: str, workdir: str) -> int:
+    """The four harnesses as above; returns the Tucker-2 launches this
+    process made (the 1-process Z/U steps and `ab_args`' runs; the
+    ranks' are in the row). The harnesses draw from seed 0, as the JAX
+    ones do, whatever `seed`."""
+    from dnn_compression_tensor_admm_tpu_torch.bench import (
+        ab_args, deit_breakdown, scaling, zstep_ab)
+    from dnn_compression_tensor_admm_tpu_torch.parallel.launch import run_jobs
+    t_start = time.perf_counter()
+    failures, rows, walls = [], {}, {}
+    tk.tucker2_factors_batched.launches = 0
+    sk.dominant_left_subspace_batched.launches = 0
+    steps = BENCH["scaling_steps"]
+    with observed_graphs() as seen:
+        t0 = time.perf_counter()
+        rows["deit_breakdown"] = deit_breakdown.breakdown("cuda")
+        walls["deit_breakdown"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rows["ab_args"] = ab_args.main([
+                "--rounds", str(BENCH["ab_rounds"]),
+                "--epochs", str(BENCH["ab_epochs"]),
+                "--steps", str(BENCH["ab_steps"]), "--warmup", "0",
+                "--out", os.path.join(workdir, "ab_args.jsonl")])
+        walls["ab_args"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zstep_1 = zstep_ab.measure(1, method="kernel",
+                                   iters=BENCH["zstep_iters"])
+        one = run_jobs(scaling.rank_jobs(1, True, steps, "cuda"), 1, "cuda")
+        walls["one_rank"] = time.perf_counter() - t0
+    launches = tk.tucker2_factors_batched.launches
+    t0 = time.perf_counter()
+    two = run_jobs([zstep_ab.zstep_job(2, method="kernel",
+                                       iters=BENCH["zstep_iters"]),
+                    *scaling.rank_jobs(2, True, steps, "cuda")], 2, "cuda")
+    walls["two_ranks_spawn"] = time.perf_counter() - t0
+    zstep_2, two = two[0], two[1:]
+    for z in (zstep_1, zstep_2):
+        z["speedup_vs_unsharded"] = round(zstep_1["z_step_ms"]
+                                          / z["z_step_ms"], 3)
+    rows["zstep_ab"] = [zstep_1, zstep_2]
+    rows["scaling"] = scaling.efficiencies(
+        [*one[2:], two[2]], {1: one[0], 2: two[0]}, {1: one[1], 2: two[1]},
+        base=one[3])
+    rows["scaling_controls"] = [one[0], one[1], two[0], two[1]]
+
+    # each harness's readings, then what the phase holds them to
+    for n, z in ((1, zstep_1), (2, zstep_2)):
+        got = [r["tucker2"] for r in z["launches_per_z_step_per_rank"]]
+        if got != BENCH_ZSTEP_LAUNCHES[n] or any(
+                r["subspace"] for r in z["launches_per_z_step_per_rank"]):
+            failures.append(f"zstep_ab at {n} rank(s): launches a Z-step "
+                            f"{z['launches_per_z_step_per_rank']}, Tucker-2 "
+                            f"expected {BENCH_ZSTEP_LAUNCHES[n]}")
+        if z["nonfinite"]:
+            failures.append(f"zstep_ab at {n} rank(s): {z['nonfinite']} "
+                            "non-finite layers")
+    ab_runs = len(rows["ab_args"])
+    want_launches = ((zstep_1["warmups"] + BENCH["zstep_iters"])
+                     * BENCH_ZSTEP_LAUNCHES[1][0]
+                     + ab_runs * (1 + BENCH["ab_epochs"])
+                     * BENCH_ZSTEP_LAUNCHES[1][0])
+    if (launches != want_launches
+            or sk.dominant_left_subspace_batched.launches):
+        failures.append(f"the phase launched the Tucker-2 kernel {launches} "
+                        f"times (expected {want_launches}) and the subspace "
+                        f"kernel {sk.dominant_left_subspace_batched.launches}")
+    want_replays = (deit_breakdown.REPLAYS
+                    + ab_runs * (BENCH["ab_epochs"] * BENCH["ab_steps"] - 1)
+                    + (2 * steps - 1))  # the 1-rank captured scaling run
+    if (len(seen["modes"]) != want_replays
+            or seen["modes"].count(2) != want_replays):
+        failures.append(f"{len(seen['modes'])} replays, "
+                        f"{seen['modes'].count(2)} in mode 'error' "
+                        f"(expected {want_replays})")
+    routes = [r["route"] for r in rows["scaling"]]
+    if routes != ["captured", "eager", "eager"]:
+        failures.append(f"scaling routes {routes}")
+    if not _finite_numbers(rows):
+        failures.append("a row holds a non-finite number")
+    if any(v <= 0 for v in rows["deit_breakdown"]["ms"].values()):
+        failures.append(f"deit_breakdown: {rows['deit_breakdown']['ms']}")
+    wall_s = time.perf_counter() - t_start
+    if wall_s > BENCH_WALL_LIMIT_S:
+        failures.append(f"the bench phase took {wall_s:.1f} s, over "
+                        f"{BENCH_WALL_LIMIT_S}")
+    emit({"phase": "bench", "card": card, "cut": CUT["bench"], **rows,
+          "tucker2_launches_this_process": launches,
+          "replays": len(seen["modes"]),
+          "replays_in_error_mode": seen["modes"].count(2),
+          "wall_s_by_harness": walls, "failures": failures,
+          "wall_s": wall_s})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 RECORDED_MS = {
     "first_version_ms_per_z_step": {"tucker2_factors_batched": 7.85,
                                     "dominant_left_subspace_batched": 15.13},
@@ -4306,6 +4446,7 @@ def main() -> int:
         phase_multi_rank(args.seed, smi, workdir)
         launches_fused = phase_fused(args.seed, smi, workdir)
         phase_fused_methods(args.seed, smi)
+        launches_bench = phase_bench(args.seed, smi, workdir)
         # last: one of its planted faults fails a capture
         phase_nlp_captured(args.seed, smi, workdir)
         emit({"phase": "shared_sets", "made": [list(k) for k in sets]})
@@ -4346,6 +4487,10 @@ def main() -> int:
             ("tucker2_factors_batched@tk3_fused", "resnet32 tk@3x (fused)",
              launches_fused["tk"], rows_tk, src + "tucker2_factors.cu",
              hosvd_key),
+            # the bench phase's 1-process Z/U steps and `ab_args`' runs
+            # (the 2 ranks' launches are in its row)
+            ("tucker2_factors_batched@bench", "resnet32 tk@3x (bench/)",
+             launches_bench, rows_tk, src + "tucker2_factors.cu", hosvd_key),
             ("tucker2_factors_batched@mbv2_inet_svd2",
              PATHS["mbv2_inet_svd"]["name"], launches_mbv2_inet_main,
              rows_zoo["mbv2_inet_svd"],

@@ -135,6 +135,16 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
 all_reduce.calls = all_gather.calls = broadcast.calls = 0
 
 
+def barrier(device: torch.device) -> None:
+    """Returns once every rank has reached it (an all-reduce of one zero
+    on `device`), with the card's queue drained; in one process it only
+    drains the queue. The measurement harnesses start their timed loops
+    here."""
+    all_reduce(torch.zeros(1, device=device))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def reset_counts() -> None:
     all_reduce.calls = all_gather.calls = broadcast.calls = 0
 

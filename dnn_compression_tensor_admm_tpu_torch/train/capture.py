@@ -154,7 +154,10 @@ class CapturedStep:
     a CUDA graph once `prime` has run it (see the module docstring);
     before that, and where `capture` is False, a call runs it eagerly.
     `capture_s` is the host time of the capture (it waits for the card
-    first)."""
+    first). `CapturedStep.captures` counts the steps captured in this
+    process, as the kernel wrappers count their launches."""
+
+    captures = 0
 
     def __init__(self, fn: Callable[[], None],
                  generators: Sequence[torch.Generator], capture: bool):
@@ -173,6 +176,7 @@ class CapturedStep:
         t0 = time.perf_counter()
         self.graph = _Graph(self.fn, self.generators)
         self.capture_s = time.perf_counter() - t0
+        CapturedStep.captures += 1
 
     def __call__(self) -> None:
         if self.graph is None:

@@ -4,7 +4,8 @@ card.
 
     python3 tools/torch_fused_check.py [--seed S] [--paths tk deit]
         [--extra stiefel augment]
-        [--phases fused fused_methods guard multi_rank nlp nlp_captured]
+        [--phases fused fused_methods guard multi_rank nlp nlp_captured
+                  bench]
 
 Builds the four kernel libraries (four nvcc processes at once), then runs
 `chip_smoke.phase_fused` on the chosen main paths (default both: ResNet32
@@ -25,8 +26,11 @@ fails. `--phases` (default `fused`) also runs, in that order,
 (fused chunks by the `subspace` and `ns` methods), `phase_nlp` (the NLP
 commands at BERT-base width, every step captured) and
 `phase_nlp_captured` (each NLP command captured against its eager
-reference loop, with its planted faults); the kernel libraries are built
-only for the phases that launch them. Without CUDA it exits 1.
+reference loop, with its planted faults) and `phase_bench` (the ported
+`bench/` harnesses at cut counts, 2 ranks on the card, after the
+synthetic sets the earlier phases of `chip_smoke.py` make); the kernel
+libraries are built only for the phases that launch them. Without CUDA
+it exits 1.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
+from dnn_compression_tensor_admm_tpu_torch.data import datasets  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.ops.cuda import build  # noqa: E402
 from dnn_compression_tensor_admm_tpu_torch.train import (  # noqa: E402
     TrainConfig, train_model)
@@ -98,7 +103,7 @@ def main() -> int:
                     choices=["stiefel", "augment"])
     ap.add_argument("--phases", nargs="*", default=["fused"],
                     choices=["fused", "fused_methods", "guard",
-                             "multi_rank", "nlp", "nlp_captured"])
+                             "multi_rank", "nlp", "nlp_captured", "bench"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_fused_check: CUDA is not available", file=sys.stderr)
@@ -130,6 +135,14 @@ def main() -> int:
             cs.phase_nlp(args.seed, card, workdir)
         if "nlp_captured" in args.phases:
             cs.phase_nlp_captured(args.seed, card, workdir)
+        if "bench" in args.phases:
+            # the sets `chip_smoke.py`'s earlier phases have made by then,
+            # so that the phase's wall time reads as it does there
+            for name, size in (("synthetic-imagenet", 512),
+                               ("synthetic-cifar10", None)):
+                datasets.load_dataset(name, True, size)
+            datasets.load_dataset("synthetic-cifar10", False, None)
+            cs.phase_bench(args.seed, card, workdir)
     return 1 if any(row["failed"] for row in rows) else 0
 
 
